@@ -2,20 +2,28 @@
 """Smoke run of the PyTorch port on one CUDA card (an H100 is the target).
 
     python3 chip_smoke.py                  # the check
-    python3 chip_smoke.py --profile DIR    # also profile the frame into DIR
+    python3 chip_smoke.py --profile DIR    # also profile both lanes into DIR
 
 Drives ``darsia_tpu_torch`` only (no JAX, no OpenCV), from the root of a
-checkout, in four phases; any failure raises and exits non-zero:
+checkout, in phases; any failure raises and exits non-zero:
 
-1. Build the two-pass warp kernel K1 (``darsia_tpu_torch/csrc/warp_rows_t.cu``,
-   nvcc, sm_90a) and print the card's name and power limit.
+1. Build the kernels K1 (``csrc/warp_rows_t.cu``), K2 and K3
+   (``csrc/warp_rows.cu``), one nvcc per source started together, sm_90a;
+   print the card's name and power limit.
 2. K1 against its plain PyTorch version on the card, at the schedule-test
    shapes and both production passes of a 1788x3180 frame (D=120): max |diff|
    <= 1e-6; time both at the production passes.
-3. The two-pass warp against the exact gather warp on the 4K curvature field
+3. K2 and K3 against their plain version (``warp_rows_reference``) at the
+   schedule-test shapes, a ragged case, a violated bound and the 4K row case
+   (3 channels folded into rows, 5364x3180, D=120 and D=30): max |diff| <=
+   1e-6, and K2 == K3 == K1 transposed (shared cols), bitwise; time both
+   schedules and the plain version at the 4K cases.  Then the warp_rows
+   path: every launch count set to 0, ``warp_rows`` called at the two 4K
+   cases on each schedule, the counts read.
+4. The two-pass warp against the exact gather warp on the 4K curvature field
    of the bench configuration, interior [8:-8, 8:-8], within the bench gate
    (mean < 2e-3, p99.9 < 0.05, max < 0.45).
-4. The production path ``FusedAnalysisPipeline`` (translation + curvature
+5. The production path ``FusedAnalysisPipeline`` (translation + curvature
    correction -> 8x16-patch registration -> concentration with 10 Jacobi
    sweeps) on a seeded synthetic 1788x3180 uint8 frame: 1 warm-up and 5 timed
    frames, exactly 4 K1 launches per frame, finite output of the corrected
@@ -23,9 +31,19 @@ checkout, in four phases; any failure raises and exits non-zero:
    ConcentrationAnalysis) within mean |diff| <= 1e-3 (the bench's full-path
    gate), and the same frame with K1 swapped for its plain version within
    mean |diff| <= 1e-5.
+6. The single-warp lane (``single_warp=True``) of the same configuration: 1
+   warm-up and 5 timed frames, exactly 4 K1 launches per frame, finite
+   output of the corrected shape, the blob gate of bench.py:207-237 against
+   the two-warp lane (blob_rel_err <= 5e-2, noise_ratio <= 1.3), and the frame
+   with plain K1 within mean |diff| <= 1e-5.
+7. The series lane: an 8-frame (1788, 3180, 8, 3) uint8 series (rolled as
+   bench.py:254-257 rolls it) through both lanes: exactly 32 K1 launches per
+   series, each frame equal to that lane's single-frame call.
 
-The second-to-last line is a JSON object of per-kernel results; the last line
-is ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
+Every launch count is set to 0 just before each path of phases 3 and 5-7 and
+read just after it.  The second-to-last line is a JSON object of per-kernel
+results; the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero
+without a CUDA device.
 """
 
 from __future__ import annotations
@@ -44,6 +62,30 @@ REPO = Path(__file__).resolve().parent
 H, W = 1788, 3180  # the production frame (baseline.jpg's size)
 D_REG = 120  # registration warp bound (FusedAnalysisPipeline default)
 SCHEDULE_SHAPES = [(3, 64, 300, 7), (3, 130, 515, 40), (3, 96, 257, 121)]
+# K2/K3 cases (R, W_in, D, W_out, cols scale): the schedule-test shapes, a
+# ragged case, a violated bound, and the 4K row case at the two bounds at
+# which the TPU measured the ring schedule (warp2pass.py:144-147); each runs
+# with 3 channels folded into rows.
+ROW_CASES = [
+    (64, 300, 7, None, 1.0),
+    (130, 515, 40, None, 1.0),
+    (96, 257, 121, None, 1.0),
+    (33, 200, 3, 150, 1.0),
+    (40, 90, 2, 300, 1.5),
+    (H, W, 120, None, 1.0),
+    (H, W, 30, None, 1.0),
+]
+SERIES_T = 8
+# The card's published peaks (H100 SXM data sheet, 700 W): the bound of a
+# kernel is the larger of its bytes over the memory rate and its f32
+# operations (outside the tensor cores) over the f32 rate.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+KERNELS = {
+    "warp_rows_t": ("launch_count", "csrc/warp_rows_t.cu", 323),
+    "warp_rows": ("rows_launch_count", "csrc/warp_rows.cu", 218),
+    "warp_rows_ring": ("ring_launch_count", "csrc/warp_rows.cu", 188),
+}
 CURVATURE = {
     "crop": {
         "pts_src": [[8, 11], [H - 33, 16], [H - 40, W - 15], [5, W - 15]],
@@ -85,6 +127,28 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+    """(least ms on the card, "bytes" or "operations")."""
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_S, flops / PEAK_F32_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def reset_counts(w2p) -> None:
+    for attr, _, _ in KERNELS.values():
+        setattr(w2p, attr, 0)
+
+
+def read_counts(w2p) -> dict:
+    return {name: getattr(w2p, attr) for name, (attr, _, _) in KERNELS.items()}
+
+
+def check_counts(counts: dict, want: dict, path: str) -> None:
+    """The path launched exactly ``want`` of each kernel (others: none)."""
+    full = {name: want.get(name, 0) for name in KERNELS}
+    if counts != full:
+        raise AssertionError(f"{path}: launches {counts}, want {full}")
+
+
 def rows_case(C, R, W_in, D, W_out=None, seed=0, device="cuda"):
     """(data, cols) with |cols - j| <= D on the card."""
     g = torch.Generator(device=device).manual_seed(seed)
@@ -123,14 +187,123 @@ def phase_kernel(w2p) -> dict:
             k2 = cuda_ms(lambda: w2p.warp_rows_t(data, cols, D), 20)
             p2 = cuda_ms(lambda: w2p.warp_rows_t_reference(data, cols, D), 10)
             name = "pass1" if len(timed) == 0 else "pass2"
-            timed[name] = {"kernel_ms": [k1, k2], "plain_ms": [p1, p2]}
-            gbps = 4.0 * (C * R * W_in + R * W_out + C * R * W_out) / (min(k1, k2) * 1e6)
+            moved = 4.0 * (C * R * W_in + R * W_out + C * R * W_out)
+            # Per (r, j): 2 clamp, add, floor, sub, 2 clamp; per output: lerp.
+            bound_ms, bound_by = bound(moved, 7.0 * R * W_out + 3.0 * C * R * W_out)
+            timed[name] = {
+                "kernel_ms": [k1, k2],
+                "plain_ms": [p1, p2],
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+            }
             print(
-                f"K1 {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
-                f"{gbps:.1f} GB/s by the 12 B/element count"
+                f"K1 {name}: kernel {k1} / {k2} ms, plain {p1} / {p2} ms, "
+                f"{moved / (min(k1, k2) * 1e6):.1f} GB/s by the 12 B/element count, "
+                f"bound {bound_ms} ms ({bound_by})"
             )
         del data, cols, out, ref
     return {"max_abs_err": max_err, "bitwise": bitwise, **timed}
+
+
+def phase_rows(w2p) -> dict:
+    """K2 and K3 vs their plain version, vs each other and vs K1; times and
+    the warp_rows path at the 4K cases."""
+    import torch.nn.functional as F
+
+    max_err = {"warp_rows": 0.0, "warp_rows_ring": 0.0}
+    timed, path_inputs = [], []
+    for k, (R, W_in, D, W_out, scale) in enumerate(ROW_CASES):
+        data3, cols = rows_case(3, R, W_in, D, W_out, seed=10 + k)
+        cols = (cols * scale).contiguous()
+        data = data3.reshape(3 * R, W_in)  # channels folded into rows
+        cols3 = cols.repeat(3, 1)
+        out2 = w2p.warp_rows(data, cols3, D)
+        out3 = w2p.warp_rows(data, cols3, D, ring=True)
+        t_out = w2p.warp_rows_t(data3, cols, D)
+        torch.cuda.synchronize()
+        ref = w2p.warp_rows_reference(data, cols3, D)
+        torch.cuda.synchronize()
+        errs = {
+            "warp_rows": float((out2 - ref).abs().max()),
+            "warp_rows_ring": float((out3 - ref).abs().max()),
+        }
+        same = {
+            "K2==plain": bool(torch.equal(out2, ref)),
+            "K3==plain": bool(torch.equal(out3, ref)),
+            "K2==K3": bool(torch.equal(out2, out3)),
+            "K2==K1T": bool(torch.equal(out2.reshape(3, R, -1), t_out.transpose(1, 2))),
+        }
+        shape = (3 * R, W_in, W_out or W_in)
+        print(
+            f"K2/K3 {shape} D={D} cols x{scale}: max|kernel-plain| {errs}, "
+            f"bitwise {same}"
+        )
+        if not max(errs.values()) <= 1e-6:
+            raise AssertionError(f"K2/K3 disagree with their plain version: {errs}")
+        if not (same["K2==K3"] and same["K2==K1T"]):
+            raise AssertionError(f"K2, K3 and K1 transposed differ: {same}")
+        for name, err in errs.items():
+            max_err[name] = max(max_err[name], err)
+        del out2, out3, t_out, ref
+        if R != H:
+            continue
+        # plain, K2, K3, K3, K2, plain: drift on the card shows as a gap
+        # between the two readings of one version.
+        p1 = cuda_ms(lambda: w2p.warp_rows_reference(data, cols3, D), 10)
+        k2a = cuda_ms(lambda: w2p.warp_rows(data, cols3, D), 20)
+        k3a = cuda_ms(lambda: w2p.warp_rows(data, cols3, D, ring=True), 20)
+        k3b = cuda_ms(lambda: w2p.warp_rows(data, cols3, D, ring=True), 20)
+        k2b = cuda_ms(lambda: w2p.warp_rows(data, cols3, D), 20)
+        p2 = cuda_ms(lambda: w2p.warp_rows_reference(data, cols3, D), 10)
+        # For orientation only (not the same function: no chain-edge clamp):
+        # F.grid_sample's bilinear resample of the same rows.
+        Rf, Wo = data.shape[0], cols3.shape[1]
+        gx = 2.0 * cols3 / (W_in - 1) - 1.0
+        gy = (2.0 * torch.arange(Rf, device=data.device) / (Rf - 1) - 1.0)[:, None]
+        grid = torch.stack([gx, gy.expand(Rf, Wo)], dim=-1)[None].contiguous()
+        img = data[None, None]
+
+        def grid_sample():
+            return F.grid_sample(
+                img, grid, mode="bilinear", padding_mode="border", align_corners=True
+            )
+
+        g_ms = cuda_ms(grid_sample, 20)
+        ref = w2p.warp_rows_reference(data, cols3, D)
+        g_err = float((grid_sample()[0, 0] - ref).abs().max())
+        moved = 4.0 * (Rf * W_in + 2 * Rf * Wo)
+        # Per output: 2 clamp, add, floor, sub, 2 clamp, lerp (3).
+        bound_ms, bound_by = bound(moved, 10.0 * Rf * Wo)
+        row = {
+            "D": D,
+            "K2_ms": [k2a, k2b],
+            "K3_ms": [k3a, k3b],
+            "plain_ms": [p1, p2],
+            "grid_sample_ms": g_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        }
+        timed.append(row)
+        print(
+            f"K2/K3 {shape} D={D}: K2 {k2a} / {k2b} ms, K3 {k3a} / {k3b} ms, plain "
+            f"{p1} / {p2} ms, bound {bound_ms} ms ({bound_by}, {moved / 1e6:.1f} MB); "
+            f"F.grid_sample (orientation only) {g_ms} ms, max|diff| to plain {g_err}"
+        )
+        path_inputs.append((data, cols3, D))
+        del grid, gx, gy
+
+    # The warp_rows path: the public entry point at the 4K cases, each schedule.
+    reset_counts(w2p)
+    torch.cuda.synchronize()
+    for data, cols3, D in path_inputs:
+        for ring in (False, True):
+            w2p.warp_rows(data, cols3, D, ring=ring)
+    torch.cuda.synchronize()
+    launches = read_counts(w2p)
+    n = len(path_inputs)
+    check_counts(launches, {"warp_rows": n, "warp_rows_ring": n}, "warp_rows path")
+    print(f"warp_rows path: launches {launches}")
+    return {"max_abs_err": max_err, "timed": timed, "launches": launches}
 
 
 def smooth_image(device) -> torch.Tensor:
@@ -172,14 +345,13 @@ def phase_two_pass(dt, device) -> dict:
     return gate
 
 
-def phase_main_path(dt, w2p, device, card: str, profile) -> dict:
+def build_lanes(dt, device) -> dict:
+    """The bench configuration's public objects and both lanes' pipelines,
+    on a seeded synthetic frame (bench.py:42-49, :92)."""
     rng = np.random.default_rng(0)
     base_u8 = (rng.random((H, W, 3)) * 255).astype(np.uint8)
-    probe_u8 = np.roll(base_u8, shift=(2, 3), axis=(0, 1))
-
     curv = dt.CurvatureCorrection(config=CURVATURE)
     trans = dt.TranslationCorrection([2.0, -3.0])
-    tic = time.perf_counter()
     base_img = dt.OpticalImage(
         torch.from_numpy(base_u8).to(device), transformations=[trans, curv], **META
     ).img_as(torch.float32)
@@ -195,83 +367,215 @@ def phase_main_path(dt, w2p, device, card: str, profile) -> dict:
     registration = dt.ImageRegistration(
         base_img, N_patches=[8, 16], rel_overlap=0.1, quality_tol=0.02
     )
-    pipeline = dt.FusedAnalysisPipeline(
-        transformations=[trans, curv], registration=registration, analysis=analysis
-    )
-    probe = torch.from_numpy(probe_u8).to(device)
-    out = pipeline(probe)  # warm-up: builds the setup products
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - tic
+    objs = {"transformations": [trans, curv], "registration": registration}
+    return {
+        "base_u8": base_u8,
+        "probe_u8": np.roll(base_u8, shift=(2, 3), axis=(0, 1)),
+        "trans": trans,
+        "curv": curv,
+        "analysis": analysis,
+        "registration": registration,
+        "two_warp": dt.FusedAnalysisPipeline(analysis=analysis, **objs),
+        "single_warp": dt.FusedAnalysisPipeline(
+            analysis=analysis, single_warp=True, **objs
+        ),
+    }
 
-    frames = 5
-    torch.cuda.reset_peak_memory_stats(device)
-    w2p.launch_count = 0
+
+def run_frames(w2p, pipeline, probe, frames: int, path: str):
+    """``frames`` timed frames with every count set to 0 just before and read
+    just after; exactly 4 K1 launches per frame.  Returns (out, ms/frame,
+    counts)."""
+    reset_counts(w2p)
     torch.cuda.synchronize()
     tic = time.perf_counter()
     for _ in range(frames):
         out = pipeline(probe)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - tic
-    launches = w2p.launch_count
-    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
-    if launches != 4 * frames:
-        raise AssertionError(f"{launches} K1 launches in {frames} frames, want {4 * frames}")
+    counts = read_counts(w2p)
+    check_counts(counts, {"warp_rows_t": 4 * frames}, path)
     conc = out.img
     if tuple(conc.shape) != (OH, W) or not bool(torch.isfinite(conc).all()):
-        raise AssertionError(f"bad concentration: shape {tuple(conc.shape)}")
+        raise AssertionError(f"{path}: bad concentration, shape {tuple(conc.shape)}")
+    return out, elapsed / frames * 1e3, counts
 
-    # The bench's full-path gate (bench.py:162-180): the same public objects
-    # run as separate stages must give the same concentration.
-    staged_img = dt.OpticalImage(probe, transformations=[trans, curv], **META)
-    staged = analysis(registration(staged_img.img_as(torch.float32))).img
-    staged_err = float((staged - conc).abs().mean())
-    if not staged_err <= 1e-3:
-        raise AssertionError(f"staged vs fused path: mean |dconc| = {staged_err}")
 
-    before = w2p.launch_count
+def plain_frames(w2p, pipeline, probe, conc, frames: int, path: str):
+    """The frame with K1 swapped for its plain version: (mean |dconc|, ms)."""
+    before = read_counts(w2p)
     plain = pipeline(probe, warp_impl="plain").img
     torch.cuda.synchronize()
-    if w2p.launch_count != before:
-        raise AssertionError("the plain run launched K1")
+    if read_counts(w2p) != before:
+        raise AssertionError(f"{path}: the plain run launched a kernel")
     diff = float((plain - conc).abs().mean())
     if not diff <= 1e-5:
-        raise AssertionError(f"kernel vs plain frame: mean |dconc| = {diff}")
+        raise AssertionError(f"{path}: kernel vs plain frame, mean |dconc| = {diff}")
     tic = time.perf_counter()
     for _ in range(frames):
         pipeline(probe, warp_impl="plain")
     torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - tic) / frames * 1e3
+    return diff, (time.perf_counter() - tic) / frames * 1e3
 
-    ms = elapsed / frames * 1e3
-    mpix = H * W / 1e6 / (elapsed / frames)
+
+def phase_main_path(dt, w2p, lanes, device, card: str, profile) -> dict:
+    pipeline = lanes["two_warp"]
+    probe = torch.from_numpy(lanes["probe_u8"]).to(device)
+    tic = time.perf_counter()
+    pipeline(probe)  # warm-up: builds the setup products
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - tic
+
+    frames = 5
+    torch.cuda.reset_peak_memory_stats(device)
+    out, ms, counts = run_frames(w2p, pipeline, probe, frames, "two-warp lane")
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    conc = out.img
+
+    # The bench's full-path gate (bench.py:162-180): the same public objects
+    # run as separate stages must give the same concentration.
+    trans, curv = lanes["trans"], lanes["curv"]
+    staged_img = dt.OpticalImage(probe, transformations=[trans, curv], **META)
+    registered = lanes["registration"](staged_img.img_as(torch.float32))
+    staged = lanes["analysis"](registered).img
+    staged_err = float((staged - conc).abs().mean())
+    if not staged_err <= 1e-3:
+        raise AssertionError(f"staged vs fused path: mean |dconc| = {staged_err}")
+
+    diff, plain_ms = plain_frames(w2p, pipeline, probe, conc, frames, "two-warp lane")
+    mpix = H * W / 1e3 / ms
     result = {
         "ms_per_frame": ms,
         "mpix_s": mpix,
         "plain_k1_ms_per_frame": plain_ms,
-        "launches": launches,
+        "launches": counts["warp_rows_t"],
         "frames": frames,
         "setup_s": setup_s,
         "peak_gib": peak_gib,
         "mean_abs_dconc_plain": diff,
         "mean_abs_dconc_staged": staged_err,
-        "conc_mean": float(conc.mean()),
     }
     print(
-        f"main path: {ms:.3f} ms/frame, {mpix:.2f} Mpix/s ({H}x{W} uint8 in, "
-        f"{frames} frames, {launches} K1 launches) on {card}; with plain K1 "
-        f"{plain_ms:.3f} ms/frame; mean|dconc| vs plain K1 {diff}, vs staged objects "
-        f"{staged_err}; peak {peak_gib:.2f} GiB; "
-        f"setup + warm-up {setup_s:.2f} s"
+        f"main path (two-warp lane): {ms} ms/frame, {mpix} Mpix/s ({H}x{W} uint8 in, "
+        f"{frames} frames, launches {counts}) on {card}; with plain K1 "
+        f"{plain_ms} ms/frame; mean|dconc| vs plain K1 {diff}, vs staged objects "
+        f"{staged_err}; peak {peak_gib:.2f} GiB; first frame (setup) {setup_s:.2f} s"
     )
     if profile is not None:
-        profile_frame(pipeline, probe, ms, profile)
+        profile_frame(pipeline, probe, ms, profile, "two_warp")
         stage_times(pipeline, probe)
     return result
 
 
-def profile_frame(pipeline, probe, ms_per_frame: float, out_dir: Path, frames: int = 3):
+def phase_single_warp(w2p, lanes, device, card: str, profile) -> dict:
+    pipeline = lanes["single_warp"]
+    probe = torch.from_numpy(lanes["probe_u8"]).to(device)
+    tic = time.perf_counter()
+    pipeline(probe)  # warm-up: builds the lane's setup products
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - tic
+    frames = 5
+    out, ms, counts = run_frames(w2p, pipeline, probe, frames, "single-warp lane")
+    diff, plain_ms = plain_frames(
+        w2p, pipeline, probe, out.img, frames, "single-warp lane"
+    )
+
+    # The blob gate of bench.py:207-237: a synthetic tracer blob's integrated
+    # concentration matches the two-warp lane's, and the off-blob noise
+    # floor does not grow.
+    yy, xx = np.ogrid[:H, :W]
+    blob = 40.0 * np.exp(
+        -(((yy - H * 0.6) / 160.0) ** 2 + ((xx - W * 0.4) / 260.0) ** 2)
+    )
+    blob_u8 = np.clip(lanes["probe_u8"].astype(np.int32) + blob[..., None], 0, 255)
+    blob_probe = torch.from_numpy(blob_u8.astype(np.uint8)).to(device)
+    conc_two = lanes["two_warp"](blob_probe).img.cpu().numpy()
+    conc_one = pipeline(blob_probe).img.cpu().numpy()
+    bmask = (blob > 4.0)[: conc_two.shape[0], : conc_two.shape[1]]
+    integral_two = float(conc_two[bmask].sum())
+    blob_rel_err = abs(float(conc_one[bmask].sum()) - integral_two) / max(
+        abs(integral_two), 1e-12
+    )
+    noise_ratio = float(conc_one[~bmask].mean()) / max(
+        float(conc_two[~bmask].mean()), 1e-12
+    )
+    print(
+        f"single-warp blob gate: blob_rel_err={blob_rel_err} "
+        f"noise_ratio={noise_ratio}"
+    )
+    if not (blob_rel_err <= 5e-2 and noise_ratio <= 1.3):
+        raise AssertionError(f"single-warp gate: {blob_rel_err}, {noise_ratio}")
+
+    mpix = H * W / 1e3 / ms
+    print(
+        f"single-warp lane: {ms} ms/frame, {mpix} Mpix/s ({frames} frames, launches "
+        f"{counts}) on {card}; with plain K1 {plain_ms} ms/frame; mean|dconc| vs "
+        f"plain K1 {diff}; first frame (setup) {setup_s:.2f} s"
+    )
+    if profile is not None:
+        profile_frame(pipeline, probe, ms, profile, "single_warp")
+    return {
+        "ms_per_frame": ms,
+        "mpix_s": mpix,
+        "plain_k1_ms_per_frame": plain_ms,
+        "launches": counts["warp_rows_t"],
+        "mean_abs_dconc_plain": diff,
+        "blob_rel_err": blob_rel_err,
+        "noise_ratio": noise_ratio,
+    }
+
+
+def phase_series(w2p, lanes, device, card: str) -> dict:
+    """An 8-frame series through both lanes: 32 K1 launches per series, each
+    frame equal to the lane's single-frame call."""
+    base_u8 = lanes["base_u8"]
+    frames = [np.roll(base_u8, shift=(2 + k, 3), axis=(0, 1)) for k in range(SERIES_T)]
+    series = torch.from_numpy(np.stack(frames, axis=2)).to(device)  # (H, W, T, C)
+    result = {}
+    for lane in ("two_warp", "single_warp"):
+        pipeline = lanes[lane]
+        pipeline(series)  # warm-up
+        reps = 2
+        reset_counts(w2p)
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        for _ in range(reps):
+            out = pipeline(series)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - tic
+        counts = read_counts(w2p)
+        check_counts(counts, {"warp_rows_t": 4 * SERIES_T * reps}, f"{lane} series")
+        conc = out.img
+        if not out.series or tuple(conc.shape) != (OH, W, SERIES_T):
+            raise AssertionError(f"{lane} series: bad output {tuple(conc.shape)}")
+        if not bool(torch.isfinite(conc).all()):
+            raise AssertionError(f"{lane} series: non-finite output")
+        for k in range(SERIES_T):
+            single = pipeline(series[:, :, k].contiguous()).img
+            if not torch.equal(conc[..., k], single):
+                err = float((conc[..., k] - single).abs().max())
+                raise AssertionError(f"{lane} series frame {k} != single frame: {err}")
+        ms = elapsed / (reps * SERIES_T) * 1e3
+        mpix = H * W / 1e3 / ms
+        print(
+            f"{lane} series ({H}x{W}x{SERIES_T} uint8, {reps} runs): {ms} ms/frame, "
+            f"{mpix} Mpix/s, launches {counts} on {card}; every frame == its "
+            "single-frame call"
+        )
+        result[lane] = {
+            "ms_per_frame": ms,
+            "mpix_s": mpix,
+            "launches": counts["warp_rows_t"],
+        }
+    return result
+
+
+def profile_frame(
+    pipeline, probe, ms_per_frame: float, out_dir: Path, name: str, frames: int = 3
+):
     """torch.profiler over a few frames: kernel table and Chrome trace into
-    ``out_dir``, device busy time and idle share printed."""
+    ``out_dir`` (``profile_<name>.*``), device busy time and idle share
+    printed."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -282,8 +586,8 @@ def profile_frame(pipeline, probe, ms_per_frame: float, out_dir: Path, frames: i
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "profile_frame.txt").write_text(table)
-    trace = out_dir / "profile_frame.json"
+    (out_dir / f"profile_{name}.txt").write_text(table)
+    trace = out_dir / f"profile_{name}.json"
     prof.export_chrome_trace(str(trace))
     print(table)
     # Device busy time: the union of kernel/memcpy/memset intervals.
@@ -305,7 +609,7 @@ def profile_frame(pipeline, probe, ms_per_frame: float, out_dir: Path, frames: i
     busy += cur_end - cur_start
     busy_ms = busy / 1e3 / frames
     print(
-        f"profile: {len(events) / frames:.0f} device ops per frame, device busy "
+        f"profile {name}: {len(events) / frames:.0f} device ops per frame, device busy "
         f"{busy_ms:.3f} ms per frame; idle share against the unprofiled "
         f"{ms_per_frame:.3f} ms/frame: {1 - busy_ms / ms_per_frame:.3f}"
     )
@@ -346,7 +650,8 @@ def main() -> int:
         "--profile",
         type=Path,
         metavar="DIR",
-        help="also profile 3 frames (table + Chrome trace into DIR) and time the stages",
+        help="also profile 3 frames of each lane (table + Chrome trace into DIR) "
+        "and time the two-warp lane's stages",
     )
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -363,36 +668,60 @@ def main() -> int:
     tic = time.perf_counter()
     w2p.build_kernel()
     build_s = time.perf_counter() - tic
-    print(f"K1 build + load: {build_s:.2f} s")
+    print(f"kernel build + load (K1, K2, K3): {build_s:.2f} s")
     if w2p.build_info is not None:
         for line in w2p.build_info["log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(key in line for key in ("entry function", "registers", "spill")):
                 print("ptxas:", line.strip())
 
     k1 = phase_kernel(w2p)
+    rows = phase_rows(w2p)
     phase_two_pass(dt, device)
-    main = phase_main_path(dt, w2p, device, card, args.profile)
+    lanes = build_lanes(dt, device)
+    main_path = phase_main_path(dt, w2p, lanes, device, card, args.profile)
+    single = phase_single_warp(w2p, lanes, device, card, args.profile)
+    series = phase_series(w2p, lanes, device, card)
 
-    ms = sum(min(k1[p]["kernel_ms"]) for p in ("pass1", "pass2"))
-    plain_ms = sum(min(k1[p]["plain_ms"]) for p in ("pass1", "pass2"))
-    print(
-        json.dumps(
+    passes = [k1["pass1"], k1["pass2"]]
+    k1_launches = (
+        main_path["launches"]
+        + single["launches"]
+        + sum(lane["launches"] for lane in series.values())
+    )
+    results = {
+        "warp_rows_t": {
+            "launches": k1_launches,
+            "max_abs_err": k1["max_abs_err"],
+            "ms": sum(min(t["kernel_ms"]) for t in passes),
+            "plain_ms": sum(min(t["plain_ms"]) for t in passes),
+            "bound_ms": sum(t["bound_ms"] for t in passes),
+            "bound_by": passes[0]["bound_by"],
+        }
+    }
+    for name, key in (("warp_rows", "K2_ms"), ("warp_rows_ring", "K3_ms")):
+        results[name] = {
+            "launches": rows["launches"][name],
+            "max_abs_err": rows["max_abs_err"][name],
+            "ms": sum(min(t[key]) for t in rows["timed"]),
+            "plain_ms": sum(min(t["plain_ms"]) for t in rows["timed"]),
+            "bound_ms": sum(t["bound_ms"] for t in rows["timed"]),
+            "bound_by": rows["timed"][0]["bound_by"],
+        }
+    kernels = []
+    for name, (_, source, line) in KERNELS.items():
+        kernels.append(
             {
-                "kernels": [
-                    {
-                        "name": "warp_rows_t",
-                        "route": "cuda",
-                        "source": "darsia_tpu_torch/csrc/warp_rows_t.cu",
-                        "replaces": "darsia_tpu/ops/pallas/warp2pass.py:323",
-                        "launches": main["launches"],
-                        "max_abs_err": k1["max_abs_err"],
-                        "ms": ms,
-                        "plain_ms": plain_ms,
-                    }
-                ]
+                "name": name,
+                "route": "cuda",
+                "source": f"darsia_tpu_torch/{source}",
+                "replaces": f"darsia_tpu/ops/pallas/warp2pass.py:{line}",
+                **results[name],
+                # No single PyTorch call computes these functions (the Pallas
+                # chain-edge clamp; K1's transposed store).
+                "library_ms": None,
             }
         )
-    )
+    print(json.dumps({"kernels": kernels}))
     device_info = {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

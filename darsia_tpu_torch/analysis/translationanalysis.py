@@ -209,6 +209,23 @@ class TranslationAnalysis:
 
         return estimate, operands, geom
 
+    def coarse_grid_positions(self, geom: dict) -> torch.Tensor:
+        """(2, CH, CW) row/col positions of the coarse TPS evaluation grid.
+
+        Cell centres, where bilinear (align_corners=False) upsampling expects
+        its samples, so composing consumers sample the field exactly where
+        :meth:`fused_estimator_parts` evaluated it.  Computed in f32, as the
+        JAX package does.
+        """
+        Hs, Ws, CH, CW = geom["Hs"], geom["Ws"], geom["CH"], geom["CW"]
+        device = self.base.img.device
+        r_pos = torch.arange(CH, dtype=torch.float32, device=device)
+        c_pos = torch.arange(CW, dtype=torch.float32, device=device)
+        if (CH, CW) != (Hs, Ws):
+            r_pos = (r_pos + 0.5) * (Hs / CH) - 0.5
+            c_pos = (c_pos + 0.5) * (Ws / CW) - 0.5
+        return torch.stack(torch.meshgrid(r_pos, c_pos, indexing="ij"), dim=0)
+
     def fused_aligner_parts(self, max_disp: int = 120):
         """``(body, operands)``; ``body(data, ops, warp_impl="auto") ->
         (registered_f32, shifts, quality)``."""

@@ -3,7 +3,8 @@
 ``FusedAnalysisPipeline`` in both packages keeps its setup products as a
 nested dict of arrays: ``field_k`` (the fused correction field of stage k),
 ``reg`` (``base_spectra``, ``centers``, ``Ainv_x``/``Ainv_y``,
-``E_x``/``E_y``) and ``base`` (the corrected float baseline).  Given that
+``E_x``/``E_y``), ``base`` (the corrected float baseline) and, in the
+single-warp lane, ``coarse_pos`` (the coarse TPS grid's positions).  Given that
 dict with numpy leaves (``np.asarray`` of the JAX arrays),
 :func:`operands_from_numpy` builds the port's operands, which
 ``FusedAnalysisPipeline.__call__(image, operands=...)`` runs with.

@@ -1,16 +1,19 @@
 """Physical images: a tensor plus metadata.
 
-Counterpart of :mod:`darsia_tpu.image.image` for single (non-series) 2-D
-images.  ``Image.img`` is a ``torch.Tensor`` on whatever device it was given
-(numpy input lands on the CPU); the metadata (physical dimensions in meters,
-Cartesian origin, time) stays on the host.  Corrections passed as
-``transformations=[...]`` run at construction, runs of geometric ones fused
-into one warp (:func:`darsia_tpu_torch.corrections.fuse.apply_transformation_chain`).
+Counterpart of :mod:`darsia_tpu.image.image` for 2-D images, single frames
+or time series.  ``Image.img`` is a ``torch.Tensor``: a tensor input stays on
+its device, a numpy input goes to ``device`` (the CUDA card unless the
+caller asks for another, e.g. ``device="cpu"``).  The metadata (physical
+dimensions in meters, Cartesian origin, dates and times) stays on the host.
+Corrections passed as ``transformations=[...]`` run at construction, runs of
+geometric ones fused into one warp
+(:func:`darsia_tpu_torch.corrections.fuse.apply_transformation_chain`).
 """
 
 from __future__ import annotations
 
 from typing import Optional
+from warnings import warn
 
 import numpy as np
 import torch
@@ -18,36 +21,61 @@ import torch
 from ..utils.dtype import convert_dtype
 from .coordinatesystem import CoordinateSystem
 
-__all__ = ["Image", "OpticalImage", "ScalarImage"]
+__all__ = ["Image", "OpticalImage", "ScalarImage", "as_tensor"]
 
 
-def _as_tensor(img) -> torch.Tensor:
-    if isinstance(img, torch.Tensor):
-        return img
-    return torch.from_numpy(np.ascontiguousarray(img))
+def as_tensor(array, device=None) -> torch.Tensor:
+    """``array`` as a tensor: a tensor stays where it is (or moves to
+    ``device`` when one is given); a numpy array goes to ``device``, which is
+    the CUDA card when None.
+
+    Raises:
+        RuntimeError: a numpy array, no ``device`` and no CUDA card.
+
+    """
+    if isinstance(array, torch.Tensor):
+        return array if device is None else array.to(device)
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device for a numpy input: pass device=\"cpu\" to run on "
+                "the CPU"
+            )
+        device = "cuda"
+    return torch.from_numpy(np.ascontiguousarray(array)).to(device)
+
+
+def _is_none(value) -> bool:
+    if isinstance(value, list):
+        return all(v is None for v in value)
+    return value is None
 
 
 class Image:
-    """Physical 2-D image (``(H, W[, C])``, matrix indexing).
+    """Physical 2-D image: ``(H, W[, T][, C])``, matrix indexing, the time
+    axis (series only) after the space axes.
 
     Args:
         img: tensor or numpy array.
-        transformations: corrections applied in order at construction.
+        transformations: corrections applied in order at construction
+            (single frames only).
+        device: where a numpy ``img`` goes (default: the CUDA card); a tensor
+            moves there only when it is given.
         **kwargs: metadata: ``dimensions`` (or ``height``/``width``),
-            ``origin``, ``scalar``, ``date``, ``time``, ``name``.
+            ``origin``, ``series``, ``scalar``, ``date``, ``reference_date``,
+            ``time``, ``name``.
 
     """
 
-    def __init__(self, img, transformations: Optional[list] = None, **kwargs) -> None:
-        self.img = _as_tensor(img)
+    def __init__(
+        self, img, transformations: Optional[list] = None, device=None, **kwargs
+    ) -> None:
+        self.img = as_tensor(img, device)
 
         self.space_dim = int(kwargs.get("space_dim", kwargs.get("dim", 2)))
         self.indexing = kwargs.get("indexing", "ij")
         if self.space_dim != 2 or self.indexing != "ij":
             raise NotImplementedError("only 2-D matrix-indexed images are ported")
-        if kwargs.get("series", False):
-            raise NotImplementedError("time series are not ported yet")
-        self.series = False
 
         dimensions = list(kwargs.get("dimensions", [1.0, 1.0]))
         if "height" in kwargs:
@@ -61,19 +89,41 @@ class Image:
             kwargs.get("origin", [0.0, self.dimensions[0]]), dtype=float
         )
         self.name = kwargs.get("name")
-        self.date = kwargs.get("date")
-        self.reference_date = kwargs.get("reference_date", self.date)
-        self.time = kwargs.get("time")
+
+        self.series = bool(kwargs.get("series", False))
+        self.time_dim = int(self.series)
+        self.time_num = int(self.img.shape[self.space_dim]) if self.series else 1
+        self.date = kwargs.get("date", self.time_num * [None] if self.series else None)
+        self.reference_date = kwargs.get(
+            "reference_date", self.date[0] if isinstance(self.date, list) else self.date
+        )
+        self.set_time(kwargs.get("time"))
+        if self.series and _is_none(self.date) and _is_none(self.time):
+            warn("No time information provided for the image.")
 
         self.scalar = bool(kwargs.get("scalar", False))
-        self.range_dim = 0 if self.scalar else self.img.dim() - self.space_dim
-        if self.img.dim() != self.space_dim + self.range_dim:
+        lead = self.space_dim + self.time_dim
+        self.range_dim = 0 if self.scalar else self.img.dim() - lead
+        if self.img.dim() != lead + self.range_dim:
             raise ValueError(f"image of shape {self.shape} does not fit its metadata")
 
         if transformations is not None:
+            if self.series:
+                raise NotImplementedError("corrections of a series are not ported yet")
             from ..corrections.fuse import apply_transformation_chain
 
             apply_transformation_chain(self, transformations)
+
+    def set_time(self, time=None) -> None:
+        """Set the relative time (seconds); from the dates when not given."""
+        if time is not None:
+            self.time = time
+        elif _is_none(self.date) or self.reference_date is None:
+            self.time = self.time_num * [None] if self.series else None
+        elif self.series:
+            self.time = [(d - self.reference_date).total_seconds() for d in self.date]
+        else:
+            self.time = (self.date - self.reference_date).total_seconds()
 
     # ------------------------------------------------------------------ data
 
@@ -118,6 +168,17 @@ class Image:
             "name": self.name,
         }
 
+    def time_slice(self, time_index: int) -> "Image":
+        """Single frame ``time_index`` of a series (a view of its tensor)."""
+        if not self.series:
+            raise ValueError("Image is not a time-series.")
+        img = self.img[..., time_index] if self.scalar else self.img[..., time_index, :]
+        metadata = self.metadata()
+        metadata["series"] = False
+        metadata["date"] = None if self.date is None else self.date[time_index]
+        metadata["time"] = None if self.time is None else self.time[time_index]
+        return type(self)(img=img, **metadata)
+
     def copy(self) -> "Image":
         """Copy of the image; the tensor is cloned."""
         return type(self)(img=self.img.clone(), **self.metadata())
@@ -133,19 +194,19 @@ class Image:
 class ScalarImage(Image):
     """Scalar-valued image (no range axes)."""
 
-    def __init__(self, img, transformations=None, **kwargs):
+    def __init__(self, img, transformations=None, device=None, **kwargs):
         kwargs["scalar"] = True
-        super().__init__(img, transformations, **kwargs)
+        super().__init__(img, transformations, device, **kwargs)
 
 
 class OpticalImage(Image):
     """Trichromatic photograph (RGB range axis)."""
 
-    def __init__(self, img, transformations=None, **kwargs):
+    def __init__(self, img, transformations=None, device=None, **kwargs):
         kwargs["scalar"] = False
         kwargs["space_dim"] = 2
         self.color_space = str(kwargs.pop("color_space", "RGB")).upper()
-        super().__init__(img, transformations, **kwargs)
+        super().__init__(img, transformations, device, **kwargs)
 
     def metadata(self) -> dict:
         meta = super().metadata()

@@ -1,15 +1,23 @@
-"""Two-pass separable warp on a hand-written CUDA kernel (K1).
+"""Row-resample kernels K1, K2 and K3, and the two-pass warp on K1.
 
-Counterpart of :mod:`darsia_tpu.ops.pallas.warp2pass`.  The row resample
-``warp_rows_t`` is the kernel in ``csrc/warp_rows_t.cu``; the two-pass warp
-(Catmull-Smith: resample along rows, then along columns) is two launches of
-it, the first writing its output transposed so the second reads rows again.
+Counterpart of :mod:`darsia_tpu.ops.pallas.warp2pass`.  Three hand-written
+CUDA kernels replace its three ``pallas_call`` sites:
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use, from the
-sources in the package, into ``darsia_tpu_torch/_build/`` (one shared
-library with a plain C entry point, bound with ``ctypes``).  ``warp_rows_t``
-launches it for CUDA tensors and takes its plain PyTorch version,
-:func:`warp_rows_t_reference`, for CPU tensors only.
+* K1, ``warp_rows_t`` (``csrc/warp_rows_t.cu``): the channel-batched row
+  resample with a transposed output (``warp_rows_pallas_t``).  The two-pass
+  warp (Catmull-Smith: resample along rows, then along columns) is two
+  launches of it, the first writing its output transposed so the second
+  reads rows again.
+* K2 and K3, ``warp_rows`` (``csrc/warp_rows.cu``): the row resample with
+  an untransposed output (``warp_rows_pallas``), on the plain schedule (K2)
+  or the ring-buffer schedule (K3, ``ring=True``).  Same function, same bits.
+
+The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, one
+shared library per source in ``csrc/``, all sources at once, into
+``darsia_tpu_torch/_build/`` (plain C entry points, bound with ``ctypes``).
+The wrappers launch them for CUDA tensors and take their plain PyTorch
+versions, :func:`warp_rows_t_reference` and :func:`warp_rows_reference`, for
+CPU tensors only.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ import torch
 
 __all__ = [
     "build_kernel",
+    "warp_rows",
+    "warp_rows_reference",
     "warp_rows_t",
     "warp_rows_t_reference",
     "warp_two_pass",
@@ -36,7 +46,7 @@ __all__ = [
 _LANE = 128  # the Pallas lane tile whose window chain fixes the index clamp
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "warp_rows_t.cu"
+_CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = [
     "-gencode",
@@ -49,16 +59,30 @@ _NVCC_FLAGS = [
     "-Xptxas",
     "-v",
 ]
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+#: C entry point -> (source stem in ``csrc/``, argument types).
+_ENTRIES = {
+    "darsia_warp_rows_t": ("warp_rows_t", [_PTR] * 3 + [_INT] * 6 + [_PTR]),
+    "darsia_warp_rows": ("warp_rows", [_PTR] * 3 + [_INT] * 5 + [_PTR]),
+    "darsia_warp_rows_ring": ("warp_rows", [_PTR] * 3 + [_INT] * 5 + [_PTR]),
+}
+#: K3 keeps nw chunks of 8 rows x 128 f32 in shared memory; a block can have
+#: at most 227 KB of it on Hopper.
+_RING_STRIP = 8
+_MAX_SMEM = 232448
 
-#: Kernel launches made by :func:`warp_rows_t` (plain-version calls do not
-#: count).  Reset it to 0 before a run to see which path the run took.
+#: Kernel launches made by :func:`warp_rows_t` (K1), and by :func:`warp_rows`
+#: on the plain (K2) and the ring (K3) schedule.  Plain-version calls do not
+#: count.  Reset them to 0 before a run to see which path the run took.
 launch_count = 0
+rows_launch_count = 0
+ring_launch_count = 0
 
 #: ``{"seconds": ..., "log": ...}`` of the build in this process (None if the
-#: library was already built on disk).
+#: libraries were already built on disk).
 build_info = None
 
-_entry = None
+_entries = None
 
 
 def _nvcc() -> str:
@@ -74,60 +98,68 @@ def _nvcc() -> str:
     return found
 
 
-def build_kernel():
-    """Compile (once per source version) and load K1; returns its C entry."""
-    global _entry, build_info
-    if _entry is not None:
-        return _entry
-    digest = hashlib.sha256(
-        _SOURCE.read_bytes() + " ".join(_NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    lib_path = _BUILD_DIR / f"warp_rows_t_{digest}.so"
-    if not lib_path.is_file():
+def build_kernel() -> dict:
+    """Compile (once per version of the sources and flags) and load every
+    kernel in ``csrc/``; returns the C entry points by name.
+
+    One ``nvcc`` per source, all started together.
+    """
+    global _entries, build_info
+    if _entries is not None:
+        return _entries
+    sources = sorted(_CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode() + src.read_bytes())
+    tag = digest.hexdigest()[:16]
+    libs = {src.stem: (src, _BUILD_DIR / f"{src.stem}_{tag}.so") for src in sources}
+    todo = {stem: pair for stem, pair in libs.items() if not pair[1].is_file()}
+    if todo:
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
         tic = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-            capture_output=True,
-            text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        procs = []
+        for stem, (src, lib) in todo.items():
+            tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+            cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )
-        os.replace(tmp, lib_path)
-        build_info = {
-            "seconds": time.perf_counter() - tic,
-            "log": proc.stdout + proc.stderr,
-        }
-    lib = ctypes.CDLL(str(lib_path))
-    entry = lib.darsia_warp_rows_t
-    entry.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    entry.restype = ctypes.c_int
-    _entry = entry
-    return entry
+            procs.append((stem, tmp, lib, proc))
+        logs, failed = [], []
+        for stem, tmp, lib, proc in procs:
+            log = proc.communicate()[0]
+            logs.append(f"[{stem}]\n{log}")
+            if proc.returncode == 0:
+                os.replace(tmp, lib)
+            else:
+                failed.append(f"nvcc failed on {stem} ({proc.returncode}):\n{log}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        build_info = {"seconds": time.perf_counter() - tic, "log": "".join(logs)}
+    loaded = {stem: ctypes.CDLL(str(lib)) for stem, (_, lib) in libs.items()}
+    entries = {}
+    for name, (stem, argtypes) in _ENTRIES.items():
+        entry = getattr(loaded[stem], name)
+        entry.argtypes = argtypes
+        entry.restype = ctypes.c_int
+        entries[name] = entry
+    _entries = entries
+    return entries
 
 
 def _geometry(max_disp) -> tuple[int, int]:
-    """(P, rel_max) of the Pallas kernel (warp2pass.py:292-294, :257)."""
+    """(P, rel_max) of the Pallas kernels (warp2pass.py:155-162, :292-294)."""
     D = int(math.ceil(max_disp)) + 1
     num_windows = -(-(2 * D + _LANE + 1) // _LANE)
     return D, num_windows * _LANE - 2
 
 
-def warp_rows_t_reference(
-    data: torch.Tensor, cols: torch.Tensor, max_disp
-) -> torch.Tensor:
-    """Plain PyTorch K1: ``torch.gather`` on the edge-clamped index.
-
-    Same arithmetic as the kernel and the Pallas original, op for op (f32
-    ``rel_f``, floor, chain-edge clamp, lerp without FMA).
-    """
-    C, R, W_in = data.shape
+def _plain_samples(cols: torch.Tensor, W_in: int, max_disp):
+    """``(i0, i1, frac)``, each (R, W_out): the kernels' index arithmetic, op
+    for op (f32 ``rel_f``, floor, chain-edge clamp)."""
     W_out = cols.shape[1]
     pad, rel_max = _geometry(max_disp)
-    j = torch.arange(W_out, device=data.device)
+    j = torch.arange(W_out, device=cols.device)
     tile_start = (j // _LANE) * _LANE
     rel_f = cols.clamp(0.0, float(W_in - 1)) + (
         float(pad) - tile_start.to(torch.float32)
@@ -135,17 +167,78 @@ def warp_rows_t_reference(
     base = torch.floor(rel_f)
     frac = rel_f - base
     p = tile_start + base.clamp(0.0, float(rel_max)).long() - pad
-    i0 = p.clamp(0, W_in - 1).expand(C, R, W_out)
-    i1 = (p + 1).clamp(0, W_in - 1).expand(C, R, W_out)
-    v0 = torch.gather(data, 2, i0)
-    v1 = torch.gather(data, 2, i1)
+    return p.clamp(0, W_in - 1), (p + 1).clamp(0, W_in - 1), frac
+
+
+def warp_rows_t_reference(
+    data: torch.Tensor, cols: torch.Tensor, max_disp
+) -> torch.Tensor:
+    """Plain PyTorch K1: ``torch.gather`` on the edge-clamped index, the lerp
+    without FMA, the output transposed."""
+    C, R, W_in = data.shape
+    i0, i1, frac = _plain_samples(cols, W_in, max_disp)
+    v0 = torch.gather(data, 2, i0.expand(C, R, -1))
+    v1 = torch.gather(data, 2, i1.expand(C, R, -1))
     return (v0 + frac * (v1 - v0)).transpose(1, 2).contiguous()
+
+
+def warp_rows_reference(
+    data: torch.Tensor, cols: torch.Tensor, max_disp
+) -> torch.Tensor:
+    """Plain PyTorch K2 and K3 (both schedules compute the same function):
+    ``torch.gather`` on the edge-clamped index, the lerp without FMA."""
+    i0, i1, frac = _plain_samples(cols, data.shape[1], max_disp)
+    v0 = torch.gather(data, 1, i0)
+    v1 = torch.gather(data, 1, i1)
+    return v0 + frac * (v1 - v0)
+
+
+def _takes_plain(fn: str, data, cols, ndim: int, impl: str) -> bool:
+    """Checks shared by the kernel wrappers; True where the plain version
+    runs (CPU tensors, or ``impl="plain"``)."""
+    if data.dim() != ndim or cols.dim() != 2 or cols.shape[0] != data.shape[-2]:
+        layout = "(C, R, W_in)" if ndim == 3 else "(R, W_in)"
+        raise ValueError(
+            f"{fn} needs data {layout} and cols (R, W_out); got "
+            f"{tuple(data.shape)} and {tuple(cols.shape)}"
+        )
+    if data.dtype != torch.float32 or cols.dtype != torch.float32:
+        raise TypeError(f"{fn} takes float32 data and cols")
+    if data.device != cols.device:
+        raise ValueError("data and cols must lie on the same device")
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"unknown impl {impl!r}")
+    if impl == "plain" or data.device.type == "cpu":
+        return True
+    if data.device.type != "cuda":
+        raise ValueError(f"no {fn} kernel for device {data.device}")
+    if not (data.is_contiguous() and cols.is_contiguous()):
+        raise ValueError(f"the {fn} kernel takes contiguous data and cols")
+    if min(*data.shape, cols.shape[1]) == 0:
+        raise ValueError(f"the {fn} kernel takes no empty arrays")
+    out_numel = data.numel() // data.shape[-1] * cols.shape[1]
+    if max(data.numel(), cols.numel(), out_numel) >= 2**31:
+        raise ValueError(f"array too large for the {fn} kernel's 32-bit indices")
+    return False
+
+
+def _launch(name: str, data, cols, out, *ints) -> None:
+    """Launch C entry ``name`` on the current stream; raise on its error."""
+    entry = build_kernel()[name]
+    # The launch is asynchronous on the current stream; PyTorch's caching
+    # allocator reuses freed blocks in that stream's order, so the three
+    # buffers stay valid until the kernel has read and written them.
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        err = entry(data.data_ptr(), cols.data_ptr(), out.data_ptr(), *ints, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
 def warp_rows_t(
     data: torch.Tensor, cols: torch.Tensor, max_disp, impl: str = "auto"
 ) -> torch.Tensor:
-    """Channel-batched row resample with transposed output.
+    """Channel-batched row resample with transposed output (K1).
 
     Args:
         data: (C, R, W_in) float32, contiguous.
@@ -160,53 +253,60 @@ def warp_rows_t(
         (C, W_out, R): ``out[c, j, r] = data[c, r, cols[r, j]]``.
 
     """
-    if data.dim() != 3 or cols.dim() != 2 or cols.shape[0] != data.shape[1]:
-        raise ValueError(
-            f"need data (C, R, W_in) and cols (R, W_out); got "
-            f"{tuple(data.shape)} and {tuple(cols.shape)}"
-        )
-    if data.dtype != torch.float32 or cols.dtype != torch.float32:
-        raise TypeError("warp_rows_t takes float32 data and cols")
-    if data.device != cols.device:
-        raise ValueError("data and cols must lie on the same device")
-    if impl not in ("auto", "plain"):
-        raise ValueError(f"unknown impl {impl!r}")
-    if impl == "plain" or data.device.type == "cpu":
+    if _takes_plain("warp_rows_t", data, cols, 3, impl):
         return warp_rows_t_reference(data, cols, max_disp)
-    if data.device.type != "cuda":
-        raise ValueError(f"no K1 kernel for device {data.device}")
-    if not (data.is_contiguous() and cols.is_contiguous()):
-        raise ValueError("K1 takes contiguous data and cols")
     C, R, W_in = data.shape
     W_out = cols.shape[1]
-    if min(C, R, W_in, W_out) == 0:
-        raise ValueError("K1 takes no empty arrays")
-    if max(data.numel(), cols.numel(), C * R * W_out) >= 2**31 or R > 65535 * 32:
-        raise ValueError("array too large for K1's 32-bit launch geometry")
+    if R > 65535 * 32:
+        raise ValueError("too many rows for K1's launch grid")
     pad, rel_max = _geometry(max_disp)
-    entry = build_kernel()
     out = torch.empty((C, W_out, R), dtype=torch.float32, device=data.device)
-    # The launch is asynchronous on the current stream; PyTorch's caching
-    # allocator reuses freed blocks in that stream's order, so the three
-    # buffers stay valid until the kernel has read and written them.
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream(data.device).cuda_stream
-        err = entry(
-            data.data_ptr(),
-            cols.data_ptr(),
-            out.data_ptr(),
-            C,
-            R,
-            W_in,
-            W_out,
-            pad,
-            rel_max,
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"K1 launch failed: cudaError {err}")
+    _launch("darsia_warp_rows_t", data, cols, out, C, R, W_in, W_out, pad, rel_max)
     global launch_count
     launch_count += 1
+    return out
+
+
+def warp_rows(
+    data: torch.Tensor,
+    cols: torch.Tensor,
+    max_disp,
+    ring: bool = False,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Row resample with untransposed output (K2, or K3 with ``ring``).
+
+    Counterpart of ``warp_rows_pallas``.
+
+    Args:
+        data: (R, W_in) float32 (channels or batch folded into rows),
+            contiguous.
+        cols: (R, W_out) float32 fractional column positions,
+            |cols[r, j] - j| <= max_disp, contiguous.
+        max_disp: displacement bound.
+        ring: run the ring-buffer schedule (K3) instead of the plain one (K2);
+            the output is the same, bit for bit.
+        impl: see :func:`warp_rows_t`.
+
+    Returns:
+        (R, W_out): ``out[r, j] = data[r, cols[r, j]]``.
+
+    """
+    if _takes_plain("warp_rows", data, cols, 2, impl):
+        return warp_rows_reference(data, cols, max_disp)
+    R, W_in = data.shape
+    W_out = cols.shape[1]
+    pad, rel_max = _geometry(max_disp)
+    if ring and (rel_max + 2) * _RING_STRIP * 4 > _MAX_SMEM:
+        raise ValueError(f"max_disp {max_disp} needs more shared memory than K3 has")
+    out = torch.empty((R, W_out), dtype=torch.float32, device=data.device)
+    name = "darsia_warp_rows_ring" if ring else "darsia_warp_rows"
+    _launch(name, data, cols, out, R, W_in, W_out, pad, rel_max)
+    global rows_launch_count, ring_launch_count
+    if ring:
+        ring_launch_count += 1
+    else:
+        rows_launch_count += 1
     return out
 
 

@@ -1,4 +1,4 @@
-"""K1, the hand-written CUDA kernel, against its plain PyTorch version.
+"""K1, K2 and K3, the hand-written CUDA kernels, against their plain versions.
 
 Needs a CUDA card (marked ``gpu``; skipped elsewhere).  The file imports no
 JAX, so it also runs where JAX is absent:
@@ -67,6 +67,54 @@ def test_kernel_refuses_noncontiguous_input():
     data, cols = _rows_case(3, 64, 300, 7)
     with pytest.raises(ValueError):
         warp2pass.warp_rows_t(data, cols.t().contiguous().t(), 7)
+
+
+@pytest.mark.parametrize("ring", [False, True])
+@pytest.mark.parametrize(
+    "R,W_in,D,W_out",
+    [
+        (64, 300, 7, None),
+        (130, 515, 40, None),
+        (96, 257, 121, None),
+        (33, 200, 3, 150),  # ragged tiles, W_out < W_in
+        (40, 90, 2, 300),  # bound violated: chain-edge clamp
+    ],
+)
+def test_row_kernels_match_plain(R, W_in, D, W_out, ring):
+    data, cols = _rows_case(1, R, W_in, D, W_out)
+    data = data[0]
+    if W_out == 300:
+        cols = cols * 1.5  # displacements far beyond D
+    counts = (warp2pass.rows_launch_count, warp2pass.ring_launch_count)
+    out = warp2pass.warp_rows(data, cols, D, ring=ring)
+    torch.cuda.synchronize()
+    want = (counts[0] + (not ring), counts[1] + ring)
+    assert (warp2pass.rows_launch_count, warp2pass.ring_launch_count) == want
+    ref = warp2pass.warp_rows_reference(data, cols, D)
+    assert out.shape == ref.shape == cols.shape
+    assert (out - ref).abs().max().item() <= 1e-6
+    assert torch.equal(out, ref)
+    other = warp2pass.warp_rows(data, cols, D, ring=not ring)
+    torch.cuda.synchronize()
+    assert torch.equal(out, other)  # K2 == K3
+
+
+@pytest.mark.parametrize("ring", [False, True])
+def test_row_kernels_plain_impl_counts_no_launch(ring):
+    data, cols = _rows_case(1, 64, 300, 7)
+    counts = (warp2pass.rows_launch_count, warp2pass.ring_launch_count)
+    out = warp2pass.warp_rows(data[0], cols, 7, ring=ring, impl="plain")
+    assert out.is_cuda
+    assert (warp2pass.rows_launch_count, warp2pass.ring_launch_count) == counts
+
+
+@pytest.mark.parametrize("ring", [False, True])
+def test_row_kernels_refuse_noncontiguous_input(ring):
+    data, cols = _rows_case(1, 64, 300, 7)
+    with pytest.raises(ValueError):
+        warp2pass.warp_rows(data[0], cols.t().contiguous().t(), 7, ring=ring)
+    with pytest.raises(ValueError):
+        warp2pass.warp_rows(data[0][:, ::2], cols[:, :150].contiguous(), 7, ring=ring)
 
 
 def test_two_pass_warp_on_cuda_matches_cpu_plain():

@@ -155,7 +155,9 @@ def test_quad_grid_and_patch_centers():
 def test_window_geometry_and_curvature_stretch():
     img = np.random.default_rng(7).random((70, 90, 3)).astype(np.float32)
     j_ta = JaxTA(da.OpticalImage(img), N_patches=[3, 4], rel_overlap=0.15)
-    t_ta = TranslationAnalysis(dt.OpticalImage(img), N_patches=[3, 4], rel_overlap=0.15)
+    t_ta = TranslationAnalysis(
+        dt.OpticalImage(img, device="cpu"), N_patches=[3, 4], rel_overlap=0.15
+    )
     jw, jc = j_ta._window_geometry()
     tw, tc = t_ta._window_geometry()
     assert tuple(jw) == tw and np.array_equal(jc, tc)
