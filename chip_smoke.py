@@ -25,20 +25,28 @@ checkout, in phases; any failure raises and exits non-zero:
    (mean < 2e-3, p99.9 < 0.05, max < 0.45).
 5. The production path ``FusedAnalysisPipeline`` (translation + curvature
    correction -> 8x16-patch registration -> concentration with 10 Jacobi
-   sweeps) on a seeded synthetic 1788x3180 uint8 frame: 1 warm-up and 5 timed
-   frames, exactly 4 K1 launches per frame, finite output of the corrected
-   shape, the staged public objects (corrected Image -> ImageRegistration ->
+   sweeps) on a seeded synthetic 1788x3180 uint8 frame: 1 warm-up frame, then
+   3 windows of 5 timed frames (ms/frame: all 15 frames over all their time;
+   each window's printed beside it), exactly 4 K1 launches per frame, finite
+   output of the corrected shape, the staged public objects (corrected Image -> ImageRegistration ->
    ConcentrationAnalysis) within mean |diff| <= 1e-3 (the bench's full-path
    gate), and the same frame with K1 swapped for its plain version within
    mean |diff| <= 1e-5.
-6. The single-warp lane (``single_warp=True``) of the same configuration: 1
-   warm-up and 5 timed frames, exactly 4 K1 launches per frame, finite
+6. The single-warp lane (``single_warp=True``) of the same configuration,
+   timed as in 5, exactly 4 K1 launches per frame, finite
    output of the corrected shape, the blob gate of bench.py:207-237 against
    the two-warp lane (blob_rel_err <= 5e-2, noise_ratio <= 1.3), and the frame
    with plain K1 within mean |diff| <= 1e-5.
 7. The series lane: an 8-frame (1788, 3180, 8, 3) uint8 series (rolled as
-   bench.py:254-257 rolls it) through both lanes: exactly 32 K1 launches per
+   bench.py:254-257 rolls it) through both lanes, 3 timed runs each
+   (ms/frame: all 24 frames over all their time): exactly 32 K1 launches per
    series, each frame equal to that lane's single-frame call.
+8. K1 alone where the frame runs it, on the frame's own data and fields (one
+   frame of each lane, recorded at the wrapper): the correction chain's field
+   at its bound and the registration's TPS field at D=120 (C=3), the
+   single-warp lane's gray warp (C=1) and its composed colour warp, and the
+   registration field stretched 1.5x (a violated bound): bitwise against the
+   plain version, timed (ms, GB/s, share of the bound, launch geometry).
 
 Every launch count is set to 0 just before each path of phases 3 and 5-7 and
 read just after it.  The second-to-last line is a JSON object of per-kernel
@@ -76,6 +84,7 @@ ROW_CASES = [
     (H, W, 30, None, 1.0),
 ]
 SERIES_T = 8
+WINDOWS = 3  # timed windows per lane
 # The card's published peaks (H100 SXM data sheet, 700 W): the bound of a
 # kernel is the larger of its bytes over the memory rate and its f32
 # operations (outside the tensor cores) over the f32 rate.
@@ -113,12 +122,20 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` runs (CUDA events)."""
+def cuda_ms(fn, reps: int, device_paced: bool = False) -> float:
+    """Mean time of ``fn()`` over ``reps`` back-to-back runs (CUDA events).
+
+    ``device_paced``: the device first spins for ~20 ms, so the host has
+    queued every launch before the first one starts; a kernel shorter than
+    its launch overhead is then timed by the device, not by the host's launch
+    rate.
+    """
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    if device_paced:
+        torch.cuda._sleep(40_000_000)  # clock cycles
     start.record()
     for _ in range(reps):
         fn()
@@ -159,6 +176,52 @@ def rows_case(C, R, W_in, D, W_out=None, seed=0, device="cuda"):
     return data, (j + noise).contiguous()
 
 
+def frame_k1_calls(w2p, pipeline, probe) -> list:
+    """``(data, cols, max_disp)`` of each K1 call in one frame of
+    ``pipeline``, in order, recorded at the wrapper."""
+    calls, wrapper = [], w2p.warp_rows_t
+
+    def record(data, cols, max_disp, impl="auto"):
+        calls.append((data, cols, max_disp))
+        return wrapper(data, cols, max_disp, impl)
+
+    w2p.warp_rows_t = record
+    try:
+        pipeline(probe)
+    finally:
+        w2p.warp_rows_t = wrapper
+    torch.cuda.synchronize()
+    return calls
+
+
+def k1_cases(w2p, lanes, device) -> list:
+    """K1's launches in a frame, on the frame's own data and fields: ``[{name,
+    data, cols, D}]`` from one frame of each lane.  Two-warp: the correction
+    chain's field, then the registration's TPS field; single-warp: the gray
+    warp (C = 1) of the correction field, then the composed colour warp."""
+    probe = torch.from_numpy(lanes["probe_u8"]).to(device)
+    cases = []
+    for lane, warps in (
+        ("two_warp", ("correction", "registration")),
+        ("single_warp", ("gray", "single warp")),
+    ):
+        calls = frame_k1_calls(w2p, lanes[lane], probe)
+        if len(calls) != 4:
+            raise AssertionError(f"{lane}: {len(calls)} K1 calls per frame, want 4")
+        for k, (data, cols, D) in enumerate(calls):
+            name = f"{warps[k // 2]} pass {k % 2 + 1}"
+            cases.append({"name": name, "data": data, "cols": cols, "D": D})
+    return cases
+
+
+def k1_bound(C, R, W_in, W_out) -> tuple:
+    """(bytes, bound ms, bound_by) of one K1 call: each input read once, the
+    output written once; per (r, j) 2 clamp, add, floor, sub, 2 clamp, per
+    output a lerp."""
+    moved = 4.0 * (C * R * W_in + R * W_out + C * R * W_out)
+    return (moved, *bound(moved, 7.0 * R * W_out + 3.0 * C * R * W_out))
+
+
 def phase_kernel(w2p) -> dict:
     """K1 vs its plain version; times at the two production passes."""
     # Production shapes: pass 1 (3, H, W) -> (3, W, H); pass 2 (3, W, H) ->
@@ -187,9 +250,7 @@ def phase_kernel(w2p) -> dict:
             k2 = cuda_ms(lambda: w2p.warp_rows_t(data, cols, D), 20)
             p2 = cuda_ms(lambda: w2p.warp_rows_t_reference(data, cols, D), 10)
             name = "pass1" if len(timed) == 0 else "pass2"
-            moved = 4.0 * (C * R * W_in + R * W_out + C * R * W_out)
-            # Per (r, j): 2 clamp, add, floor, sub, 2 clamp; per output: lerp.
-            bound_ms, bound_by = bound(moved, 7.0 * R * W_out + 3.0 * C * R * W_out)
+            moved, bound_ms, bound_by = k1_bound(C, R, W_in, W_out)
             timed[name] = {
                 "kernel_ms": [k1, k2],
                 "plain_ms": [p1, p2],
@@ -199,10 +260,43 @@ def phase_kernel(w2p) -> dict:
             print(
                 f"K1 {name}: kernel {k1} / {k2} ms, plain {p1} / {p2} ms, "
                 f"{moved / (min(k1, k2) * 1e6):.1f} GB/s by the 12 B/element count, "
-                f"bound {bound_ms} ms ({bound_by})"
+                f"bound {bound_ms} ms ({bound_by}), "
+                f"{100 * bound_ms / min(k1, k2):.1f}% of bound, "
+                f"geometry {w2p.warp_rows_t_geometry(C, R, W_out)}"
             )
         del data, cols, out, ref
     return {"max_abs_err": max_err, "bitwise": bitwise, **timed}
+
+
+def phase_kernel_fields(w2p, lanes, device) -> None:
+    """K1 where the frame runs it: bitwise against its plain version and
+    timed at each of ``k1_cases``, then at a violated bound."""
+    cases = k1_cases(w2p, lanes, device)
+    # The registration pass 1 field, stretched 1.5x: far beyond its bound.
+    over = next(c for c in cases if c["name"] == "registration pass 1")
+    stretched = (over["cols"] * 1.5).contiguous()
+    cases.append({**over, "name": "violated bound", "cols": stretched})
+    for case in cases:
+        data, cols, D = case["data"], case["cols"], case["D"]
+        C, R, W_in = data.shape
+        W_out = cols.shape[1]
+        out = w2p.warp_rows_t(data, cols, D)
+        ref = w2p.warp_rows_t_reference(data, cols, D)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            err = float((out - ref).abs().max())
+            raise AssertionError(f"K1 {case['name']}: != plain, max |diff| {err}")
+        del out, ref
+        ms = [cuda_ms(lambda: w2p.warp_rows_t(data, cols, D), 20) for _ in range(2)]
+        paced = cuda_ms(lambda: w2p.warp_rows_t(data, cols, D), 20, device_paced=True)
+        moved, bound_ms, bound_by = k1_bound(C, R, W_in, W_out)
+        print(
+            f"K1 {case['name']} {(C, R, W_in)} -> {(C, W_out, R)} D={D}: bitwise, "
+            f"{ms[0]} / {ms[1]} ms, {moved / (min(ms) * 1e6):.1f} GB/s, bound "
+            f"{bound_ms} ms ({bound_by}), {100 * bound_ms / min(ms):.1f}% of bound; "
+            f"device-paced {paced} ms ({100 * bound_ms / paced:.1f}% of bound); "
+            f"geometry {w2p.warp_rows_t_geometry(C, R, W_out)}"
+        )
 
 
 def phase_rows(w2p) -> dict:
@@ -383,22 +477,26 @@ def build_lanes(dt, device) -> dict:
 
 
 def run_frames(w2p, pipeline, probe, frames: int, path: str):
-    """``frames`` timed frames with every count set to 0 just before and read
-    just after; exactly 4 K1 launches per frame.  Returns (out, ms/frame,
-    counts)."""
+    """``WINDOWS`` back-to-back windows of ``frames`` timed frames (host
+    clock, each closed by a synchronize), every count set to 0 just before
+    and read just after; exactly 4 K1 launches per frame.  Returns (out,
+    ms/frame of all frames over all their time, counts, ms/frame of each
+    window)."""
     reset_counts(w2p)
     torch.cuda.synchronize()
-    tic = time.perf_counter()
-    for _ in range(frames):
-        out = pipeline(probe)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - tic
+    per_window = []
+    for _ in range(WINDOWS):
+        tic = time.perf_counter()
+        for _ in range(frames):
+            out = pipeline(probe)
+        torch.cuda.synchronize()
+        per_window.append((time.perf_counter() - tic) / frames * 1e3)
     counts = read_counts(w2p)
-    check_counts(counts, {"warp_rows_t": 4 * frames}, path)
+    check_counts(counts, {"warp_rows_t": 4 * frames * WINDOWS}, path)
     conc = out.img
     if tuple(conc.shape) != (OH, W) or not bool(torch.isfinite(conc).all()):
         raise AssertionError(f"{path}: bad concentration, shape {tuple(conc.shape)}")
-    return out, elapsed / frames * 1e3, counts
+    return out, float(np.mean(per_window)), counts, per_window
 
 
 def plain_frames(w2p, pipeline, probe, conc, frames: int, path: str):
@@ -428,7 +526,7 @@ def phase_main_path(dt, w2p, lanes, device, card: str, profile) -> dict:
 
     frames = 5
     torch.cuda.reset_peak_memory_stats(device)
-    out, ms, counts = run_frames(w2p, pipeline, probe, frames, "two-warp lane")
+    out, ms, counts, windows = run_frames(w2p, pipeline, probe, frames, "two-warp lane")
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     conc = out.img
 
@@ -446,6 +544,7 @@ def phase_main_path(dt, w2p, lanes, device, card: str, profile) -> dict:
     mpix = H * W / 1e3 / ms
     result = {
         "ms_per_frame": ms,
+        "ms_per_frame_windows": windows,
         "mpix_s": mpix,
         "plain_k1_ms_per_frame": plain_ms,
         "launches": counts["warp_rows_t"],
@@ -456,8 +555,9 @@ def phase_main_path(dt, w2p, lanes, device, card: str, profile) -> dict:
         "mean_abs_dconc_staged": staged_err,
     }
     print(
-        f"main path (two-warp lane): {ms} ms/frame, {mpix} Mpix/s ({H}x{W} uint8 in, "
-        f"{frames} frames, launches {counts}) on {card}; with plain K1 "
+        f"main path (two-warp lane): {ms} ms/frame ({WINDOWS} windows of "
+        f"{frames} frames, each {windows}), {mpix} Mpix/s ({H}x{W} uint8 in, "
+        f"launches {counts}) on {card}; with plain K1 "
         f"{plain_ms} ms/frame; mean|dconc| vs plain K1 {diff}, vs staged objects "
         f"{staged_err}; peak {peak_gib:.2f} GiB; first frame (setup) {setup_s:.2f} s"
     )
@@ -475,7 +575,9 @@ def phase_single_warp(w2p, lanes, device, card: str, profile) -> dict:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - tic
     frames = 5
-    out, ms, counts = run_frames(w2p, pipeline, probe, frames, "single-warp lane")
+    out, ms, counts, windows = run_frames(
+        w2p, pipeline, probe, frames, "single-warp lane"
+    )
     diff, plain_ms = plain_frames(
         w2p, pipeline, probe, out.img, frames, "single-warp lane"
     )
@@ -508,14 +610,16 @@ def phase_single_warp(w2p, lanes, device, card: str, profile) -> dict:
 
     mpix = H * W / 1e3 / ms
     print(
-        f"single-warp lane: {ms} ms/frame, {mpix} Mpix/s ({frames} frames, launches "
-        f"{counts}) on {card}; with plain K1 {plain_ms} ms/frame; mean|dconc| vs "
-        f"plain K1 {diff}; first frame (setup) {setup_s:.2f} s"
+        f"single-warp lane: {ms} ms/frame ({WINDOWS} windows of {frames} "
+        f"frames, each {windows}), {mpix} Mpix/s (launches {counts}) on {card}; "
+        f"with plain K1 {plain_ms} ms/frame; mean|dconc| vs plain K1 {diff}; "
+        f"first frame (setup) {setup_s:.2f} s"
     )
     if profile is not None:
         profile_frame(pipeline, probe, ms, profile, "single_warp")
     return {
         "ms_per_frame": ms,
+        "ms_per_frame_windows": windows,
         "mpix_s": mpix,
         "plain_k1_ms_per_frame": plain_ms,
         "launches": counts["warp_rows_t"],
@@ -535,14 +639,15 @@ def phase_series(w2p, lanes, device, card: str) -> dict:
     for lane in ("two_warp", "single_warp"):
         pipeline = lanes[lane]
         pipeline(series)  # warm-up
-        reps = 2
+        reps = 3
         reset_counts(w2p)
         torch.cuda.synchronize()
-        tic = time.perf_counter()
+        per_run = []
         for _ in range(reps):
+            tic = time.perf_counter()
             out = pipeline(series)
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - tic
+            torch.cuda.synchronize()
+            per_run.append((time.perf_counter() - tic) / SERIES_T * 1e3)
         counts = read_counts(w2p)
         check_counts(counts, {"warp_rows_t": 4 * SERIES_T * reps}, f"{lane} series")
         conc = out.img
@@ -555,15 +660,16 @@ def phase_series(w2p, lanes, device, card: str) -> dict:
             if not torch.equal(conc[..., k], single):
                 err = float((conc[..., k] - single).abs().max())
                 raise AssertionError(f"{lane} series frame {k} != single frame: {err}")
-        ms = elapsed / (reps * SERIES_T) * 1e3
+        ms = float(np.mean(per_run))
         mpix = H * W / 1e3 / ms
         print(
-            f"{lane} series ({H}x{W}x{SERIES_T} uint8, {reps} runs): {ms} ms/frame, "
-            f"{mpix} Mpix/s, launches {counts} on {card}; every frame == its "
-            "single-frame call"
+            f"{lane} series ({H}x{W}x{SERIES_T} uint8): {ms} ms/frame ({reps} "
+            f"runs, each {per_run}), {mpix} Mpix/s, launches {counts} on {card}; "
+            "every frame == its single-frame call"
         )
         result[lane] = {
             "ms_per_frame": ms,
+            "ms_per_frame_runs": per_run,
             "mpix_s": mpix,
             "launches": counts["warp_rows_t"],
         }
@@ -608,10 +714,14 @@ def profile_frame(
             cur_end = max(cur_end, end)
     busy += cur_end - cur_start
     busy_ms = busy / 1e3 / frames
+    k1 = [e["dur"] for e in events if "warp_rows_t_kernel" in e.get("name", "")]
     print(
         f"profile {name}: {len(events) / frames:.0f} device ops per frame, device busy "
         f"{busy_ms:.3f} ms per frame; idle share against the unprofiled "
-        f"{ms_per_frame:.3f} ms/frame: {1 - busy_ms / ms_per_frame:.3f}"
+        f"{ms_per_frame:.3f} ms/frame: {1 - busy_ms / ms_per_frame:.3f}; K1 "
+        f"{sum(k1) / 1e3 / frames:.4f} ms per frame over {len(k1) / frames:.0f} "
+        "launches "
+        f"({sum(k1) / 1e3 / busy_ms / frames:.3f} of the busy time)"
     )
 
 
@@ -681,6 +791,7 @@ def main() -> int:
     main_path = phase_main_path(dt, w2p, lanes, device, card, args.profile)
     single = phase_single_warp(w2p, lanes, device, card, args.profile)
     series = phase_series(w2p, lanes, device, card)
+    phase_kernel_fields(w2p, lanes, device)
 
     passes = [k1["pass1"], k1["pass2"]]
     k1_launches = (

@@ -63,6 +63,7 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 #: C entry point -> (source stem in ``csrc/``, argument types).
 _ENTRIES = {
     "darsia_warp_rows_t": ("warp_rows_t", [_PTR] * 3 + [_INT] * 6 + [_PTR]),
+    "darsia_warp_rows_t_geometry": ("warp_rows_t", [_INT] * 3 + [_PTR]),
     "darsia_warp_rows": ("warp_rows", [_PTR] * 3 + [_INT] * 5 + [_PTR]),
     "darsia_warp_rows_ring": ("warp_rows", [_PTR] * 3 + [_INT] * 5 + [_PTR]),
 }
@@ -115,36 +116,49 @@ def build_kernel() -> dict:
     libs = {src.stem: (src, _BUILD_DIR / f"{src.stem}_{tag}.so") for src in sources}
     todo = {stem: pair for stem, pair in libs.items() if not pair[1].is_file()}
     if todo:
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tic = time.perf_counter()
-        procs = []
-        for stem, (src, lib) in todo.items():
-            tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-            cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)]
-            proc = subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-            )
-            procs.append((stem, tmp, lib, proc))
-        logs, failed = [], []
-        for stem, tmp, lib, proc in procs:
-            log = proc.communicate()[0]
-            logs.append(f"[{stem}]\n{log}")
-            if proc.returncode == 0:
-                os.replace(tmp, lib)
-            else:
-                failed.append(f"nvcc failed on {stem} ({proc.returncode}):\n{log}")
-        if failed:
-            raise RuntimeError("\n".join(failed))
-        build_info = {"seconds": time.perf_counter() - tic, "log": "".join(logs)}
+        log = compile_sources(todo)
+        build_info = {"seconds": time.perf_counter() - tic, "log": log}
     loaded = {stem: ctypes.CDLL(str(lib)) for stem, (_, lib) in libs.items()}
-    entries = {}
-    for name, (stem, argtypes) in _ENTRIES.items():
-        entry = getattr(loaded[stem], name)
-        entry.argtypes = argtypes
-        entry.restype = ctypes.c_int
-        entries[name] = entry
-    _entries = entries
-    return entries
+    _entries = {
+        name: bind_entry(loaded[stem], name) for name, (stem, _) in _ENTRIES.items()
+    }
+    return _entries
+
+
+def compile_sources(jobs: dict) -> str:
+    """Build ``{name: (source, library)}`` with the kernels' nvcc flags, one
+    ``nvcc`` per source, all started together; returns their ptxas logs.
+    Raises if any fails."""
+    procs = []
+    for name, (src, lib) in jobs.items():
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        procs.append((name, tmp, lib, proc))
+    logs, failed = [], []
+    for name, tmp, lib, proc in procs:
+        log = proc.communicate()[0]
+        logs.append(f"[{name}]\n{log}")
+        if proc.returncode == 0:
+            os.replace(tmp, lib)
+        else:
+            failed.append(f"nvcc failed on {name} ({proc.returncode}):\n{log}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(logs)
+
+
+def bind_entry(library: ctypes.CDLL, name: str):
+    """C entry point ``name`` of a loaded kernel library, typed as
+    ``_ENTRIES`` says."""
+    entry = getattr(library, name)
+    entry.argtypes = _ENTRIES[name][1]
+    entry.restype = ctypes.c_int
+    return entry
 
 
 def _geometry(max_disp) -> tuple[int, int]:
@@ -216,10 +230,13 @@ def _takes_plain(fn: str, data, cols, ndim: int, impl: str) -> bool:
         raise ValueError(f"the {fn} kernel takes contiguous data and cols")
     if min(*data.shape, cols.shape[1]) == 0:
         raise ValueError(f"the {fn} kernel takes no empty arrays")
-    out_numel = data.numel() // data.shape[-1] * cols.shape[1]
-    if max(data.numel(), cols.numel(), out_numel) >= 2**31:
-        raise ValueError(f"array too large for the {fn} kernel's 32-bit indices")
     return False
+
+
+def _check_index_range(fn: str, *numels: int) -> None:
+    """The kernels index within these extents in 32-bit integers."""
+    if max(numels) >= 2**31:
+        raise ValueError(f"array too large for the {fn} kernel's 32-bit indices")
 
 
 def _launch(name: str, data, cols, out, *ints) -> None:
@@ -257,14 +274,26 @@ def warp_rows_t(
         return warp_rows_t_reference(data, cols, max_disp)
     C, R, W_in = data.shape
     W_out = cols.shape[1]
-    if R > 65535 * 32:
-        raise ValueError("too many rows for K1's launch grid")
+    # A persistent 1-D grid over (tile, channel group) items; channel planes
+    # are offset in 64 bits, everything within a plane in 32.
+    _check_index_range("warp_rows_t", R * W_in, R * W_out)
     pad, rel_max = _geometry(max_disp)
     out = torch.empty((C, W_out, R), dtype=torch.float32, device=data.device)
     _launch("darsia_warp_rows_t", data, cols, out, C, R, W_in, W_out, pad, rel_max)
     global launch_count
     launch_count += 1
     return out
+
+
+def warp_rows_t_geometry(C: int, R: int, W_out: int) -> dict:
+    """The launch geometry of K1 for these shapes on the current CUDA device:
+    persistent grid size, resident blocks per SM, dynamic shared memory per
+    block (bytes) and work items (tile x channel group)."""
+    geometry = (ctypes.c_int * 4)()
+    err = build_kernel()["darsia_warp_rows_t_geometry"](C, R, W_out, geometry)
+    if err != 0:
+        raise RuntimeError(f"darsia_warp_rows_t_geometry failed: cudaError {err}")
+    return dict(zip(("grid", "blocks_per_sm", "smem_bytes", "items"), geometry))
 
 
 def warp_rows(
@@ -296,6 +325,7 @@ def warp_rows(
         return warp_rows_reference(data, cols, max_disp)
     R, W_in = data.shape
     W_out = cols.shape[1]
+    _check_index_range("warp_rows", R * W_in, R * W_out)
     pad, rel_max = _geometry(max_disp)
     if ring and (rel_max + 2) * _RING_STRIP * 4 > _MAX_SMEM:
         raise ValueError(f"max_disp {max_disp} needs more shared memory than K3 has")

@@ -56,6 +56,48 @@ def test_kernel_matches_plain(C, R, W_in, D, W_out):
     assert warp2pass.launch_count == before + 1
 
 
+# K1 tiles are 32 columns j by 56 stored rows r, stored as runs that start on a
+# 32-byte sector (R % 8 decides where), for groups of up to 4 channels, on a
+# persistent grid.
+@pytest.mark.parametrize(
+    "C,R,W_in,D,W_out,field",
+    [
+        (3, 100, 301, 5, 203, "random"),  # R % 8 == 4; W_out ragged
+        (3, 101, 130, 5, 67, "random"),  # R, W_out odd: planes at other sector offsets
+        (1, 36, 97, 3, 71, "random"),  # C = 1, every extent ragged
+        (5, 70, 200, 9, 150, "random"),  # C above the channel group (4 + 1)
+        (8, 40, 100, 4, 90, "random"),  # two full channel groups
+        (3, 1030, 2051, 120, 1999, "random"),  # more tiles than the persistent grid
+        (3, 1030, 2051, 120, 1999, "smooth"),  # a smooth field far inside its bound
+        (3, 96, 257, 7, 257, "violated"),  # cols x 1.5: chain-edge clamp
+        (2, 5, 40, 3, 7, "random"),  # fewer rows than the 8-row halo
+    ],
+)
+def test_kernel_geometry_matches_plain(C, R, W_in, D, W_out, field):
+    data, cols = _rows_case(C, R, W_in, D, W_out, seed=C + R)
+    if field == "smooth":
+        jj = torch.arange(W_out, dtype=torch.float32, device="cuda")
+        rr = torch.arange(R, dtype=torch.float32, device="cuda")[:, None]
+        cols = (jj + 2.5 * torch.sin(jj / 97.0 + rr / 61.0)).contiguous()
+    elif field == "violated":
+        cols = (cols * 1.5).contiguous()
+    before = warp2pass.launch_count
+    out = warp2pass.warp_rows_t(data, cols, D)
+    torch.cuda.synchronize()
+    assert warp2pass.launch_count == before + 1
+    ref = warp2pass.warp_rows_t_reference(data, cols, D)
+    assert out.shape == ref.shape == (C, W_out, R)
+    assert torch.equal(out, ref)
+
+
+def test_kernel_walks_more_items_than_its_grid():
+    geometry = warp2pass.warp_rows_t_geometry(3, 1030, 1999)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert geometry["grid"] == sms * geometry["blocks_per_sm"]
+    assert geometry["items"] > geometry["grid"]
+    assert geometry["smem_bytes"] > 0
+
+
 def test_plain_impl_on_cuda_counts_no_launch():
     data, cols = _rows_case(3, 64, 300, 7)
     before = warp2pass.launch_count

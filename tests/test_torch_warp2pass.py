@@ -124,6 +124,14 @@ def test_wrapper_rejects_bad_input():
         warp2pass.warp_rows_t(data, torch.zeros((8, 16)), 4, impl="fast")
 
 
+def test_kernel_index_range_guard():
+    """K1 offsets channel planes in 64 bits and indexes within a plane in 32:
+    a plane (input or output) of 2**31 elements or more is refused."""
+    warp2pass._check_index_range("warp_rows_t", 2**31 - 1, 5)
+    with pytest.raises(ValueError, match="32-bit"):
+        warp2pass._check_index_range("warp_rows_t", 3, 2**31)
+
+
 def test_identity_grid_matches_jax():
     ref = np.asarray(jax_identity_grid((5, 7)))
     assert np.array_equal(identity_grid((5, 7), torch.device("cpu")).numpy(), ref)
