@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one CUDA card (an H100 is the target).
 
     python3 chip_smoke.py                  # the check
-    python3 chip_smoke.py --profile DIR    # also profile both lanes into DIR
+    python3 chip_smoke.py --profile DIR    # also profile the lanes and paths into DIR
 
 Drives ``darsia_tpu_torch`` only (no JAX, no OpenCV), from the root of a
 checkout, in phases; any failure raises and exits non-zero:
@@ -41,15 +41,37 @@ checkout, in phases; any failure raises and exits non-zero:
    bench.py:254-257 rolls it) through both lanes, 3 timed runs each
    (ms/frame: all 24 frames over all their time): exactly 32 K1 launches per
    series, each frame equal to that lane's single-frame call.
-8. K1 alone where the frame runs it, on the frame's own data and fields (one
+8. The flexible registration lane (``ImageRegistration(..., fused=False)``) on
+   the staged corrected probe: 2 K1 launches per call (ms per call, median of
+   5), the registered frame against plain K1 within mean |diff| <= 1e-5, its
+   field against the fused lane's on the same frame (every patch passing)
+   within 2e-3 px (twice tests/test_torch_registration.py's FUSED_TPS_ERR_4K),
+   and displacement(), apply() and evaluate() in both units finite and of the
+   right shape.
+9. ``registration.displacement()`` after a two-warp pipeline frame (4 K1
+   launches) against the flexible field built from the frame's staged
+   shifts: max |diff| <= 1e-5 px.
+10. Multiscale registration (``num_levels=3``): 6 K1 launches per call (one
+   warp per level; ms per call, median of 5), against plain K1 within mean
+   |diff| <= 1e-5.
+11. Series correction: an 8-frame (1788, 3180, 8, 3) uint8 series built with
+   ``transformations=[translation, curvature]``: 2 K1 launches per series (the
+   frames folded into K1's channels; ms per series, median of 5), every frame
+   bitwise equal to the frame corrected alone; the folded warp and a frame
+   loop of warps timed beside each other.
+12. Series concentration: ``ConcentrationAnalysis`` with 2 extra baselines
+   (the cleaning filter) on the corrected series, every frame equal to its
+   single-frame result.
+13. K1 alone where the frame runs it, on the frame's own data and fields (one
    frame of each lane, recorded at the wrapper): the correction chain's field
    at its bound and the registration's TPS field at D=120 (C=3), the
    single-warp lane's gray warp (C=1) and its composed colour warp, and the
-   registration field stretched 1.5x (a violated bound): bitwise against the
-   plain version, timed (ms, GB/s, share of the bound, launch geometry).
+   registration field stretched 1.5x (a violated bound), and the series
+   correction's pair (C = 24): bitwise against the plain version, timed (ms, GB/s, share of the bound, launch geometry).
 
-Every launch count is set to 0 just before each path of phases 3 and 5-7 and
-read just after it.  The second-to-last line is a JSON object of per-kernel
+Every launch count is set to 0 just before each path of phases 3, 5-7 and
+8-11 and read just after it; the ``kernels`` line's K1 launches are their
+sum.  Each of phases 8-12 prints its seconds.  The second-to-last line is a JSON object of per-kernel
 results; the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a CUDA device.
 """
@@ -176,9 +198,9 @@ def rows_case(C, R, W_in, D, W_out=None, seed=0, device="cuda"):
     return data, (j + noise).contiguous()
 
 
-def frame_k1_calls(w2p, pipeline, probe) -> list:
-    """``(data, cols, max_disp)`` of each K1 call in one frame of
-    ``pipeline``, in order, recorded at the wrapper."""
+def frame_k1_calls(w2p, fn) -> list:
+    """``(data, cols, max_disp)`` of each K1 call of ``fn()`` (one frame of
+    a pipeline, a series correction), in order, recorded at the wrapper."""
     calls, wrapper = [], w2p.warp_rows_t
 
     def record(data, cols, max_disp, impl="auto"):
@@ -187,7 +209,7 @@ def frame_k1_calls(w2p, pipeline, probe) -> list:
 
     w2p.warp_rows_t = record
     try:
-        pipeline(probe)
+        fn()
     finally:
         w2p.warp_rows_t = wrapper
     torch.cuda.synchronize()
@@ -198,20 +220,36 @@ def k1_cases(w2p, lanes, device) -> list:
     """K1's launches in a frame, on the frame's own data and fields: ``[{name,
     data, cols, D}]`` from one frame of each lane.  Two-warp: the correction
     chain's field, then the registration's TPS field; single-warp: the gray
-    warp (C = 1) of the correction field, then the composed colour warp."""
+    warp (C = 1) of the correction field, then the composed colour warp.
+    Then the series correction's pair: 8 frames x 3 channels folded (C = 24)."""
+    from darsia_tpu_torch.corrections.fuse import fused_chain
+
     probe = torch.from_numpy(lanes["probe_u8"]).to(device)
     cases = []
     for lane, warps in (
         ("two_warp", ("correction", "registration")),
         ("single_warp", ("gray", "single warp")),
     ):
-        calls = frame_k1_calls(w2p, lanes[lane], probe)
+        calls = frame_k1_calls(w2p, lambda: lanes[lane](probe))
         if len(calls) != 4:
             raise AssertionError(f"{lane}: {len(calls)} K1 calls per frame, want 4")
         for k, (data, cols, D) in enumerate(calls):
             name = f"{warps[k // 2]} pass {k % 2 + 1}"
             cases.append({"name": name, "data": data, "cols": cols, "D": D})
+    series = torch.from_numpy(series_frames(lanes["base_u8"])).to(device)
+    chain = fused_chain([lanes["trans"], lanes["curv"]], (H, W), device)
+    calls = frame_k1_calls(w2p, lambda: chain.correct_series_array(series, 2))
+    if len(calls) != 2:
+        raise AssertionError(f"series correction: {len(calls)} K1 calls, want 2")
+    for k, (data, cols, D) in enumerate(calls):
+        cases.append({"name": f"series pass {k + 1}", "data": data, "cols": cols, "D": D})
     return cases
+
+
+def series_frames(base_u8) -> np.ndarray:
+    """(H, W, T, C) uint8: the base rolled by (2 + k, 3 - k) for frame k."""
+    frames = [np.roll(base_u8, shift=(2 + k, 3 - k), axis=(0, 1)) for k in range(SERIES_T)]
+    return np.stack(frames, axis=2)
 
 
 def k1_bound(C, R, W_in, W_out) -> tuple:
@@ -532,9 +570,7 @@ def phase_main_path(dt, w2p, lanes, device, card: str, profile) -> dict:
 
     # The bench's full-path gate (bench.py:162-180): the same public objects
     # run as separate stages must give the same concentration.
-    trans, curv = lanes["trans"], lanes["curv"]
-    staged_img = dt.OpticalImage(probe, transformations=[trans, curv], **META)
-    registered = lanes["registration"](staged_img.img_as(torch.float32))
+    registered = lanes["registration"](staged_probe(dt, lanes, device))
     staged = lanes["analysis"](registered).img
     staged_err = float((staged - conc).abs().mean())
     if not staged_err <= 1e-3:
@@ -562,7 +598,7 @@ def phase_main_path(dt, w2p, lanes, device, card: str, profile) -> dict:
         f"{staged_err}; peak {peak_gib:.2f} GiB; first frame (setup) {setup_s:.2f} s"
     )
     if profile is not None:
-        profile_frame(pipeline, probe, ms, profile, "two_warp")
+        profile_frame(lambda: pipeline(probe), ms, profile, "two_warp")
         stage_times(pipeline, probe)
     return result
 
@@ -616,7 +652,7 @@ def phase_single_warp(w2p, lanes, device, card: str, profile) -> dict:
         f"first frame (setup) {setup_s:.2f} s"
     )
     if profile is not None:
-        profile_frame(pipeline, probe, ms, profile, "single_warp")
+        profile_frame(lambda: pipeline(probe), ms, profile, "single_warp")
     return {
         "ms_per_frame": ms,
         "ms_per_frame_windows": windows,
@@ -676,23 +712,264 @@ def phase_series(w2p, lanes, device, card: str) -> dict:
     return result
 
 
-def profile_frame(
-    pipeline, probe, ms_per_frame: float, out_dir: Path, name: str, frames: int = 3
-):
-    """torch.profiler over a few frames: kernel table and Chrome trace into
-    ``out_dir`` (``profile_<name>.*``), device busy time and idle share
-    printed."""
+def median_call_ms(w2p, fn, reps: int, want_k1: int, path: str):
+    """``reps`` calls of ``fn`` (host clock, each closed by a synchronize),
+    every count set to 0 just before and read just after: exactly ``want_k1``
+    K1 launches per call.  Returns (last output, median ms, each ms, counts)."""
+    reset_counts(w2p)
+    torch.cuda.synchronize()
+    each = []
+    for _ in range(reps):
+        tic = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        each.append((time.perf_counter() - tic) * 1e3)
+    counts = read_counts(w2p)
+    check_counts(counts, {"warp_rows_t": want_k1 * reps}, path)
+    return out, float(np.median(each)), each, counts
+
+
+def staged_probe(dt, lanes, device):
+    """The probe corrected as a staged Image, float32: what registration takes."""
+    probe = torch.from_numpy(lanes["probe_u8"]).to(device)
+    trans, curv = lanes["trans"], lanes["curv"]
+    return dt.OpticalImage(probe, transformations=[trans, curv], **META).img_as(torch.float32)
+
+
+def phase_flexible(dt, w2p, lanes, device, card: str, profile) -> dict:
+    """The flexible registration lane (``fused=False``) at 4K: one K1 pair per
+    call, against plain K1, its field against the fused lane's, and
+    displacement/apply/evaluate."""
+    from darsia_tpu_torch.analysis.translationanalysis import _to_gray
+    from darsia_tpu_torch.ops.warp import identity_grid, warp_backend
+
+    tic = time.perf_counter()
+    base = lanes["analysis"].base
+    probe = staged_probe(dt, lanes, device)
+    reg = dt.ImageRegistration(
+        base, N_patches=[8, 16], rel_overlap=0.1, quality_tol=0.02, fused=False
+    )
+    reg(probe)  # warm-up: the base spectra
+    out, ms, each, counts = median_call_ms(w2p, lambda: reg(probe), 5, 2, "flexible lane")
+
+    ta = reg._engine.translation_analysis
+    shape = tuple(base.num_voxels)
+    field = reg.displacement()
+    coords = identity_grid(shape, device) - field
+    max_disp = int(np.ceil(field.abs().max().item())) + 1
+    plain = warp_backend(probe.img, coords, max_disp=max_disp, warp_impl="plain")
+    d_plain = float((out.img - plain).abs().mean())
+    if not d_plain <= 1e-5:
+        raise AssertionError(f"flexible lane vs plain K1: mean |diff| = {d_plain}")
+
+    # The fused lane on the same frame, where every patch passes: its field
+    # differs only by its float32 TPS evaluation, bounded by twice the 6e-4
+    # px figure of tests/test_torch_registration.py::FUSED_TPS_ERR_4K (1e-3).
+    estimate, ops, geom = lanes["registration"]._engine.translation_analysis.fused_estimator_parts(D_REG)
+    field_c, _, quality = estimate(_to_gray(probe.img), ops)
+    if not bool((quality > geom["tol"]).all()) or not ta.have_translation.all():
+        raise AssertionError("not every patch passes: the fields differ by design")
+    fused = torch.nn.functional.interpolate(
+        field_c[None], size=shape, mode="bilinear", align_corners=False
+    )[0].clamp(-geom["clip"], geom["clip"])
+    d_fused = float((fused - field).abs().max())
+    if not d_fused <= 2e-3:
+        raise AssertionError(f"fused vs flexible field: max |diff| = {d_fused} px")
+
+    applied = reg.apply(probe)
+    pts_px = np.array([[100.0, 200.0], [1500.0, 900.0]])
+    pts_m = np.array([[0.5, 0.5], [2.0, 1.0]])
+    ok = (
+        tuple(field.shape) == (2, *shape)
+        and bool(torch.isfinite(field).all())
+        and applied.img.shape == probe.img.shape
+        and bool(torch.isfinite(applied.img).all())
+        and reg.evaluate(pts_px, units="pixel").shape == (2, 2)
+        and bool(np.isfinite(reg.evaluate(pts_px, units="pixel")).all())
+        and bool(np.isfinite(reg.evaluate(pts_m, units="metric")).all())
+    )
+    if not ok:
+        raise AssertionError("flexible lane: displacement/apply/evaluate not finite or misshaped")
+    seconds = time.perf_counter() - tic
+    print(
+        f"flexible registration ({shape[0]}x{shape[1]}, 8x16 patches): {ms} ms per call "
+        f"(median of 5: {each}), launches {counts} on {card}; mean|diff| vs plain K1 "
+        f"{d_plain}; max|fused - flexible field| {d_fused} px (bound 2e-3); "
+        f"phase {seconds:.2f} s"
+    )
+    if profile is not None:
+        profile_frame(lambda: reg(probe), ms, profile, "flexible")
+    return {"ms": ms, "launches": counts["warp_rows_t"], "fused_vs_flexible_px": d_fused}
+
+
+def phase_pipeline_displacement(dt, w2p, lanes, device) -> dict:
+    """``registration.displacement()`` after a two-warp pipeline frame against
+    the flexible field built from the frame's staged shifts."""
+    tic = time.perf_counter()
+    pipeline = lanes["two_warp"]
+    probe = torch.from_numpy(lanes["probe_u8"]).to(device)
+    reset_counts(w2p)
+    torch.cuda.synchronize()
+    pipeline(probe)
+    torch.cuda.synchronize()
+    counts = read_counts(w2p)
+    check_counts(counts, {"warp_rows_t": 4}, "pipeline frame")
+    ta = pipeline._translation_analysis
+    shifts, quality, centers = ta._pending_shifts
+    field = lanes["registration"].displacement()
+    fresh = dt.TranslationAnalysis(
+        ta.base, N_patches=ta.N_patches, rel_overlap=ta.rel_overlap, quality_tol=ta.quality_tol
+    )
+    fresh._ingest_shifts(shifts.cpu().numpy(), quality.cpu().numpy(), centers)
+    ref = fresh.displacement_field(tuple(ta.base.num_voxels))
+    diff = float((field - ref).abs().max())
+    if not diff <= 1e-5:
+        raise AssertionError(f"displacement() after a frame: max |diff| = {diff} px")
+    print(
+        f"displacement() after a pipeline frame: max|diff| to the flexible field of "
+        f"its shifts {diff} px; phase {time.perf_counter() - tic:.2f} s"
+    )
+    return {"launches": counts["warp_rows_t"]}
+
+
+def phase_multiscale(dt, w2p, lanes, device, card: str, profile) -> dict:
+    """Multiscale registration with 3 levels at 4K: one K1 pair per level."""
+    from darsia_tpu_torch.ops.warp import identity_grid, warp_backend
+
+    tic = time.perf_counter()
+    base = lanes["analysis"].base
+    probe = staged_probe(dt, lanes, device)
+    reg = dt.ImageRegistration(
+        base, N_patches=[8, 16], rel_overlap=0.1, quality_tol=0.02, num_levels=3
+    )
+    reg(probe)  # warm-up
+    out, ms, each, counts = median_call_ms(w2p, lambda: reg(probe), 5, 6, "multiscale")
+    field = reg.displacement()
+    coords = identity_grid(tuple(base.num_voxels), device) - field
+    max_disp = int(np.ceil(field.abs().max().item())) + 1
+    plain = warp_backend(probe.img, coords, max_disp=max_disp, warp_impl="plain")
+    diff = float((out.img - plain).abs().mean())
+    if not diff <= 1e-5:
+        raise AssertionError(f"multiscale vs plain K1: mean |diff| = {diff}")
+    if not (bool(torch.isfinite(out.img).all()) and out.img.shape == probe.img.shape):
+        raise AssertionError("multiscale: bad output")
+    print(
+        f"multiscale registration (3 levels, {tuple(base.num_voxels)}): {ms} ms per call "
+        f"(median of 5: {each}), launches {counts} on {card}; mean|diff| vs plain K1 "
+        f"{diff}; phase {time.perf_counter() - tic:.2f} s"
+    )
+    if profile is not None:
+        profile_frame(lambda: reg(probe), ms, profile, "multiscale")
+    return {"ms": ms, "launches": counts["warp_rows_t"]}
+
+
+def phase_series_correction(dt, w2p, lanes, device, card: str, profile) -> dict:
+    """An 8-frame uint8 series corrected by the translation + curvature chain
+    at construction: one K1 pair per series, each frame bitwise equal to the
+    frame corrected alone; the frame loop timed beside it."""
+    from darsia_tpu_torch.corrections.base import BaseCorrection
+    from darsia_tpu_torch.corrections.fuse import fused_chain
+
+    tic = time.perf_counter()
+    series = torch.from_numpy(series_frames(lanes["base_u8"])).to(device)
+    chain_members = [lanes["trans"], lanes["curv"]]
+    meta = {**META, "series": True, "time": [30.0 * k for k in range(SERIES_T)]}
+
+    def correct():
+        return dt.OpticalImage(series, transformations=chain_members, **meta)
+
+    correct()  # warm-up
+    out, ms, each, counts = median_call_ms(w2p, correct, 5, 2, "series correction")
+    for k in range(SERIES_T):
+        single = dt.OpticalImage(
+            series[:, :, k].contiguous(), transformations=chain_members, **META
+        ).img
+        if not torch.equal(out.img[:, :, k], single):
+            err = float((out.img[:, :, k].float() - single.float()).abs().max())
+            raise AssertionError(f"series correction frame {k} != the frame alone: {err}")
+    # The two ways to warp a series, in turns (folded, loop, loop, folded),
+    # 10 back-to-back series each.
+    chain = fused_chain(chain_members, (H, W), device)
+    fold = lambda: chain.correct_series_array(series, 2)  # noqa: E731
+    loop = lambda: BaseCorrection.correct_series_array(chain, series, 2)  # noqa: E731
+    turns = [cuda_ms(f, 10) for f in (fold, loop, loop, fold)]
+    print(
+        f"series correction ({H}x{W}x{SERIES_T}x3 uint8): {ms} ms per series (median "
+        f"of 5: {each}), launches {counts} on {card}; every frame == the frame alone; "
+        f"the warp alone, in turns: folded (1 K1 pair) {turns[0]} / {turns[3]} ms, "
+        f"frame loop ({SERIES_T} pairs) {turns[1]} / {turns[2]} ms; phase "
+        f"{time.perf_counter() - tic:.2f} s"
+    )
+    if profile is not None:
+        profile_frame(fold, turns[0], profile, "series_correction_folded")
+        profile_frame(loop, turns[1], profile, "series_correction_loop")
+    return {"ms": ms, "launches": counts["warp_rows_t"], "image": out}
+
+
+def phase_series_concentration(dt, lanes, device, corrected, card: str) -> None:
+    """ConcentrationAnalysis with 2 extra baselines (the cleaning filter) on
+    the corrected series: every frame equal to its single-frame result."""
+    tic = time.perf_counter()
+    trans, curv = lanes["trans"], lanes["curv"]
+    extras = [
+        dt.OpticalImage(
+            torch.from_numpy(np.roll(lanes["base_u8"], s, axis=(0, 1))).to(device),
+            transformations=[trans, curv],
+            **META,
+        ).img_as(torch.float32)
+        for s in ((0, 1), (1, 0))
+    ]
+    ref = lanes["analysis"]
+    analysis = dt.ConcentrationAnalysis(
+        base=[ref.base] + extras,
+        signal_reduction=ref.signal_reduction,
+        restoration=ref.restoration,
+        model=ref.model,
+        **{"diff option": "positive"},
+    )
+    if analysis.threshold_cleaning_filter is None:
+        raise AssertionError("no cleaning filter from the extra baselines")
+    series = corrected.img_as(torch.float32)
+    analysis(series)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = analysis(series)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    conc = out.img
+    if not (out.series and tuple(conc.shape) == (OH, W, SERIES_T)):
+        raise AssertionError(f"series concentration: bad output {tuple(conc.shape)}")
+    if not bool(torch.isfinite(conc).all()):
+        raise AssertionError("series concentration: non-finite output")
+    for k in range(SERIES_T):
+        frame = dt.OpticalImage(series.img[:, :, k].contiguous(), **META)
+        if not torch.equal(conc[..., k], analysis(frame).img):
+            raise AssertionError(f"series concentration frame {k} != single frame")
+    print(
+        f"series concentration with the cleaning filter ({OH}x{W}x{SERIES_T}): {ms} ms "
+        f"per series on {card}; every frame == its single-frame result; phase "
+        f"{time.perf_counter() - tic:.2f} s"
+    )
+
+
+def profile_frame(fn, ms_per_call: float, out_dir: Path, name: str, frames: int = 3):
+    """torch.profiler over a few calls of ``fn`` (a frame, or a call of a
+    path): kernel tables (by device time, and by the host's own time) and
+    a Chrome trace into ``out_dir`` (``profile_<name>.*``), device busy time
+    and idle share printed."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch_profile(activities=acts) as prof:
         for _ in range(frames):
-            pipeline(probe)
+            fn()
         torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
+    averages = prof.key_averages()
+    table = averages.table(sort_by="cuda_time_total", row_limit=30)
+    host = averages.table(sort_by="self_cpu_time_total", row_limit=30)
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / f"profile_{name}.txt").write_text(table)
+    (out_dir / f"profile_{name}.txt").write_text(table + "\n" + host)
     trace = out_dir / f"profile_{name}.json"
     prof.export_chrome_trace(str(trace))
     print(table)
@@ -716,10 +993,10 @@ def profile_frame(
     busy_ms = busy / 1e3 / frames
     k1 = [e["dur"] for e in events if "warp_rows_t_kernel" in e.get("name", "")]
     print(
-        f"profile {name}: {len(events) / frames:.0f} device ops per frame, device busy "
-        f"{busy_ms:.3f} ms per frame; idle share against the unprofiled "
-        f"{ms_per_frame:.3f} ms/frame: {1 - busy_ms / ms_per_frame:.3f}; K1 "
-        f"{sum(k1) / 1e3 / frames:.4f} ms per frame over {len(k1) / frames:.0f} "
+        f"profile {name}: {len(events) / frames:.0f} device ops per call, device busy "
+        f"{busy_ms:.3f} ms per call; idle share against the unprofiled "
+        f"{ms_per_call:.3f} ms/call: {1 - busy_ms / ms_per_call:.3f}; K1 "
+        f"{sum(k1) / 1e3 / frames:.4f} ms per call over {len(k1) / frames:.0f} "
         "launches "
         f"({sum(k1) / 1e3 / busy_ms / frames:.3f} of the busy time)"
     )
@@ -760,8 +1037,9 @@ def main() -> int:
         "--profile",
         type=Path,
         metavar="DIR",
-        help="also profile 3 frames of each lane (table + Chrome trace into DIR) "
-        "and time the two-warp lane's stages",
+        help="also profile 3 frames of each lane and 3 calls of the flexible, "
+        "multiscale and series-correction paths (tables + Chrome traces into "
+        "DIR) and time the two-warp lane's stages",
     )
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -791,6 +1069,11 @@ def main() -> int:
     main_path = phase_main_path(dt, w2p, lanes, device, card, args.profile)
     single = phase_single_warp(w2p, lanes, device, card, args.profile)
     series = phase_series(w2p, lanes, device, card)
+    flexible = phase_flexible(dt, w2p, lanes, device, card, args.profile)
+    after_frame = phase_pipeline_displacement(dt, w2p, lanes, device)
+    multiscale = phase_multiscale(dt, w2p, lanes, device, card, args.profile)
+    series_corr = phase_series_correction(dt, w2p, lanes, device, card, args.profile)
+    phase_series_concentration(dt, lanes, device, series_corr.pop("image"), card)
     phase_kernel_fields(w2p, lanes, device)
 
     passes = [k1["pass1"], k1["pass2"]]
@@ -798,6 +1081,7 @@ def main() -> int:
         main_path["launches"]
         + single["launches"]
         + sum(lane["launches"] for lane in series.values())
+        + sum(p["launches"] for p in (flexible, after_frame, multiscale, series_corr))
     )
     results = {
         "warp_rows_t": {

@@ -2,9 +2,10 @@
 
 The JAX package ``darsia_tpu`` is the reference; this package keeps its file
 layout and public names, so each module has a counterpart there.  Ported so
-far: the per-frame production path (correction chain -> single-scale
-registration -> concentration) for single frames, with the two-pass warp as
-a hand-written CUDA kernel (``ops/warp2pass.py``, ``csrc/``).  Tensors stay
+far: the per-frame production path (correction chain -> registration ->
+concentration) for single frames and series, the flexible and multiscale
+registration lanes, and the image core around them, with the two-pass warp
+as a hand-written CUDA kernel (``ops/warp2pass.py``, ``csrc/``).  Tensors stay
 on the device they are given; nothing here imports JAX.
 """
 
@@ -19,20 +20,35 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .analysis import (  # noqa: E402
     ConcentrationAnalysis,
+    DiffeomorphicImageRegistration,
     FusedAnalysisPipeline,
     ImageRegistration,
+    MultiscaleDiffeomorphicImageRegistration,
     TranslationAnalysis,
 )
 from .corrections import CurvatureCorrection, TranslationCorrection  # noqa: E402
-from .image import Image, OpticalImage, ScalarImage  # noqa: E402
-from .restoration import H1_regularization  # noqa: E402
+from .image import CoordinateSystem, Image, OpticalImage, ScalarImage  # noqa: E402
+from .ops.resize import resize_array  # noqa: E402
+from .restoration import H1_regularization, Resize, resize  # noqa: E402
 from .signals.models import LinearModel  # noqa: E402
 from .signals.reduction import MonochromaticReduction  # noqa: E402
 from .utils.linear_solvers import Jacobi  # noqa: E402
+from .utils.point import (  # noqa: E402
+    Coordinate,
+    CoordinateArray,
+    Voxel,
+    VoxelArray,
+    make_coordinate,
+    make_voxel,
+)
 
 __all__ = [
     "ConcentrationAnalysis",
+    "Coordinate",
+    "CoordinateArray",
+    "CoordinateSystem",
     "CurvatureCorrection",
+    "DiffeomorphicImageRegistration",
     "FusedAnalysisPipeline",
     "H1_regularization",
     "Image",
@@ -40,8 +56,16 @@ __all__ = [
     "Jacobi",
     "LinearModel",
     "MonochromaticReduction",
+    "MultiscaleDiffeomorphicImageRegistration",
     "OpticalImage",
+    "Resize",
     "ScalarImage",
     "TranslationAnalysis",
     "TranslationCorrection",
+    "Voxel",
+    "VoxelArray",
+    "make_coordinate",
+    "make_voxel",
+    "resize",
+    "resize_array",
 ]

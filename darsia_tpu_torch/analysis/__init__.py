@@ -2,7 +2,11 @@
 
 from .concentrationanalysis import ConcentrationAnalysis
 from .fusedpipeline import FusedAnalysisPipeline
-from .imageregistration import DiffeomorphicImageRegistration, ImageRegistration
+from .imageregistration import (
+    DiffeomorphicImageRegistration,
+    ImageRegistration,
+    MultiscaleDiffeomorphicImageRegistration,
+)
 from .translationanalysis import TranslationAnalysis
 
 __all__ = [
@@ -10,5 +14,6 @@ __all__ = [
     "DiffeomorphicImageRegistration",
     "FusedAnalysisPipeline",
     "ImageRegistration",
+    "MultiscaleDiffeomorphicImageRegistration",
     "TranslationAnalysis",
 ]

@@ -1,20 +1,25 @@
 """Concentration analysis: image -> physical concentration map.
 
-Counterpart of :mod:`darsia_tpu.analysis.concentrationanalysis` for single
-frames: baseline difference, scalar reduction, balancing, model conversion
-and restoration compose as tensor functions (:meth:`pipeline_fn`), which
+Counterpart of :mod:`darsia_tpu.analysis.concentrationanalysis`: baseline
+difference, scalar reduction, cleaning (a threshold learnt from extra
+baselines), balancing, model conversion and restoration compose as tensor
+functions (:meth:`pipeline_fn`), which
 :class:`~darsia_tpu_torch.analysis.fusedpipeline.FusedAnalysisPipeline`
-inlines.  The cleaning filter learnt from extra baselines is not ported yet.
+inlines.  A time series runs through the single-frame pipeline frame by
+frame, its output stacked on the time axis.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Optional
 from warnings import warn
 
+import numpy as np
 import torch
 
-from ..image.image import Image, ScalarImage
+from ..image.image import Image, ScalarImage, as_tensor
+from ..ops.resize import resize_array
 
 __all__ = ["ConcentrationAnalysis"]
 
@@ -33,15 +38,15 @@ class ConcentrationAnalysis:
         **kwargs,
     ) -> None:
         self.base: Optional[Image] = None
+        self._base_collection: list = []
         if base is not None:
-            if isinstance(base, list):
-                if len(base) > 1:
-                    raise NotImplementedError("the cleaning filter is not ported yet")
-                base = base[0]
-            if not base.img.dtype.is_floating_point:
-                base = base.img_as(torch.float32)
+            if not isinstance(base, list):
+                base = [base]
+            if any(not img.img.dtype.is_floating_point for img in base):
+                base = [img.img_as(torch.float32) for img in base]
                 warn("The baseline image needed to be converted to float.")
-            self.base = base.copy()
+            self.base = base[0].copy()
+            self._base_collection = base
         self.signal_reduction = signal_reduction
         self.balancing = balancing
         self.model = model
@@ -49,10 +54,61 @@ class ConcentrationAnalysis:
         self.labels = labels
         self._diff_option = kwargs.get("diff option", "absolute")
         self.first_restoration_then_model = kwargs.get("restoration -> model", False)
+        self.find_cleaning_filter()
+        self.mask = None
+        if self.base is not None:
+            shape = self.base.img.shape[:2]
+            self.mask = torch.ones(shape, dtype=torch.bool, device=self.base.device)
+
+    def update(self, base=None, mask=None) -> None:
+        """Update the baseline image and/or the analysis mask."""
+        if base is not None:
+            if not base.img.dtype.is_floating_point:
+                base = base.img_as(torch.float32)
+            self.base = base.copy()
+        if mask is not None:
+            self.mask = mask
+
+    # ------------------------------------------------------ cleaning filter
+
+    def find_cleaning_filter(self, baseline_images: Optional[list] = None) -> None:
+        """Learn the structural noise threshold: the pixelwise maximum of the
+        reduced difference of each extra baseline (by default those after
+        the first given to the constructor) to the baseline."""
+        if baseline_images is None and self.base is not None:
+            baseline_images = self._base_collection[1:] or None
+        self.threshold_cleaning_filter = None
+        if baseline_images is not None:
+            cleaning = torch.zeros(
+                self.base.img.shape[:2], dtype=torch.float32, device=self.base.device
+            )
+            for img in baseline_images:
+                diff = self._subtract_background(img)
+                cleaning = torch.maximum(cleaning, self._reduce_signal(diff))
+            self.threshold_cleaning_filter = cleaning
+
+    def read_cleaning_filter_from_file(self, path) -> None:
+        """Load a cleaning filter from ``.npy``, resized (linear) to the
+        baseline's shape where it differs."""
+        device = None if self.base is None else self.base.device
+        data = as_tensor(np.load(path), device)
+        if self.base is not None:
+            base_shape = tuple(self.base.img.shape[:2])
+            if tuple(data.shape[:2]) != base_shape:
+                data = resize_array(data, base_shape, "inter_linear")
+        self.threshold_cleaning_filter = data
+
+    def write_cleaning_filter_to_file(self, path_to_filter) -> None:
+        """Save the cleaning filter as ``.npy``."""
+        path_to_filter = Path(path_to_filter)
+        path_to_filter.parent.mkdir(parents=True, exist_ok=True)
+        np.save(path_to_filter, self.threshold_cleaning_filter.cpu().numpy())
+
+    # ----------------------------------------------------------------- main
 
     def _pipeline_stages(self, diff: torch.Tensor) -> torch.Tensor:
         """diff -> concentration."""
-        signal = self._reduce_signal(diff)
+        signal = self._clean_signal(self._reduce_signal(diff))
         balanced = self._balance_signal(signal)
         if self.first_restoration_then_model:
             return self._convert_signal(self._restore_signal(balanced))
@@ -78,15 +134,27 @@ class ConcentrationAnalysis:
             id(self.balancing),
             id(self.signal_reduction),
             id(self.restoration),
+            id(self.threshold_cleaning_filter),
         )
 
     def __call__(self, img: Image) -> Image:
-        """Concentration of a probe image."""
+        """Concentration of a probe image, or of each frame of a series."""
         if not img.img.dtype.is_floating_point:
             img = img.img_as(torch.float32)
             warn("The input for concentration analysis needed to be converted.")
         reference = None if self.base is None else self.base.img
-        concentration = self.pipeline_fn()(img.img.to(torch.float32), reference)
+        pipeline = self.pipeline_fn()
+        data = img.img.to(torch.float32)
+        if img.series:
+            # A plain frame loop; each frame contiguous, as a single frame is.
+            t = img.space_dim
+            frames = [
+                pipeline(data.select(t, k).contiguous(), reference)
+                for k in range(data.shape[t])
+            ]
+            concentration = torch.stack(frames, dim=t)
+        else:
+            concentration = pipeline(data, reference)
         return self._package(concentration, img)
 
     def _package(self, concentration: torch.Tensor, img: Image) -> Image:
@@ -111,8 +179,17 @@ class ConcentrationAnalysis:
             raise ValueError(f"Diff option {option} not supported")
         return diff
 
+    def _subtract_background(self, img: Image) -> torch.Tensor:
+        reference = None if self.base is None else self.base.img
+        return self._diff_arrays(img.img.to(torch.float32), reference)
+
     def _reduce_signal(self, img):
         return img if self.signal_reduction is None else self.signal_reduction(img)
+
+    def _clean_signal(self, img):
+        if self.threshold_cleaning_filter is None:
+            return img
+        return (img - self.threshold_cleaning_filter).clamp(min=0)
 
     def _balance_signal(self, img):
         return img if self.balancing is None else self.balancing(img)

@@ -1,6 +1,7 @@
 """Correction protocol: array transforms plus metadata bookkeeping.
 
-Counterpart of :mod:`darsia_tpu.corrections.base` for single images.
+Counterpart of :mod:`darsia_tpu.corrections.base`.  A time series is
+corrected frame by frame (:meth:`BaseCorrection.correct_series_array`).
 """
 
 from __future__ import annotations
@@ -23,6 +24,11 @@ class BaseCorrection:
         """Metadata updates induced by the correction. Override if needed."""
         return {}
 
+    def correct_series_array(self, img: torch.Tensor, time_axis: int) -> torch.Tensor:
+        """Correct every frame of a series (time on ``time_axis``)."""
+        frames = [self.correct_array(frame) for frame in img.unbind(time_axis)]
+        return torch.stack(frames, dim=time_axis)
+
     def __call__(self, image, overwrite: bool = False):
         """Apply the correction to an Image (or a raw tensor).
 
@@ -34,7 +40,10 @@ class BaseCorrection:
         """
         if isinstance(image, torch.Tensor):
             return self.correct_array(image)
-        corrected = self.correct_array(image.img)
+        if image.series:
+            corrected = self.correct_series_array(image.img, image.space_dim)
+        else:
+            corrected = self.correct_array(image.img)
         meta_update = self.correct_metadata(image.metadata())
         if overwrite:
             image.img = corrected

@@ -4,7 +4,8 @@ Counterpart of :mod:`darsia_tpu.corrections.fuse` for static members.
 Consecutive geometric corrections collapse into a single pull-back
 coordinate field (:func:`~darsia_tpu_torch.ops.warp.compose_coordinate_maps`)
 and execute as one warp: the two-pass kernel on CUDA, the gather warp on the
-CPU.  Fusion protocol (duck-typed): ``pullback_field(input_shape, device) ->
+CPU; a time series is one warp too, its frames folded into the channels.
+Fusion protocol (duck-typed): ``pullback_field(input_shape, device) ->
 (coords, meta_update)``.  Drift members (``pullback_translation``) are not
 ported yet and are refused.
 """
@@ -85,6 +86,20 @@ class FusedCorrectionChain(BaseCorrection):
 
     def correct_array(self, img: torch.Tensor) -> torch.Tensor:
         return self.apply_fn(img.dtype)(img, self.field)
+
+    def correct_series_array(self, img: torch.Tensor, time_axis: int) -> torch.Tensor:
+        """Correct a whole (H, W, T[, C]) series with one warp.
+
+        The field is shared by every frame, so the time and range axes fold
+        into the warp's channel axis: on CUDA one pair of K1 launches
+        corrects the series, each frame to the same bits as alone.
+        """
+        if time_axis != 2:
+            raise ValueError("a 2-D series carries its time axis at 2")
+        H, W = img.shape[:2]
+        folded = img.reshape(H, W, -1)
+        out = self.apply_fn(img.dtype)(folded, self.field)
+        return out.reshape(tuple(out.shape[:2]) + tuple(img.shape[2:]))
 
     def correct_metadata(self, metadata=None) -> dict:
         return dict(self._meta)

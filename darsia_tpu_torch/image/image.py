@@ -7,18 +7,20 @@ caller asks for another, e.g. ``device="cpu"``).  The metadata (physical
 dimensions in meters, Cartesian origin, dates and times) stays on the host.
 Corrections passed as ``transformations=[...]`` run at construction, runs of
 geometric ones fused into one warp
-(:func:`darsia_tpu_torch.corrections.fuse.apply_transformation_chain`).
+(:func:`darsia_tpu_torch.corrections.fuse.apply_transformation_chain`); a
+series is corrected frame for frame with the same correction.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 from warnings import warn
 
 import numpy as np
 import torch
 
 from ..utils.dtype import convert_dtype
+from ..utils.point import CoordinateArray, VoxelArray
 from .coordinatesystem import CoordinateSystem
 
 __all__ = ["Image", "OpticalImage", "ScalarImage", "as_tensor"]
@@ -57,8 +59,8 @@ class Image:
 
     Args:
         img: tensor or numpy array.
-        transformations: corrections applied in order at construction
-            (single frames only).
+        transformations: corrections applied in order at construction (to
+            every frame of a series).
         device: where a numpy ``img`` goes (default: the CUDA card); a tensor
             moves there only when it is given.
         **kwargs: metadata: ``dimensions`` (or ``height``/``width``),
@@ -108,8 +110,6 @@ class Image:
             raise ValueError(f"image of shape {self.shape} does not fit its metadata")
 
         if transformations is not None:
-            if self.series:
-                raise NotImplementedError("corrections of a series are not ported yet")
             from ..corrections.fuse import apply_transformation_chain
 
             apply_transformation_chain(self, transformations)
@@ -168,6 +168,54 @@ class Image:
             "name": self.name,
         }
 
+    def shape_metadata(self) -> dict:
+        """The spatial part of the metadata, with shape and voxel size."""
+        return {
+            "space_dim": self.space_dim,
+            "indexing": self.indexing,
+            "dimensions": list(self.dimensions),
+            "origin": self.origin.copy(),
+            "shape": self.shape,
+            "num_voxels": self.num_voxels,
+            "voxel_size": self.voxel_size,
+        }
+
+    def update_metadata(self, meta: Optional[dict] = None, **kwargs) -> None:
+        """Overwrite metadata attributes in place."""
+        for key, value in {**(meta or {}), **kwargs}.items():
+            setattr(self, key, value)
+
+    # ------------------------------------------------------------------ time
+
+    def append(self, image: "Image", offset=None) -> None:
+        """Append another image (a frame or a series) along the time axis,
+        making this image a series.  The stacked tensor is new: neither
+        image's tensor is aliased."""
+        if self.space_dim != image.space_dim or self.scalar != image.scalar:
+            raise ValueError("Incompatible images for append.")
+        if self.num_voxels != image.num_voxels or not np.allclose(
+            self.dimensions, image.dimensions
+        ):
+            raise ValueError("Incompatible voxel grids for append.")
+        if not np.allclose(self.origin, image.origin):
+            raise ValueError("Incompatible origins for append.")
+
+        def frames(im: "Image") -> list:
+            data = im.img.to(self.img.device)
+            return list(data.unbind(self.space_dim)) if im.series else [data]
+
+        self.img = torch.stack(frames(self) + frames(image), dim=self.space_dim)
+        self.series = True
+        self.time_dim = 1
+        as_list = lambda v: v if isinstance(v, list) else [v]  # noqa: E731
+        self.date = as_list(self.date) + as_list(image.date)
+        if _is_none(self.time) or _is_none(image.time) or offset is None:
+            time = None
+        else:
+            time = as_list(self.time) + [t + offset for t in as_list(image.time)]
+        self.time_num += image.time_num
+        self.set_time(time)
+
     def time_slice(self, time_index: int) -> "Image":
         """Single frame ``time_index`` of a series (a view of its tensor)."""
         if not self.series:
@@ -179,16 +227,115 @@ class Image:
         metadata["time"] = None if self.time is None else self.time[time_index]
         return type(self)(img=img, **metadata)
 
+    def time_interval(self, indices: slice) -> "Image":
+        """The frames ``indices`` of a series (a view of its tensor)."""
+        if not self.series:
+            raise ValueError("Image is not a time-series.")
+        if not isinstance(indices, slice):
+            raise ValueError("indices needs to be a slice")
+        img = self.img[..., indices] if self.scalar else self.img[..., indices, :]
+        metadata = self.metadata()
+        metadata["date"] = None if self.date is None else self.date[indices]
+        metadata["time"] = None if self.time is None else self.time[indices]
+        return type(self)(img=img, **metadata)
+
+    # ----------------------------------------------------------------- space
+
+    def subregion(self, roi: Union[tuple, VoxelArray, CoordinateArray]) -> "Image":
+        """A box of the image (a view of its tensor), with its own origin and
+        dimensions.
+
+        Args:
+            roi: a tuple of voxel slices, a VoxelArray, or a CoordinateArray of
+                Cartesian points spanning the box.
+
+        """
+        if isinstance(roi, (CoordinateArray, VoxelArray)):
+            if isinstance(roi, CoordinateArray):
+                roi = self.coordinatesystem.voxel(roi)
+            box = np.asarray(roi)
+            voxels = tuple(
+                slice(max(0, int(box[:, d].min())), min(int(box[:, d].max()), n))
+                for d, n in enumerate(self.num_voxels)
+            )
+        elif isinstance(roi, tuple):
+            voxels = roi
+        else:
+            raise ValueError(
+                f"roi of type {type(roi)} not supported; need tuple of slices, "
+                "VoxelArray, or CoordinateArray."
+            )
+        if len(voxels) != self.space_dim:
+            raise ValueError(f"roi {voxels} does not span {self.space_dim} axes")
+        cs = self.coordinatesystem
+        sizes = self.num_voxels
+        origin = cs.coordinate([0 if sl.start is None else sl.start for sl in voxels])
+        opposite = cs.coordinate(
+            [n if sl.stop is None else sl.stop for sl, n in zip(voxels, sizes)]
+        )
+        extent = np.abs(np.asarray(opposite) - np.asarray(origin))
+        metadata = self.metadata()
+        # Matrix axis i is Cartesian y, axis j is x.
+        metadata["dimensions"] = [float(extent[1]), float(extent[0])]
+        metadata["origin"] = np.asarray(origin)
+        return type(self)(img=self.img[voxels], **metadata)
+
+    # ------------------------------------------------------------------ data
+
     def copy(self) -> "Image":
         """Copy of the image; the tensor is cloned."""
         return type(self)(img=self.img.clone(), **self.metadata())
 
-    def img_as(self, data_type) -> "Image":
+    def astype(self, data_type) -> "Image":
         """Image with data converted (and range-rescaled) to ``data_type``.
 
         The tensor is shared, not copied, when it already has that dtype.
         """
         return type(self)(img=convert_dtype(self.img, data_type), **self.metadata())
+
+    img_as = astype
+
+    # ------------------------------------------------------------ arithmetic
+    # Each result holds a new tensor; the operands' tensors are not aliased.
+
+    def _compatible(self, other: "Image") -> bool:
+        return (
+            self.shape == other.shape
+            and np.allclose(self.origin, other.origin)
+            and np.allclose(self.dimensions, other.dimensions)
+        )
+
+    def _with(self, img: torch.Tensor) -> "Image":
+        return type(self)(img=img, **self.metadata())
+
+    def _operand(self, other, check: bool = True):
+        if isinstance(other, Image):
+            if check and not self._compatible(other):
+                raise ValueError("Images not compatible.")
+            return other.img
+        return other
+
+    def __add__(self, other):
+        return self._with(self.img + self._operand(other))
+
+    def __radd__(self, other):
+        if isinstance(other, (int, float)) and other == 0:
+            return self.copy()
+        return self.__add__(other)
+
+    def __sub__(self, other):
+        return self._with(self.img - self._operand(other))
+
+    def __mul__(self, other):
+        return self._with(self.img * self._operand(other, check=False))
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._with(self.img / self._operand(other, check=False))
+
+    def __neg__(self):
+        return self._with(-self.img)
 
 
 class ScalarImage(Image):
@@ -212,3 +359,34 @@ class OpticalImage(Image):
         meta = super().metadata()
         meta["color_space"] = self.color_space
         return meta
+
+    def to_trichromatic(self, color_space: str, return_image: bool = False):
+        """Convert from the current colour space to ``color_space`` (RGB,
+        BGR, HSV, HLS, LAB): in place, or into a new image with
+        ``return_image``."""
+        from ..ops.color import convert_trichromatic
+
+        color_space = color_space.upper()
+        if color_space == self.color_space:
+            return self.copy() if return_image else None
+        converted = convert_trichromatic(self.img, self.color_space, color_space)
+        if return_image:
+            image = self._with(converted)
+            image.color_space = color_space
+            return image
+        self.img = converted
+        self.color_space = color_space
+        return None
+
+    def to_monochromatic(self, key: str) -> ScalarImage:
+        """Scalar image of one channel or feature: gray, red, green, blue,
+        hue, saturation, value or norm."""
+        from ..ops.color import convert_trichromatic, to_monochromatic
+
+        data = self.img
+        if self.color_space != "RGB":
+            data = convert_trichromatic(data, self.color_space, "RGB")
+        metadata = self.metadata()
+        metadata.pop("scalar", None)
+        metadata["name"] = key
+        return ScalarImage(to_monochromatic(data, key), **metadata)

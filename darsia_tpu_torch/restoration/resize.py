@@ -1,0 +1,105 @@
+"""Resize of physical images.
+
+Counterpart of :mod:`darsia_tpu.restoration.resize` (``Resize`` and
+``resize``): resampling runs on the image's device through
+:func:`darsia_tpu_torch.ops.resize.resize_array`, with optional
+integral-preserving ("conservative") rescaling for extensive quantities.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..ops.resize import resize_array
+from ..utils.dtype import convert_dtype
+
+__all__ = ["Resize", "resize"]
+
+
+class Resize:
+    """Resize operator for 2-D images and tensors.
+
+    Args:
+        ref_image: image whose voxel shape is the target.
+        shape: target shape (matrix indexing).
+        fx / fy: resize factors along Cartesian x / y.
+        interpolation: "inter_area" (default) | "inter_linear" |
+            "inter_nearest".
+        dtype: optional dtype conversion before resizing.
+        key: kwargs prefix (e.g. "restoration ") for config-driven setup.
+
+    """
+
+    def __init__(
+        self,
+        ref_image=None,
+        shape: Optional[tuple] = None,
+        fx: Optional[float] = None,
+        fy: Optional[float] = None,
+        interpolation: Optional[str] = None,
+        dtype=None,
+        key: str = "",
+        **kwargs,
+    ) -> None:
+        self.shape = kwargs.get(key + "resize shape") if shape is None else shape
+        general_f = kwargs.get(key + "resize")
+        self.fx = kwargs.get(key + "resize x", general_f) if fx is None else fx
+        self.fy = kwargs.get(key + "resize y", general_f) if fy is None else fy
+        self.dtype = kwargs.get(key + "resize dtype") if dtype is None else dtype
+        if ref_image is not None:
+            if self.shape is not None:
+                raise ValueError("Provide only ref_image or shape.")
+            self.shape = tuple(ref_image.num_voxels)
+        if self.shape is None:
+            self.fx = 1 if self.fx is None else self.fx
+            self.fy = 1 if self.fy is None else self.fy
+        self.interpolation = (
+            kwargs.get(key + "resize interpolation")
+            if interpolation is None
+            else interpolation
+        )
+        known = (None, "inter_area", "inter_linear", "inter_nearest")
+        if self.interpolation not in known:
+            raise NotImplementedError(
+                f"Interpolation option {self.interpolation} is not implemented."
+            )
+        self.is_conservative = kwargs.get(key + "resize conservative", False)
+
+    def __str__(self) -> str:
+        return "resize"
+
+    def _target_shape(self, current: tuple) -> tuple:
+        if self.shape is not None:
+            return tuple(self.shape[:2])
+        return (
+            max(int(round(current[0] * self.fy)), 1),
+            max(int(round(current[1] * self.fx)), 1),
+        )
+
+    def __call__(self, img, overwrite: bool = False):
+        """Resize a tensor or an Image (returning the same kind)."""
+        is_image = hasattr(img, "img")
+        arr = img.img if is_image else torch.as_tensor(img)
+        if self.dtype is not None:
+            arr = convert_dtype(arr, self.dtype)
+        resized = resize_array(
+            arr,
+            self._target_shape(tuple(arr.shape[:2])),
+            interpolation=self.interpolation or "inter_area",
+            conservative=self.is_conservative,
+        )
+        if not self.is_conservative and not arr.dtype.is_floating_point:
+            resized = torch.round(resized).to(arr.dtype)
+        if not is_image:
+            return resized
+        if overwrite:
+            img.img = resized
+            return img
+        return type(img)(img=resized, **img.metadata())
+
+
+def resize(image, **kwargs):
+    """Functional resize of an Image (kwargs as in :class:`Resize`)."""
+    return Resize(**kwargs)(image)

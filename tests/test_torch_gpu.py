@@ -172,3 +172,73 @@ def test_two_pass_warp_on_cuda_matches_cpu_plain():
     torch.cuda.synchronize()
     assert warp2pass.launch_count == before + 2
     assert (gpu.cpu() - cpu).abs().max().item() <= 1e-6
+
+
+def _textured_cuda(shape=(192, 256), shift=(3, -4), seed=5):
+    """A smooth random texture and its rolled copy, as images on the card."""
+    import darsia_tpu_torch as dt
+    from scipy.ndimage import uniform_filter
+
+    smooth = uniform_filter(np.random.default_rng(seed).random(shape), 7).astype(np.float32)
+    smooth = (smooth - smooth.min()) / (smooth.max() - smooth.min())
+    probe = np.roll(smooth, shift, axis=(0, 1))
+    meta = {"width": 1.0, "height": 1.0}
+    return dt.ScalarImage(smooth, **meta), dt.ScalarImage(probe, **meta)
+
+
+def test_flexible_lane_warps_through_k1():
+    import darsia_tpu_torch as dt
+
+    base, probe = _textured_cuda()
+    assert base.img.is_cuda
+    ta = dt.TranslationAnalysis(base, N_patches=[3, 4], rel_overlap=0.3, quality_tol=0.01)
+    ta.load_image(probe)
+    ta.find_translation()
+    before = warp2pass.launch_count
+    out = ta.translate_image()
+    torch.cuda.synchronize()
+    assert warp2pass.launch_count == before + 2
+    disp = ta.displacement_field((192, 256))
+    coords = identity_grid((192, 256), "cuda") - disp
+    max_disp = int(np.ceil(disp.abs().max().item())) + 1
+    plain = warp_backend(probe.img, coords, max_disp=max_disp, warp_impl="plain")
+    assert torch.equal(out.img, plain)
+
+
+def test_series_correction_is_one_k1_pair():
+    import darsia_tpu_torch as dt
+    from darsia_tpu_torch.corrections.fuse import fused_chain
+
+    H, W, T = 200, 300, 4
+    series = torch.from_numpy(
+        (np.random.default_rng(2).random((H, W, T, 3)) * 255).astype(np.uint8)
+    ).cuda()
+    chain = fused_chain(
+        [dt.TranslationCorrection([1.5, -2.0]), dt.TranslationCorrection([0.25, 3.0])],
+        (H, W),
+        "cuda",
+    )
+    before = warp2pass.launch_count
+    folded = chain.correct_series_array(series, 2)
+    torch.cuda.synchronize()
+    assert warp2pass.launch_count == before + 2
+    plain = chain.apply_fn(torch.uint8)(series.reshape(H, W, -1), chain.field, "plain")
+    assert torch.equal(folded, plain.reshape(folded.shape))
+    for k in range(T):
+        assert torch.equal(folded[:, :, k], chain.correct_array(series[:, :, k].contiguous()))
+
+
+def test_multiscale_warps_through_k1():
+    import darsia_tpu_torch as dt
+
+    base, probe = _textured_cuda(shift=(2, 3))
+    reg = dt.ImageRegistration(base, N_patches=[2, 2], rel_overlap=0.3, quality_tol=0.01, num_levels=3)
+    before = warp2pass.launch_count
+    out = reg(probe)
+    torch.cuda.synchronize()
+    assert warp2pass.launch_count == before + 6  # one warp per level
+    field = reg.displacement()
+    coords = identity_grid((192, 256), "cuda") - field
+    max_disp = int(np.ceil(field.abs().max().item())) + 1
+    plain = warp_backend(probe.img, coords, max_disp=max_disp, warp_impl="plain")
+    assert torch.equal(out.img, plain)

@@ -59,6 +59,24 @@ pipe = dt.FusedAnalysisPipeline(transformations=[trans, curv], registration=reg,
 out = pipe(torch.from_numpy(probe))
 assert out.img.shape == tuple(base_img.num_voxels), out.img.shape
 assert torch.isfinite(out.img).all()
+
+# The interpolant of the frame's staged shifts, a flexible and a multiscale
+# registration, a subregion and a 2-frame series correction.
+field = reg.displacement()
+assert field.shape == (2,) + tuple(base_img.num_voxels) and torch.isfinite(field).all()
+probe_img = dt.OpticalImage(torch.from_numpy(probe), transformations=[trans, curv],
+                            **meta).img_as(torch.float32)
+for kw in ({"fused": False}, {"num_levels": 2}):
+    flex = dt.ImageRegistration(base_img, N_patches=[2, 2], rel_overlap=0.2, quality_tol=0.01, **kw)
+    aligned = flex(probe_img)
+    assert aligned.img.shape == base_img.img.shape and torch.isfinite(aligned.img).all()
+    assert np.isfinite(flex.evaluate([[0.5, 0.5]], units="metric")).all()
+sub = base_img.subregion(dt.make_coordinate([[0.1, 0.9], [0.6, 0.2]]))
+assert sub.img.shape[2] == 3 and sub.dimensions[1] > 0
+series = np.stack([base_u8, probe], axis=2)
+corrected = dt.OpticalImage(torch.from_numpy(series), transformations=[trans, curv],
+                            series=True, time=[0.0, 1.0], **meta)
+assert corrected.img.shape[2] == 2 and corrected.img.shape[:2] == base_img.img.shape[:2]
 print("ok", tuple(out.img.shape))
 """
 

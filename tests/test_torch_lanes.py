@@ -247,6 +247,10 @@ def test_series_image_metadata_matches_jax():
     assert np.array_equal(ts.img.numpy(), np.asarray(js.img))
     scalar = dt.ScalarImage(arr[..., 0], series=True, time=[0, 1, 2, 3], device="cpu")
     assert scalar.time_slice(1).img.shape == (6, 8)
-    with pytest.raises(NotImplementedError):
-        shift = dt.TranslationCorrection([1, 0])
-        dt.OpticalImage(arr, device="cpu", transformations=[shift], **meta)
+    # Corrections of a series correct every frame.
+    t_corr = dt.OpticalImage(
+        arr, device="cpu", transformations=[dt.TranslationCorrection([1, 0])], **meta
+    )
+    j_corr = da.OpticalImage(arr, transformations=[da.TranslationCorrection([1, 0])], **meta)
+    assert t_corr.series and t_corr.time == j_corr.time
+    assert np.abs(t_corr.img.numpy() - np.asarray(j_corr.img)).max() <= 1e-6
