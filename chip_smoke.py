@@ -66,14 +66,43 @@ checkout, in phases; any failure raises and exits non-zero:
    frame of each lane, recorded at the wrapper): the correction chain's field
    at its bound and the registration's TPS field at D=120 (C=3), the
    single-warp lane's gray warp (C=1) and its composed colour warp, and the
-   registration field stretched 1.5x (a violated bound), and the series
-   correction's pair (C = 24): bitwise against the plain version, timed (ms, GB/s, share of the bound, launch geometry).
+   registration field stretched 1.5x (a violated bound), the series
+   correction's pair (C = 24), the drift + curvature chain's pair at its
+   own bound (static + 1 + 64, C = 3), a drifting series' per-frame pair,
+   and the colour checker crop's pair (its warp to the checker's aspect
+   ratio in a rig reading call): bitwise against the plain version, timed
+   (ms, GB/s, share of the bound, launch geometry).
+14. The rig's reading path (``presets/workflows/rig.py:103-214`` of the JAX
+   package): the bench frame with a 4x6 checker of the post-2014 reference
+   swatches painted at (200, 2600), 60 px per swatch; ``find_colorchecker``
+   on it within 16 px of the painted corners; shape corrections [Resize,
+   DriftCorrection (ROI from the finder), CurvatureCorrection]; on the
+   corrected baseline the finder again, ``IlluminationCorrection`` (width
+   100, 30 samples, seed 42, hsl-scalar, illumination, outliers 0.1) and
+   ``ColorCorrection``.  Then ``OpticalImage(probe, transformations=shape +
+   colour)`` (median of 5 after a warm-up): exactly 4 K1 launches per call
+   (the drift + curvature pair and the checker crop's pair),
+   the drift estimate within 0.05 px of the roll, the call with plain K1
+   within mean |diff| <= 1e-5, the corrected probe against the corrected
+   baseline on the interior within mean |diff| <= 0.02, finite output of the
+   corrected shape; the call's device busy time and host time, and the
+   time of the swatch extraction (the crop's warp and resize on the card,
+   its copy to the host, the 24 k-means there).
+15. ``FusedAnalysisPipeline(transformations=[drift, curvature,
+   illumination])`` with the bench's registration and analysis, two-warp
+   lane, on the float32 probe, timed as phase 5: 4 K1 launches per frame,
+   plain K1 within mean |diff| <= 1e-5, the staged public objects within
+   mean |diff| <= 1e-3.
+16. A drifting 8-frame series (frame k rolled by (2 + k, 3 - k)) corrected
+   with [drift, curvature] at construction: 16 K1 launches per series (one
+   pair per frame; ms per series, median of 3), every frame bitwise equal to
+   the frame corrected alone.
 
-Every launch count is set to 0 just before each path of phases 3, 5-7 and
-8-11 and read just after it; the ``kernels`` line's K1 launches are their
-sum.  Each of phases 8-12 prints its seconds.  The second-to-last line is a JSON object of per-kernel
-results; the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero
-without a CUDA device.
+Every launch count is set to 0 just before each path of phases 3, 5-7,
+8-11 and 14-16 and read just after it; the ``kernels`` line's K1 launches
+are their sum.  Each of phases 8-12 and 14-16 prints its seconds.  The
+second-to-last line is a JSON object of per-kernel results; the last line is
+``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -243,6 +272,32 @@ def k1_cases(w2p, lanes, device) -> list:
         raise AssertionError(f"series correction: {len(calls)} K1 calls, want 2")
     for k, (data, cols, D) in enumerate(calls):
         cases.append({"name": f"series pass {k + 1}", "data": data, "cols": cols, "D": D})
+    rig = lanes.get("rig")
+    if rig is not None:
+        chain = fused_chain([rig["drift"], rig["curv"]], (H, W), device)
+        calls = frame_k1_calls(w2p, lambda: chain.correct_array(rig["probe"]))
+        if len(calls) != 2 or any(D != chain.max_disp for _, _, D in calls):
+            raise AssertionError(f"drift chain: K1 calls {[c[2] for c in calls]}, want 2 at {chain.max_disp}")
+        for k, (data, cols, D) in enumerate(calls):
+            cases.append({"name": f"drift chain pass {k + 1}", "data": data, "cols": cols, "D": D})
+        # A drifting series: one pair per frame (the second frame's pair).
+        drifting = torch.stack([rig["probe"], torch.roll(rig["probe"], (1, -1), (0, 1))], dim=2)
+        calls = frame_k1_calls(w2p, lambda: chain.correct_series_array(drifting, 2))
+        if len(calls) != 4:
+            raise AssertionError(f"drifting series: {len(calls)} K1 calls for 2 frames, want 4")
+        for k, (data, cols, D) in enumerate(calls[2:]):
+            cases.append({"name": f"drifting series pass {k + 1}", "data": data, "cols": cols, "D": D})
+        # A rig reading call: the drift chain's pair, then the checker crop's.
+        from darsia_tpu_torch import OpticalImage
+
+        transformations = rig["shape"] + rig["colour"]
+        calls = frame_k1_calls(
+            w2p, lambda: OpticalImage(rig["probe"], transformations=transformations, **META)
+        )
+        if len(calls) != 4:
+            raise AssertionError(f"rig reading call: {len(calls)} K1 calls, want 4")
+        for k, (data, cols, D) in enumerate(calls[2:]):
+            cases.append({"name": f"checker crop pass {k + 1}", "data": data, "cols": cols, "D": D})
     return cases
 
 
@@ -287,6 +342,7 @@ def phase_kernel(w2p) -> dict:
             k1 = cuda_ms(lambda: w2p.warp_rows_t(data, cols, D), 20)
             k2 = cuda_ms(lambda: w2p.warp_rows_t(data, cols, D), 20)
             p2 = cuda_ms(lambda: w2p.warp_rows_t_reference(data, cols, D), 10)
+            paced = cuda_ms(lambda: w2p.warp_rows_t(data, cols, D), 20, device_paced=True)
             name = "pass1" if len(timed) == 0 else "pass2"
             moved, bound_ms, bound_by = k1_bound(C, R, W_in, W_out)
             timed[name] = {
@@ -299,7 +355,7 @@ def phase_kernel(w2p) -> dict:
                 f"K1 {name}: kernel {k1} / {k2} ms, plain {p1} / {p2} ms, "
                 f"{moved / (min(k1, k2) * 1e6):.1f} GB/s by the 12 B/element count, "
                 f"bound {bound_ms} ms ({bound_by}), "
-                f"{100 * bound_ms / min(k1, k2):.1f}% of bound, "
+                f"{100 * bound_ms / min(k1, k2):.1f}% of bound, device-paced {paced} ms, "
                 f"geometry {w2p.warp_rows_t_geometry(C, R, W_out)}"
             )
         del data, cols, out, ref
@@ -327,13 +383,14 @@ def phase_kernel_fields(w2p, lanes, device) -> None:
         del out, ref
         ms = [cuda_ms(lambda: w2p.warp_rows_t(data, cols, D), 20) for _ in range(2)]
         paced = cuda_ms(lambda: w2p.warp_rows_t(data, cols, D), 20, device_paced=True)
+        plain = cuda_ms(lambda: w2p.warp_rows_t_reference(data, cols, D), 5)
         moved, bound_ms, bound_by = k1_bound(C, R, W_in, W_out)
         print(
             f"K1 {case['name']} {(C, R, W_in)} -> {(C, W_out, R)} D={D}: bitwise, "
             f"{ms[0]} / {ms[1]} ms, {moved / (min(ms) * 1e6):.1f} GB/s, bound "
             f"{bound_ms} ms ({bound_by}), {100 * bound_ms / min(ms):.1f}% of bound; "
-            f"device-paced {paced} ms ({100 * bound_ms / paced:.1f}% of bound); "
-            f"geometry {w2p.warp_rows_t_geometry(C, R, W_out)}"
+            f"device-paced {paced} ms ({100 * bound_ms / paced:.1f}% of bound); plain "
+            f"{plain} ms; geometry {w2p.warp_rows_t_geometry(C, R, W_out)}"
         )
 
 
@@ -387,6 +444,10 @@ def phase_rows(w2p) -> dict:
         k3b = cuda_ms(lambda: w2p.warp_rows(data, cols3, D, ring=True), 20)
         k2b = cuda_ms(lambda: w2p.warp_rows(data, cols3, D), 20)
         p2 = cuda_ms(lambda: w2p.warp_rows_reference(data, cols3, D), 10)
+        paced = [
+            cuda_ms(lambda: w2p.warp_rows(data, cols3, D, ring=ring), 20, device_paced=True)
+            for ring in (False, True)
+        ]
         # For orientation only (not the same function: no chain-edge clamp):
         # F.grid_sample's bilinear resample of the same rows.
         Rf, Wo = data.shape[0], cols3.shape[1]
@@ -418,7 +479,8 @@ def phase_rows(w2p) -> dict:
         timed.append(row)
         print(
             f"K2/K3 {shape} D={D}: K2 {k2a} / {k2b} ms, K3 {k3a} / {k3b} ms, plain "
-            f"{p1} / {p2} ms, bound {bound_ms} ms ({bound_by}, {moved / 1e6:.1f} MB); "
+            f"{p1} / {p2} ms, device-paced K2 {paced[0]} ms, K3 {paced[1]} ms, bound "
+            f"{bound_ms} ms ({bound_by}, {moved / 1e6:.1f} MB); "
             f"F.grid_sample (orientation only) {g_ms} ms, max|diff| to plain {g_err}"
         )
         path_inputs.append((data, cols3, D))
@@ -952,6 +1014,290 @@ def phase_series_concentration(dt, lanes, device, corrected, card: str) -> None:
     )
 
 
+# The rig frame: the bench frame with a 4x6 checker of the post-2014 reference
+# swatches painted at CHECKER_AT, SWATCH_PX per swatch.
+CHECKER_AT, SWATCH_PX = (200, 2600), 60
+# The rig's illumination config (IlluminationCorrectionConfig's defaults).
+ILLUMINATION = {"width": 100, "num_samples": 30, "seed": 42}
+RIG_INTERIOR = (slice(32, -32), slice(32, -32))
+
+
+def rig_frame(dt, base_u8) -> tuple[np.ndarray, np.ndarray]:
+    """(frame, painted corners TL-BL-BR-TR (row, col))."""
+    ref = dt.ColorCheckerAfter2014().swatches_rgb
+    frame = base_u8.copy()
+    r0, c0 = CHECKER_AT
+    h, w = 4 * SWATCH_PX, 6 * SWATCH_PX
+    patch = np.kron(ref, np.ones((SWATCH_PX, SWATCH_PX, 1))) * 255
+    frame[r0 : r0 + h, c0 : c0 + w] = patch.astype(np.uint8)
+    corners = np.array([[r0, c0], [r0 + h, c0], [r0 + h, c0 + w], [r0, c0 + w]])
+    return frame, corners
+
+
+def build_rig(dt, lanes, device) -> dict:
+    """The rig's corrections, set up as presets/workflows/rig.py:103-214 of the
+    JAX package sets them up, on the rig frame."""
+    from types import SimpleNamespace
+
+    tic = time.perf_counter()
+    frame, corners = rig_frame(dt, lanes["base_u8"])
+    baseline = dt.OpticalImage(torch.from_numpy(frame).to(device), **META)
+    t0 = time.perf_counter()
+    _, voxels = dt.find_colorchecker(baseline)
+    finder_s = time.perf_counter() - t0
+    off = int(np.abs(np.asarray(voxels) - corners).max())
+    if off > 16:
+        raise AssertionError(f"find_colorchecker: {voxels.tolist()} is {off} px off {corners.tolist()}")
+    drift = dt.DriftCorrection(baseline, config={"roi": voxels})
+    curv = dt.CurvatureCorrection(config=CURVATURE)
+    shape = [dt.Resize(shape=(H, W)), drift, curv]
+    corrected = dt.OpticalImage(baseline.img, transformations=shape, **META)
+    _, color_voxels = dt.find_colorchecker(corrected)
+    illumination = dt.IlluminationCorrection()
+    config = SimpleNamespace(**ILLUMINATION)
+    samples = illumination.select_random_samples(
+        np.ones(corrected.img.shape[:2], dtype=bool), config
+    )
+    t0 = time.perf_counter()
+    illumination.setup(
+        corrected,
+        [samples],
+        outliers=0.1,
+        colorspace="hsl-scalar",
+        interpolation="illumination",
+    )
+    illumination_s = time.perf_counter() - t0
+    color = dt.ColorCorrection(corrected, {"roi": color_voxels, "clip": False})
+    torch.cuda.synchronize()
+    print(
+        f"rig setup: checker at {voxels.tolist()} ({off} px off the painted corners, "
+        f"finder {finder_s:.3f} s), on the corrected baseline at "
+        f"{np.asarray(color_voxels).tolist()}; {len(samples)} illumination samples, "
+        f"setup {illumination_s:.2f} s; all {time.perf_counter() - tic:.2f} s"
+    )
+    probe = torch.from_numpy(np.roll(frame, shift=(2, 3), axis=(0, 1))).to(device)
+    return {
+        "frame": frame,
+        "baseline": baseline,
+        "probe": probe,
+        "drift": drift,
+        "curv": curv,
+        "shape": shape,
+        "colour": [illumination, color],
+        "illumination": illumination,
+    }
+
+
+def device_busy_ms(fn, calls: int = 2) -> float:
+    """Device busy time per call of ``fn`` (the union of its kernel, memcpy and
+    memset intervals in a torch.profiler trace)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    return busy_us(events) / 1e3 / calls
+
+
+def busy_us(events: list) -> float:
+    """The union of the device intervals (kernels, copies, sets) of a trace, us."""
+    spans = sorted(
+        (e["ts"], e["ts"] + e["dur"])
+        for e in events
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e
+    )
+    busy, cur_start, cur_end = 0.0, None, None
+    for start, end in spans:
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    if cur_end is not None:
+        busy += cur_end - cur_start
+    return busy
+
+
+def plain_k1(w2p):
+    """A context in which every K1 call takes the plain version."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def swapped():
+        wrapper = w2p.warp_rows_t
+        w2p.warp_rows_t = lambda data, cols, max_disp, impl="auto": wrapper(
+            data, cols, max_disp, "plain"
+        )
+        try:
+            yield
+        finally:
+            w2p.warp_rows_t = wrapper
+
+    return swapped()
+
+
+def phase_rig_read(dt, w2p, rig, device, card: str, profile) -> dict:
+    """The rig's reading path: one photograph through the shape and colour
+    corrections, as ``OpticalImage(frame, transformations=...)``."""
+    from darsia_tpu_torch.corrections.color.colorcorrection import CustomColorChecker
+
+    tic = time.perf_counter()
+    transformations = rig["shape"] + rig["colour"]
+
+    def read(img):
+        return dt.OpticalImage(img, transformations=transformations, **META)
+
+    read(rig["probe"])  # warm-up
+    # The time of the swatch extraction (the crop's warp and resize on the
+    # card, its copy to the host, 24 k-means).
+    extract, spent = CustomColorChecker._extract_from_image, []
+
+    def timed_extract(img):
+        t0 = time.perf_counter()
+        out = extract(img)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    CustomColorChecker._extract_from_image = staticmethod(timed_extract)
+    try:
+        out, ms, each, counts = median_call_ms(
+            w2p, lambda: read(rig["probe"]), 5, 4, "rig reading path"
+        )
+    finally:
+        CustomColorChecker._extract_from_image = staticmethod(extract)
+    extract_ms = 1e3 * sum(spent) / len(spent)
+    img = out.img
+    if tuple(img.shape) != (OH, W, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"rig reading path: bad output {tuple(img.shape)}")
+    t = rig["drift"].pullback_translation(rig["probe"]).cpu().numpy()
+    drift_err = float(np.abs(t - np.array([2.0, 3.0])).max())
+    if not drift_err <= 0.05:
+        raise AssertionError(f"drift estimate {t.tolist()}, {drift_err} px off the roll (2, 3)")
+    with plain_k1(w2p):
+        before = read_counts(w2p)
+        plain = read(rig["probe"]).img
+        torch.cuda.synchronize()
+        if read_counts(w2p) != before:
+            raise AssertionError("rig reading path: the plain run launched a kernel")
+    d_plain = float((plain - img).abs().mean())
+    if not d_plain <= 1e-5:
+        raise AssertionError(f"rig reading path vs plain K1: mean |diff| = {d_plain}")
+    base = read(rig["baseline"].img).img
+    d_base = float((img - base)[RIG_INTERIOR].abs().mean())
+    if not d_base <= 0.02:
+        raise AssertionError(f"corrected probe vs corrected baseline: mean |diff| = {d_base}")
+    busy = device_busy_ms(lambda: read(rig["probe"]))
+    print(
+        f"rig reading path ({H}x{W} uint8 -> {OH}x{W} float32, Resize + drift + curvature "
+        f"+ illumination + colour): {ms} ms per call (median of 5: {each}), launches "
+        f"{counts} on {card}; device busy {busy:.3f} ms per call, host "
+        f"{ms - busy:.3f} ms (of which the swatch extraction {extract_ms:.3f} ms); "
+        f"drift estimate {t.tolist()} ({drift_err} px off the roll); mean|diff| vs "
+        f"plain K1 {d_plain}, vs the corrected baseline (interior) {d_base}; phase "
+        f"{time.perf_counter() - tic:.2f} s"
+    )
+    if profile is not None:
+        profile_frame(lambda: read(rig["probe"]), ms, profile, "rig_read")
+    return {
+        "ms": ms,
+        "launches": counts["warp_rows_t"],
+        "device_busy_ms": busy,
+        "extract_ms": extract_ms,
+        "drift_err_px": drift_err,
+    }
+
+
+def phase_drift_pipeline(dt, w2p, lanes, rig, device, card: str, profile) -> dict:
+    """The two-warp lane with [drift, curvature, illumination] as its chain."""
+    tic = time.perf_counter()
+    members = [rig["drift"], rig["curv"], rig["illumination"]]
+    pipeline = dt.FusedAnalysisPipeline(
+        transformations=members,
+        registration=lanes["registration"],
+        analysis=lanes["analysis"],
+    )
+    probe = rig["probe"].to(torch.float32) / 255.0
+    pipeline(probe)  # warm-up
+    torch.cuda.synchronize()
+    frames = 5
+    out, ms, counts, windows = run_frames(w2p, pipeline, probe, frames, "drift lane")
+    conc = out.img
+    corrected = dt.OpticalImage(probe, transformations=members, **META)
+    staged = lanes["analysis"](lanes["registration"](corrected.img_as(torch.float32))).img
+    staged_err = float((staged - conc).abs().mean())
+    if not staged_err <= 1e-3:
+        raise AssertionError(f"drift lane vs staged objects: mean |dconc| = {staged_err}")
+    diff, plain_ms = plain_frames(w2p, pipeline, probe, conc, frames, "drift lane")
+    # Against phase 5's lane, in turns (phase 5, drift, drift, phase 5), one
+    # window of 5 frames each: the host's pace drifts between phases.
+    bench_probe = torch.from_numpy(lanes["probe_u8"]).to(device)
+    turns = []
+    for lane, x in (
+        (lanes["two_warp"], bench_probe),
+        (pipeline, probe),
+        (pipeline, probe),
+        (lanes["two_warp"], bench_probe),
+    ):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            lane(x)
+        torch.cuda.synchronize()
+        turns.append((time.perf_counter() - t0) / frames * 1e3)
+    print(
+        f"two-warp lane with a drift member ([drift, curvature, illumination], float32 "
+        f"probe): {ms} ms/frame ({WINDOWS} windows of {frames} frames, each {windows}), "
+        f"launches {counts} on {card}; with plain K1 {plain_ms} ms/frame; mean|dconc| vs "
+        f"plain K1 {diff}, vs staged objects {staged_err}; in turns with phase 5's lane "
+        f"(ms/frame, 5 frames each): phase 5 {turns[0]}, drift {turns[1]}, drift "
+        f"{turns[2]}, phase 5 {turns[3]}; phase {time.perf_counter() - tic:.2f} s"
+    )
+    if profile is not None:
+        profile_frame(lambda: pipeline(probe), ms, profile, "drift_lane")
+    return {"ms_per_frame": ms, "launches": counts["warp_rows_t"], "staged": staged_err}
+
+
+def phase_drifting_series(dt, w2p, rig, device, card: str) -> dict:
+    """An 8-frame series, each frame drifted differently, corrected by
+    [drift, curvature] at construction: one K1 pair per frame."""
+    tic = time.perf_counter()
+    frames = [np.roll(rig["frame"], shift=(2 + k, 3 - k), axis=(0, 1)) for k in range(SERIES_T)]
+    series = torch.from_numpy(np.stack(frames, axis=2)).to(device)
+    members = [rig["drift"], rig["curv"]]
+    meta = {**META, "series": True, "time": [30.0 * k for k in range(SERIES_T)]}
+
+    def correct():
+        return dt.OpticalImage(series, transformations=members, **meta)
+
+    correct()  # warm-up
+    out, ms, each, counts = median_call_ms(
+        w2p, correct, 3, 2 * SERIES_T, "drifting series"
+    )
+    for k in range(SERIES_T):
+        single = dt.OpticalImage(
+            series[:, :, k].contiguous(), transformations=members, **META
+        ).img
+        if not torch.equal(out.img[:, :, k], single):
+            err = float((out.img[:, :, k].float() - single.float()).abs().max())
+            raise AssertionError(f"drifting series frame {k} != the frame alone: {err}")
+    print(
+        f"drifting series ({H}x{W}x{SERIES_T}x3 uint8, [drift, curvature]): {ms} ms per "
+        f"series (median of 3: {each}), launches {counts} on {card}; every frame == the "
+        f"frame alone; phase {time.perf_counter() - tic:.2f} s"
+    )
+    return {"ms": ms, "launches": counts["warp_rows_t"]}
+
+
+
 def profile_frame(fn, ms_per_call: float, out_dir: Path, name: str, frames: int = 3):
     """torch.profiler over a few calls of ``fn`` (a frame, or a call of a
     path): kernel tables (by device time, and by the host's own time) and
@@ -973,23 +1319,12 @@ def profile_frame(fn, ms_per_call: float, out_dir: Path, name: str, frames: int 
     trace = out_dir / f"profile_{name}.json"
     prof.export_chrome_trace(str(trace))
     print(table)
-    # Device busy time: the union of kernel/memcpy/memset intervals.
     events = [
         e
         for e in json.loads(trace.read_text())["traceEvents"]
         if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e
     ]
-    events.sort(key=lambda e: e["ts"])
-    busy, cur_start, cur_end = 0.0, None, None
-    for e in events:
-        start, end = e["ts"], e["ts"] + e["dur"]
-        if cur_end is None or start > cur_end:
-            if cur_end is not None:
-                busy += cur_end - cur_start
-            cur_start, cur_end = start, end
-        else:
-            cur_end = max(cur_end, end)
-    busy += cur_end - cur_start
+    busy = busy_us(events)
     busy_ms = busy / 1e3 / frames
     k1 = [e["dur"] for e in events if "warp_rows_t_kernel" in e.get("name", "")]
     print(
@@ -1074,6 +1409,10 @@ def main() -> int:
     multiscale = phase_multiscale(dt, w2p, lanes, device, card, args.profile)
     series_corr = phase_series_correction(dt, w2p, lanes, device, card, args.profile)
     phase_series_concentration(dt, lanes, device, series_corr.pop("image"), card)
+    lanes["rig"] = build_rig(dt, lanes, device)
+    rig_read = phase_rig_read(dt, w2p, lanes["rig"], device, card, args.profile)
+    drift_lane = phase_drift_pipeline(dt, w2p, lanes, lanes["rig"], device, card, args.profile)
+    drifting = phase_drifting_series(dt, w2p, lanes["rig"], device, card)
     phase_kernel_fields(w2p, lanes, device)
 
     passes = [k1["pass1"], k1["pass2"]]
@@ -1082,6 +1421,7 @@ def main() -> int:
         + single["launches"]
         + sum(lane["launches"] for lane in series.values())
         + sum(p["launches"] for p in (flexible, after_frame, multiscale, series_corr))
+        + sum(p["launches"] for p in (rig_read, drift_lane, drifting))
     )
     results = {
         "warp_rows_t": {

@@ -26,7 +26,26 @@ from .analysis import (  # noqa: E402
     MultiscaleDiffeomorphicImageRegistration,
     TranslationAnalysis,
 )
-from .corrections import CurvatureCorrection, TranslationCorrection  # noqa: E402
+from .corrections import (  # noqa: E402
+    AdaptiveBalance,
+    AffineBalance,
+    ColorBalance,
+    ColorChecker,
+    ColorCheckerAfter2014,
+    ColorCorrection,
+    CurvatureCorrection,
+    CustomColorChecker,
+    DriftCorrection,
+    DynamicIlluminationCorrection,
+    IlluminationCorrection,
+    PatchwiseIlluminationCorrection,
+    TranslationCorrection,
+    TranslationEstimator,
+    TypeCorrection,
+    WhiteBalance,
+    find_colorchecker,
+    read_correction,
+)
 from .image import CoordinateSystem, Image, OpticalImage, ScalarImage  # noqa: E402
 from .ops.resize import resize_array  # noqa: E402
 from .restoration import H1_regularization, Resize, resize  # noqa: E402
@@ -43,14 +62,24 @@ from .utils.point import (  # noqa: E402
 )
 
 __all__ = [
+    "AdaptiveBalance",
+    "AffineBalance",
+    "ColorBalance",
+    "ColorChecker",
+    "ColorCheckerAfter2014",
+    "ColorCorrection",
     "ConcentrationAnalysis",
     "Coordinate",
     "CoordinateArray",
     "CoordinateSystem",
     "CurvatureCorrection",
+    "CustomColorChecker",
     "DiffeomorphicImageRegistration",
+    "DriftCorrection",
+    "DynamicIlluminationCorrection",
     "FusedAnalysisPipeline",
     "H1_regularization",
+    "IlluminationCorrection",
     "Image",
     "ImageRegistration",
     "Jacobi",
@@ -58,14 +87,20 @@ __all__ = [
     "MonochromaticReduction",
     "MultiscaleDiffeomorphicImageRegistration",
     "OpticalImage",
+    "PatchwiseIlluminationCorrection",
     "Resize",
     "ScalarImage",
     "TranslationAnalysis",
     "TranslationCorrection",
+    "TranslationEstimator",
+    "TypeCorrection",
     "Voxel",
     "VoxelArray",
+    "WhiteBalance",
+    "find_colorchecker",
     "make_coordinate",
     "make_voxel",
+    "read_correction",
     "resize",
     "resize_array",
 ]

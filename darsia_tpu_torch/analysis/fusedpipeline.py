@@ -87,7 +87,11 @@ class FusedAnalysisPipeline:
         i = 0
         while i < len(chain):
             j = _collect_group(chain, i)
-            if j - i >= 2 or (j - i == 1 and hasattr(chain[i], "pullback_field")):
+            lone = j - i == 1 and (
+                hasattr(chain[i], "pullback_field")
+                or hasattr(chain[i], "pullback_translation")
+            )
+            if j - i >= 2 or lone:
                 fused = fused_chain(chain[i:j], shape, device)
                 stages.append(("chain", fused))
                 shape = tuple(fused.out_shape)

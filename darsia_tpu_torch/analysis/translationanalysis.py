@@ -20,18 +20,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.color import rgb_to_gray
+from ..corrections.shape.translation import _to_gray
 from ..ops.fft import phase_correlation_prepared, prepare_phase_reference
 from ..ops.warp import identity_grid, warp_backend
 from ..utils.interpolation import rbf_interpolate
 
 __all__ = ["TranslationAnalysis", "patch_centers", "warp_image"]
-
-
-def _to_gray(arr: torch.Tensor) -> torch.Tensor:
-    if arr.dim() == 3:
-        return rgb_to_gray(arr.to(torch.float32))
-    return arr.to(torch.float32)
 
 
 def _tps_host(d: np.ndarray) -> np.ndarray:

@@ -2,15 +2,19 @@
 
 Counterpart of :mod:`darsia_tpu.corrections.base`.  A time series is
 corrected frame by frame (:meth:`BaseCorrection.correct_series_array`).
+Corrections persist as npz files in the JAX package's format (class name
+plus state), so :func:`read_correction` loads what either package saved.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from pathlib import Path
+from typing import Optional, Union
 
+import numpy as np
 import torch
 
-__all__ = ["BaseCorrection"]
+__all__ = ["BaseCorrection", "TypeCorrection", "read_correction"]
 
 
 class BaseCorrection:
@@ -53,3 +57,86 @@ class BaseCorrection:
         metadata = image.metadata()
         metadata.update(meta_update)
         return type(image)(img=corrected, **metadata)
+
+    # ------------------------------------------------------------------- I/O
+
+    def save(self, path: Union[str, Path]) -> None:
+        """Persist the correction's state as npz (class-name dispatched)."""
+        path = Path(path).with_suffix(".npz")
+        path.parent.mkdir(parents=True, exist_ok=True)
+        np.savez(
+            path,
+            class_name=type(self).__name__,
+            state=np.array([self._state_dict()], dtype=object),
+        )
+
+    def load(self, path: Union[str, Path]) -> None:
+        """Restore the state from npz."""
+        path = Path(path)
+        if not path.is_file():
+            raise FileNotFoundError(f"File {path} not found.")
+        self._load_state_dict(np.load(path, allow_pickle=True)["state"][0])
+
+    def _state_dict(self) -> dict:
+        """Serializable parameter state (tensors as numpy). Override with load."""
+        return {
+            k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v)
+            for k, v in self.__dict__.items()
+            if not k.startswith("_") and _is_serializable(v)
+        }
+
+    def _load_state_dict(self, state: dict) -> None:
+        self.__dict__.update(state)
+
+
+def _is_serializable(v) -> bool:
+    return isinstance(
+        v, (int, float, str, bool, list, tuple, dict, np.ndarray, torch.Tensor, type(None))
+    )
+
+
+def _numpy_dtype(data_type) -> np.dtype:
+    """A numpy dtype from a numpy or torch dtype (or a name)."""
+    if isinstance(data_type, torch.dtype):
+        return np.dtype(str(data_type).removeprefix("torch."))
+    return np.dtype(data_type)
+
+
+class TypeCorrection(BaseCorrection):
+    """Cast image data to a dtype (with value-range rescaling)."""
+
+    def __init__(self, data_type=None, **kwargs):
+        self.data_type = None if data_type is None else _numpy_dtype(data_type)
+
+    def correct_array(self, img: torch.Tensor) -> torch.Tensor:
+        from ..utils.dtype import convert_dtype
+
+        return convert_dtype(img, self.data_type)
+
+    def _state_dict(self):
+        return {"data_type": str(self.data_type)}
+
+    def _load_state_dict(self, state):
+        self.data_type = np.dtype(state["data_type"])
+
+
+def read_correction(path: Union[str, Path]):
+    """The correction saved in an npz file (by this package or the JAX
+    package), dispatched on its class name."""
+    from . import CORRECTION_REGISTRY
+
+    path = Path(path)
+    with np.load(path, allow_pickle=True) as data:
+        class_name = str(data["class_name"])
+    if class_name not in CORRECTION_REGISTRY:
+        raise ValueError(f"Unknown correction class {class_name}.")
+    cls = CORRECTION_REGISTRY[class_name]
+    correction = cls.__new__(cls)
+    # Default attributes first, as the JAX package does; classes that need
+    # constructor arguments are left to load().
+    try:
+        correction.__init__()
+    except TypeError:
+        pass
+    correction.load(path)
+    return correction

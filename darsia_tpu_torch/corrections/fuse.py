@@ -1,13 +1,24 @@
 """Fused geometric-correction chains: one warp per chain.
 
-Counterpart of :mod:`darsia_tpu.corrections.fuse` for static members.
-Consecutive geometric corrections collapse into a single pull-back
-coordinate field (:func:`~darsia_tpu_torch.ops.warp.compose_coordinate_maps`)
-and execute as one warp: the two-pass kernel on CUDA, the gather warp on the
-CPU; a time series is one warp too, its frames folded into the channels.
-Fusion protocol (duck-typed): ``pullback_field(input_shape, device) ->
-(coords, meta_update)``.  Drift members (``pullback_translation``) are not
-ported yet and are refused.
+Counterpart of :mod:`darsia_tpu.corrections.fuse`.  Consecutive geometric
+corrections collapse into a single pull-back coordinate field
+(:func:`~darsia_tpu_torch.ops.warp.compose_coordinate_maps`) and execute as
+one warp: the two-pass kernel on CUDA, the gather warp on the CPU.
+
+Fusion protocol (duck-typed):
+
+* ``pullback_field(input_shape, device) -> (coords, meta_update)``: a static
+  field that depends only on the input shape.
+* ``pullback_translation(img) -> (2,)``: a per-image rigid translation
+  (drift), as a tensor on the image's device.  It composes exactly with the
+  static field when it leads the chain (the innermost map): it is clipped to
+  the member's ``max_displacement`` and added to the field on the device,
+  so drift and the static corrections still cost one warp, whose bound
+  covers both.
+
+A series is one warp too when the chain is static (its frames folded into
+the channels); a chain with a drift member warps each frame alone, since
+each has its own translation.
 """
 
 from __future__ import annotations
@@ -21,11 +32,16 @@ from ..ops.warp import compose_coordinate_maps, identity_grid, warp_backend
 from .base import BaseCorrection
 
 __all__ = [
+    "DEFAULT_DYNAMIC_DISP",
     "FusedCorrectionChain",
     "apply_transformation_chain",
     "fused_chain",
+    "is_dynamic_fusable",
     "is_static_fusable",
 ]
+
+#: Default bound (voxels) of a drift member's translation in a fused chain.
+DEFAULT_DYNAMIC_DISP = 64.0
 
 
 def is_static_fusable(correction) -> bool:
@@ -36,43 +52,71 @@ def is_static_fusable(correction) -> bool:
     )
 
 
+def is_dynamic_fusable(correction) -> bool:
+    """A correction contributing a per-image rigid translation (drift)."""
+    return hasattr(correction, "pullback_translation")
+
+
 class FusedCorrectionChain(BaseCorrection):
-    """A run of static geometric corrections compiled into one field."""
+    """A run of geometric corrections compiled into one field, optionally led
+    by one drift member."""
 
     def __init__(self, corrections: Sequence, input_shape: tuple, device) -> None:
         corrections = list(corrections)
         if not corrections:
             raise ValueError("Empty correction chain.")
-        if any(hasattr(c, "pullback_translation") for c in corrections):
-            raise NotImplementedError("drift members are not ported yet")
         self.members = corrections
         self.input_shape = tuple(int(s) for s in input_shape)
         self.device = torch.device(device)
 
+        self._dynamic = None
+        start = 0
+        if is_dynamic_fusable(corrections[0]):
+            self._dynamic = corrections[0]
+            start = 1
+        if any(is_dynamic_fusable(c) for c in corrections[start:]):
+            raise ValueError("Dynamic (drift-like) corrections fuse only at chain start.")
+
         field = None
         meta: dict = {}
         shape = self.input_shape
-        for corr in corrections:
+        for corr in corrections[start:]:
             f, meta_update = corr.pullback_field(shape, self.device)
             # F_{k+1}(p) = F_k(f_{k+1}(p)).
             field = f if field is None else compose_coordinate_maps(f, field)
             shape = tuple(int(s) for s in f.shape[1:])
             meta.update(meta_update)
+        if field is None:
+            field = identity_grid(shape, self.device)
         self.field = field
         self.out_shape = shape
         self._meta = meta
-        bound = float((field - identity_grid(shape, self.device)).abs().max())
-        self.max_disp = int(np.ceil(bound)) + 1
+        self.static_disp = float((field - identity_grid(shape, self.device)).abs().max())
+        max_disp = int(np.ceil(self.static_disp)) + 1
+        if self._dynamic is not None:
+            max_disp += int(np.ceil(self._dynamic_bound()))
+        self.max_disp = max_disp
+
+    def _dynamic_bound(self) -> float:
+        return float(getattr(self._dynamic, "max_displacement", DEFAULT_DYNAMIC_DISP))
 
     def apply_fn(self, dtype: torch.dtype):
-        """``apply(img, field, warp_impl="auto") -> corrected`` for ``dtype`` input."""
+        """``apply(img, field, warp_impl="auto") -> corrected`` for ``dtype``
+        input: the drift estimate (if any) shifts the field on the device,
+        then one warp."""
+        dynamic = self._dynamic
+        bound = None if dynamic is None else self._dynamic_bound()
         max_disp = self.max_disp
         integer = not dtype.is_floating_point
 
         def apply(img, field, warp_impl="auto"):
+            coords = field
+            if dynamic is not None:
+                t = dynamic.pullback_translation(img).clamp(-bound, bound)
+                coords = coords + t.reshape(2, 1, 1)
             out = warp_backend(
                 img.to(torch.float32),
-                field,
+                coords,
                 order=1,
                 max_disp=max_disp,
                 warp_impl=warp_impl,
@@ -88,17 +132,25 @@ class FusedCorrectionChain(BaseCorrection):
         return self.apply_fn(img.dtype)(img, self.field)
 
     def correct_series_array(self, img: torch.Tensor, time_axis: int) -> torch.Tensor:
-        """Correct a whole (H, W, T[, C]) series with one warp.
+        """Correct a whole (H, W, T[, C]) series.
 
-        The field is shared by every frame, so the time and range axes fold
-        into the warp's channel axis: on CUDA one pair of K1 launches
-        corrects the series, each frame to the same bits as alone.
+        A static chain shares its field with every frame, so the time and
+        range axes fold into the warp's channel axis: on CUDA one pair of K1
+        launches corrects the series.  With a drift member each frame is
+        warped alone (one K1 pair per frame).  Either way each frame gets
+        the same bits as when corrected alone.
         """
         if time_axis != 2:
             raise ValueError("a 2-D series carries its time axis at 2")
+        apply = self.apply_fn(img.dtype)
+        if self._dynamic is not None:
+            frames = [
+                apply(img.select(2, k).contiguous(), self.field)
+                for k in range(img.shape[2])
+            ]
+            return torch.stack(frames, dim=2)
         H, W = img.shape[:2]
-        folded = img.reshape(H, W, -1)
-        out = self.apply_fn(img.dtype)(folded, self.field)
+        out = apply(img.reshape(H, W, -1), self.field)
         return out.reshape(tuple(out.shape[:2]) + tuple(img.shape[2:]))
 
     def correct_metadata(self, metadata=None) -> dict:
@@ -129,8 +181,11 @@ def fused_chain(members: Sequence, input_shape: tuple, device) -> FusedCorrectio
 
 
 def _collect_group(chain: list, i: int) -> int:
-    """End index (exclusive) of the maximal fusable run starting at i."""
+    """End index (exclusive) of the maximal fusable run starting at i: an
+    optional leading drift member, then static members."""
     j = i
+    if j < len(chain) and is_dynamic_fusable(chain[j]):
+        j += 1
     while j < len(chain) and is_static_fusable(chain[j]):
         j += 1
     return j
@@ -141,11 +196,13 @@ def apply_transformation_chain(image, transformations) -> None:
 
     Maximal runs of >= 2 fusable corrections execute as one
     :class:`FusedCorrectionChain`; everything else applies one at a time.
+    A failure to fuse raises: nothing falls back to the sequential path.
     """
     chain = [t for t in transformations if t is not None and callable(t)]
+    fuse = image.space_dim == 2
     i = 0
     while i < len(chain):
-        j = _collect_group(chain, i)
+        j = _collect_group(chain, i) if fuse else i
         if j - i >= 2:
             fused_chain(chain[i:j], image.shape[:2], image.device)(image, overwrite=True)
             i = j

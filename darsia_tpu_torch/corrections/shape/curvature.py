@@ -1,11 +1,13 @@
 """Curvature correction: crop + bulge + stretch polynomial warps.
 
-Counterpart of :mod:`darsia_tpu.corrections.shape.curvature` (the correction
-itself; the interactive tuning helpers are not ported).  The correction is a
-coordinate-field generator: the pull-back grid is computed once per input
-shape and device by pushing the identity coordinate images through the
+Counterpart of :mod:`darsia_tpu.corrections.shape.curvature`.  The correction
+is a coordinate-field generator: the pull-back grid is computed once per
+input shape and device by pushing the identity coordinate images through the
 configured steps (init -> crop -> bulge -> stretch), so the whole correction
-costs one resampling pass per image.
+costs one resampling pass per image.  The tuning helpers (``pre_bulge_
+correction``, ``crop``, ``bulge_correction``, ``stretch_correction``) set one
+step each and apply it to a tuning image; ``show_image`` is not ported (no
+plotting here: ``temporary_image`` gives the image to show).
 
 Config (dict, ``.json`` file, or the ``[curvature]`` section of a ``.toml``):
 
@@ -20,11 +22,14 @@ import json
 import math
 from pathlib import Path
 from typing import Optional, Union
+from warnings import warn
 
 import numpy as np
 import torch
 
+from ...image.image import Image, as_numpy, as_tensor
 from ...ops.warp import identity_grid, warp_backend
+from ...utils.point import make_voxel
 from ..base import BaseCorrection
 from .quad import extract_quadrilateral_ROI
 
@@ -52,9 +57,9 @@ def load_curvature_correction_config_from_dict(sec: dict) -> dict:
             config[key] = {k: sec[key].get(k, d) for k, d in defaults.items()}
     if sec.get("crop") is not None:
         config["crop"] = {
-            # Corner voxels in (row, col) order, as the JAX package's
+            # Corner voxels (row, col), floored as the JAX package's
             # VoxelArray holds them.
-            "pts_src": np.asarray(sec["crop"].get("pts_src", []), dtype=float),
+            "pts_src": make_voxel(sec["crop"].get("pts_src", [])),
             "width": sec["crop"].get("width", 1.0),
             "height": sec["crop"].get("height", 1.0),
         }
@@ -82,6 +87,37 @@ class CurvatureCorrection(BaseCorrection):
     def __init__(
         self, config: Union[dict, str, Path, list, None] = None, **kwargs
     ) -> None:
+        """
+        Args:
+            config: dict, ``.json``/``.toml`` path, or a list of paths.
+            **kwargs: ``image`` (a tuning image: tensor or numpy array, which
+                goes to ``device``), ``width``, ``height``, ``in_meters``,
+                ``resize_factor`` (rescales the config for a resized input),
+                ``interpolation_order``, ``device``.
+
+        """
+        self.setup_config(config)
+        if "image" in kwargs:
+            source = kwargs["image"]
+            if isinstance(source, (str, Path)):
+                raise NotImplementedError(
+                    "reading an image from a path needs imread, which is not ported yet"
+                )
+            self.reference_image = as_tensor(source, kwargs.get("device"))
+            self.current_image = self.reference_image.clone()
+            self.in_meters = kwargs.get("in_meters", True)
+            self.width = kwargs.get("width", 1.0)
+            self.height = kwargs.get("height", 1.0)
+        self.resize_factor = kwargs.get("resize_factor", 1.0)
+        if not math.isclose(self.resize_factor, 1.0):
+            self._adapt_config()
+        self.interpolation_order: int = kwargs.get("interpolation_order", 1)
+        self.cache: dict = {}
+        self._fusion_version = 0
+
+    # -------------------------------------------------------------- config
+
+    def setup_config(self, config=None) -> None:
         if config is None:
             self.config = {}
         elif isinstance(config, dict):
@@ -94,11 +130,156 @@ class CurvatureCorrection(BaseCorrection):
                 self.config.update(_read_config_file(Path(p)))
         else:
             raise ValueError("Unsupported config type.")
-        if not math.isclose(kwargs.get("resize_factor", 1.0), 1.0):
-            raise NotImplementedError("resize_factor is not ported yet")
-        self.interpolation_order: int = kwargs.get("interpolation_order", 1)
-        self.cache: dict = {}
-        self._fusion_version = 0
+
+    def write_config_to_file(self, path) -> None:
+        cfg = json.loads(json.dumps(self.config, default=lambda o: np.asarray(o).tolist()))
+        with open(Path(path), "w") as outfile:
+            json.dump(cfg, outfile, indent=4)
+
+    def read_config_from_file(self, path) -> None:
+        with open(Path(path), "r") as f:
+            self.config = load_curvature_correction_config_from_dict(json.load(f))
+
+    def _adapt_config(self) -> None:
+        """Rescale the config for a resized input (``resize_factor``)."""
+        for mainkey in ("init", "bulge"):
+            if mainkey in self.config:
+                for key in _BULGE_KEYS:
+                    self.config[mainkey][key] *= self.resize_factor
+        if "crop" in self.config:
+            self.config["crop"]["pts_src"] = make_voxel(
+                self.resize_factor * np.asarray(self.config["crop"]["pts_src"])
+            )
+        if "stretch" in self.config:
+            for key in _STRETCH_KEYS:
+                self.config["stretch"][key] *= self.resize_factor
+
+    # ----------------------------------------- interactive tuning helpers
+
+    @property
+    def temporary_image(self) -> np.ndarray:
+        """The tuning image as an integer numpy image: uint8 and uint16 stay,
+        floats in [0, 1] become uint8."""
+        img = as_numpy(self.current_image)
+        if img.dtype in (np.uint8, np.uint16):
+            return img
+        return (np.clip(np.asarray(img, dtype=float), 0.0, 1.0) * 255.0).astype(np.uint8)
+
+    def pre_bulge_correction(self, **kwargs) -> None:
+        """Set the "init" bulge step and apply it to the tuning image."""
+        self.config["init"] = {
+            k: kwargs.get(k, 0)
+            for k in (
+                "horizontal_bulge",
+                "horizontal_center_offset",
+                "vertical_bulge",
+                "vertical_center_offset",
+            )
+        }
+        self.current_image = self.simple_curvature_correction(
+            self.current_image, **self.config["init"]
+        )
+
+    def crop(self, corner_points) -> None:
+        """Set the crop step from 4 corner voxels (row, col) and apply it to
+        the tuning image."""
+        self.config["crop"] = {
+            "pts_src": make_voxel(np.asarray(corner_points)),
+            "width": self.width,
+            "height": self.height,
+        }
+        self.current_image = extract_quadrilateral_ROI(
+            self.current_image, indexing="matrix", **self.config["crop"]
+        )
+
+    def bulge_correction(self, left=0, right=0, top=0, bottom=0) -> None:
+        """Set the bulge step from per-side pixel displacements."""
+        hb, hco, vb, vco = self.compute_bulge(left=left, right=right, top=top, bottom=bottom)
+        self.config["bulge"] = {
+            "horizontal_bulge": hb,
+            "horizontal_center_offset": hco,
+            "vertical_bulge": vb,
+            "vertical_center_offset": vco,
+        }
+        self.current_image = self.simple_curvature_correction(
+            self.current_image, **self.config["bulge"]
+        )
+
+    def stretch_correction(self, point_source, point_destination, stretch_center) -> None:
+        """Set the stretch step from one displaced point and a fixed center."""
+        hs, hco, vs, vco = self.compute_stretch(
+            point_source=point_source,
+            point_destination=point_destination,
+            stretch_center=stretch_center,
+        )
+        self.config["stretch"] = {
+            "horizontal_stretch": hs,
+            "horizontal_center_offset": hco,
+            "vertical_stretch": vs,
+            "vertical_center_offset": vco,
+        }
+        self.current_image = self.simple_curvature_correction(
+            self.current_image, **self.config["stretch"]
+        )
+
+    def compute_bulge(self, img=None, **kwargs):
+        """Bulge parameters from the largest per-side pixel displacements."""
+        left = kwargs.get("left", 0)
+        right = kwargs.get("right", 0)
+        top = kwargs.get("top", 0)
+        bottom = kwargs.get("bottom", 0)
+        Ny, Nx = (self.current_image if img is None else img).shape[:2]
+        if (left + right == 0) and (top + bottom == 0):
+            center = [round(Nx / 2), round(Ny / 2)]
+        elif left + right == 0:
+            center = [round(Nx / 2), round(Ny * top / (top + bottom))]
+        elif top + bottom == 0:
+            center = [round(Nx * left / (left + right)), round(Ny / 2)]
+        else:
+            center = [round(Nx * left / (left + right)), round(Ny * top / (top + bottom))]
+        hco = center[0] - round(Nx / 2)
+        vco = center[1] - round(Ny / 2)
+        hb = left / ((left - center[0]) * center[1] * (Ny - center[1]))
+        vb = top / ((top - center[1]) * center[0] * (Nx - center[0]))
+        return hb, hco, vb, vco
+
+    def compute_stretch(self, img=None, **kwargs):
+        """Stretch parameters from a (source -> destination) point pair."""
+        Ny, Nx = (self.current_image if img is None else img).shape[:2]
+        pt_src = kwargs.get("point_source", [Ny, Nx])
+        pt_dst = kwargs.get("point_destination", [Ny, Nx])
+        center = kwargs.get("stretch_center", [round(Ny / 2), round(Nx / 2)])
+        hco = center[0] - round(Nx / 2)
+        vco = center[1] - round(Ny / 2)
+
+        margin_x, margin_y = round(0.05 * Nx), round(0.05 * Ny)
+        if (pt_dst[0] - pt_src[0]) == 0 or not (
+            margin_x <= abs(pt_src[0] - center[0])
+            and margin_x <= pt_src[0] <= Nx - margin_x
+        ):
+            hs = 0.0
+            if (pt_dst[0] - pt_src[0]) != 0:
+                warn("point_source unsuitable for horizontal stretch; set to 0.")
+        else:
+            hs = -(pt_dst[0] - pt_src[0]) / (
+                (pt_src[0] - center[0]) * pt_src[0] * (Nx - pt_src[0])
+            )
+        if (pt_dst[1] - pt_src[1]) == 0 or not (
+            margin_y <= abs(pt_src[1] - center[1])
+            and margin_y <= pt_src[1] <= Ny - margin_y
+        ):
+            vs = 0.0
+            if (pt_dst[1] - pt_src[1]) != 0:
+                warn("point_source unsuitable for vertical stretch; set to 0.")
+        else:
+            vs = -(pt_dst[1] - pt_src[1]) / (
+                (pt_src[1] - center[1]) * pt_src[1] * (Ny - pt_src[1])
+            )
+        return hs, hco, vs, vco
+
+    def return_image(self) -> Image:
+        """The tuning image as an Image of the configured dimensions."""
+        return Image(self.current_image, width=self.width, height=self.height)
 
     # ------------------------------------------------------ transformation
 
@@ -207,3 +388,26 @@ class CurvatureCorrection(BaseCorrection):
             meta["dimensions"] = [crop["height"], crop["width"]]
             meta["origin"] = np.array([0.0, crop["height"]])
         return meta
+
+    # ------------------------------------------------------------------- I/O
+
+    def save(self, path) -> None:
+        path = Path(path).with_suffix(".npz")
+        path.parent.mkdir(parents=True, exist_ok=True)
+        cfg = {
+            k: (
+                {kk: np.asarray(vv) if isinstance(vv, np.ndarray) else vv for kk, vv in v.items()}
+                if isinstance(v, dict)
+                else v
+            )
+            for k, v in self.config.items()
+        }
+        np.savez(path, class_name=type(self).__name__, config=np.array([cfg], dtype=object))
+
+    def load(self, path) -> None:
+        path = Path(path)
+        if not path.is_file():
+            raise FileNotFoundError(f"File {path} not found.")
+        data = np.load(path, allow_pickle=True)
+        self.config = load_curvature_correction_config_from_dict(data["config"][0])
+        self.cache = {}

@@ -70,7 +70,9 @@ def extract_quadrilateral_ROI(
 
     Args:
         img_src: (H, W[, C]) tensor.
-        pts_src: 4 corner points, upper-left first, counter-clockwise.
+        pts_src: 4 corner points, upper-left first, counter-clockwise; None
+            for the image's own corners ``(0, 0), (H, 0), (H, W), (0, W)``
+            (the output then only takes the aspect ratio).
         width, height: physical target dimensions; their ratio fixes the
             output's aspect ratio inside the input's size.
         indexing: whether ``pts_src`` holds (row, col) ("matrix") or
@@ -81,8 +83,12 @@ def extract_quadrilateral_ROI(
     aspect_ratio = float(width) / float(height)
     out_width = min(original_width, int(aspect_ratio * float(original_height)))
     out_height = min(original_height, int(1.0 / aspect_ratio * float(original_width)))
-    pts = np.asarray(pts_src, dtype=np.float64)
-    pts_rc = pts[:, ::-1] if indexing == "reverse matrix" else pts
+    if pts_src is None:
+        H, W = original_height, original_width
+        pts_rc = np.array([[0, 0], [H, 0], [H, W], [0, W]], dtype=np.float64)
+    else:
+        pts = np.asarray(pts_src, dtype=np.float64)
+        pts_rc = pts[:, ::-1] if indexing == "reverse matrix" else pts
 
     coords = quad_coordinate_grid(pts_rc, (out_height, out_width), img_src.device)
     out = warp_backend(img_src.to(torch.float32), coords, order=1)

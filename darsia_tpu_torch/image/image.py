@@ -23,7 +23,7 @@ from ..utils.dtype import convert_dtype
 from ..utils.point import CoordinateArray, VoxelArray
 from .coordinatesystem import CoordinateSystem
 
-__all__ = ["Image", "OpticalImage", "ScalarImage", "as_tensor"]
+__all__ = ["Image", "OpticalImage", "ScalarImage", "as_numpy", "as_tensor"]
 
 
 def as_tensor(array, device=None) -> torch.Tensor:
@@ -45,6 +45,13 @@ def as_tensor(array, device=None) -> torch.Tensor:
             )
         device = "cuda"
     return torch.from_numpy(np.ascontiguousarray(array)).to(device)
+
+
+def as_numpy(array) -> np.ndarray:
+    """``array`` (a tensor on any device, or array-like) as a host numpy array."""
+    if isinstance(array, torch.Tensor):
+        return array.detach().cpu().numpy()
+    return np.asarray(array)
 
 
 def _is_none(value) -> bool:

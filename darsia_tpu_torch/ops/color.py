@@ -7,6 +7,8 @@ are mapped to [0, 1] first.  All functions take a trailing channel axis.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 __all__ = [
@@ -37,7 +39,14 @@ _WHITE = (0.950456, 1.0, 1.088754)
 
 
 def _const(values, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(values, dtype=torch.float32, device=like.device)
+    return _device_const(values, like.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_const(values: tuple, device: torch.device) -> torch.Tensor:
+    """A constant table on ``device``, copied there once (a host copy per
+    call would synchronise the stream)."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def _as_float(x: torch.Tensor) -> torch.Tensor:

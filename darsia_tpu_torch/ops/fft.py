@@ -1,15 +1,18 @@
 """FFT phase correlation, batched over windows.
 
-Counterpart of :mod:`darsia_tpu.ops.fft` (the prepared-reference lane).  The
-JAX package vmaps one window; here a leading batch axis is written out:
-windows are ``(N, H, W)`` and spectra ``(N, H, W // 2 + 1)``.
+Counterpart of :mod:`darsia_tpu.ops.fft`.  The prepared-reference lane
+batches windows: the JAX package vmaps one window, here a leading batch axis
+is written out (windows ``(N, H, W)``, spectra ``(N, H, W // 2 + 1)``).
+:func:`phase_correlation` is one pair of 2-D windows through it.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-__all__ = ["phase_correlation_prepared", "prepare_phase_reference"]
+__all__ = ["phase_correlation", "phase_correlation_prepared", "prepare_phase_reference"]
 
 
 def _hann(n: int, device) -> torch.Tensor:
@@ -21,7 +24,9 @@ def _hann(n: int, device) -> torch.Tensor:
     return torch.hann_window(n, periodic=False, dtype=torch.float32, device=device)
 
 
-def _window(shape: tuple, device) -> torch.Tensor:
+@functools.lru_cache(maxsize=32)
+def _window(shape: tuple, device: torch.device) -> torch.Tensor:
+    """The 2-D Hann taper of a window shape, built once per device."""
     H, W = shape
     return _hann(H, device)[:, None] * _hann(W, device)[None, :]
 
@@ -93,8 +98,24 @@ def phase_correlation_prepared(
     # ties resolve to the same peak.
     flat_peak = flat.argmax(dim=1)
     refined = _parabolic_subpixel(r, flat_peak // W, flat_peak % W)
-    half = torch.tensor([H / 2, W / 2], dtype=torch.float32, device=r.device)
-    size = torch.tensor([H, W], dtype=torch.float32, device=r.device)
-    shift = torch.where(refined > half, refined - size, refined)
+    # Peaks past the half wrap to negative shifts; scalars, so no host copy.
+    shift = torch.stack(
+        [torch.where(p > n / 2, p - n, p) for p, n in zip(refined.unbind(1), (H, W))], dim=1
+    )
     quality = flat.gather(1, flat_peak[:, None])[:, 0].clamp(0.0, 1.0)
     return shift, quality
+
+
+def phase_correlation(
+    src: torch.Tensor, dst: torch.Tensor, eps: float = 1e-8
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Translation aligning ``src`` to ``dst``, two equally shaped 2-D windows.
+
+    If ``dst(x) ~ src(x - d)``, returns ``d`` ((row, col), subpixel) and the
+    correlation peak clipped to [0, 1], both on the windows' device.  The
+    JAX function correlates ``F(dst) * conj(F(src))``, which is the prepared
+    lane with ``dst`` as the reference.
+    """
+    ref = prepare_phase_reference(dst[None])
+    shift, quality = phase_correlation_prepared(ref, src[None], tuple(src.shape), eps)
+    return shift[0], quality[0]

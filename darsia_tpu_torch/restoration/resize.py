@@ -8,8 +8,10 @@ integral-preserving ("conservative") rescaling for extensive quantities.
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..ops.resize import resize_array
@@ -98,6 +100,27 @@ class Resize:
             img.img = resized
             return img
         return type(img)(img=resized, **img.metadata())
+
+    def save(self, path) -> None:
+        """Persist as npz in the JAX package's format (for ``read_correction``)."""
+        path = Path(path).with_suffix(".npz")
+        path.parent.mkdir(parents=True, exist_ok=True)
+        state = {
+            "shape": self.shape,
+            "fx": self.fx,
+            "fy": self.fy,
+            "interpolation": self.interpolation,
+            "is_conservative": self.is_conservative,
+        }
+        np.savez(path, class_name="Resize", state=np.array([state], dtype=object))
+
+    def load(self, path) -> None:
+        state = np.load(path, allow_pickle=True)["state"][0]
+        self.shape = state["shape"]
+        self.fx = state["fx"]
+        self.fy = state["fy"]
+        self.interpolation = state["interpolation"]
+        self.is_conservative = state["is_conservative"]
 
 
 def resize(image, **kwargs):

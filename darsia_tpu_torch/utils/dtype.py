@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["as_torch_dtype", "convert_dtype"]
+__all__ = ["as_torch_dtype", "convert_dtype", "host_float32"]
 
 _RANGES = {torch.uint8: 255.0, torch.uint16: 65535.0}
 
@@ -43,3 +43,11 @@ def convert_dtype(img: torch.Tensor, dtype) -> torch.Tensor:
     if dst_range is not None:
         out = (out * dst_range).round().clamp(0, dst_range)
     return out.to(dtype)
+
+
+def host_float32(arr: np.ndarray) -> np.ndarray:
+    """A host image as float32, integer ranges mapped to [0, 1] through
+    float64, as the JAX package converts numpy images."""
+    if arr.dtype in (np.uint8, np.uint16):
+        return (arr.astype(np.float64) / np.iinfo(arr.dtype).max).astype(np.float32)
+    return arr

@@ -242,3 +242,87 @@ def test_multiscale_warps_through_k1():
     max_disp = int(np.ceil(field.abs().max().item())) + 1
     plain = warp_backend(probe.img, coords, max_disp=max_disp, warp_impl="plain")
     assert torch.equal(out.img, plain)
+
+
+def _drift_chain_scene(H=200, W=300, T=4):
+    """A smooth RGB baseline on the card, a drift + curvature chain on it and
+    a series of frames rolled differently."""
+    import darsia_tpu_torch as dt
+    from darsia_tpu_torch.corrections.fuse import fused_chain
+    from scipy.ndimage import uniform_filter
+
+    rng = np.random.default_rng(11)
+    base = np.stack([uniform_filter(rng.random((H, W)), 5) for _ in range(3)], axis=-1)
+    base_u8 = ((base - base.min()) / (base.max() - base.min()) * 255).astype(np.uint8)
+    drift = dt.DriftCorrection(torch.from_numpy(base_u8).cuda(), {"roi": (slice(20, 180), slice(30, 270))})
+    curv = dt.CurvatureCorrection(
+        config={
+            "crop": {"pts_src": [[3, 4], [H - 5, 2], [H - 3, W - 4], [2, W - 3]], "width": 1.5, "height": 1.0},
+            "bulge": {"horizontal_bulge": -1e-7, "vertical_bulge": -2e-7},
+        }
+    )
+    chain = fused_chain([drift, curv], (H, W), "cuda")
+    frames = [np.roll(base_u8, (1 + k, 2 - k), axis=(0, 1)) for k in range(T)]
+    series = torch.from_numpy(np.stack(frames, axis=2)).cuda()
+    return chain, series
+
+
+def _recorded_k1_calls(fn):
+    calls, wrapper = [], warp2pass.warp_rows_t
+
+    def record(data, cols, max_disp, impl="auto"):
+        calls.append((data, cols, max_disp))
+        return wrapper(data, cols, max_disp, impl)
+
+    warp2pass.warp_rows_t = record
+    try:
+        out = fn()
+    finally:
+        warp2pass.warp_rows_t = wrapper
+    torch.cuda.synchronize()
+    return out, calls
+
+
+def test_k1_at_the_drift_chain_bound_matches_plain():
+    """The drift chain's K1 pair runs at its own bound (static + 1 + 64),
+    bitwise against the plain version."""
+    chain, series = _drift_chain_scene()
+    frame = series[:, :, 0].contiguous()
+    assert chain.max_disp == int(np.ceil(chain.static_disp)) + 1 + 64
+    before = warp2pass.launch_count
+    out, calls = _recorded_k1_calls(lambda: chain.correct_array(frame))
+    assert warp2pass.launch_count == before + 2 and len(calls) == 2
+    for data, cols, D in calls:
+        assert D == chain.max_disp and data.shape[0] == 3
+        assert torch.equal(warp2pass.warp_rows_t(data, cols, D), warp2pass.warp_rows_t_reference(data, cols, D))
+    plain = chain.apply_fn(torch.uint8)(frame, chain.field, "plain")
+    assert torch.equal(out, plain)
+
+
+def test_drifting_series_is_one_k1_pair_per_frame():
+    chain, series = _drift_chain_scene()
+    T = series.shape[2]
+    before = warp2pass.launch_count
+    out, calls = _recorded_k1_calls(lambda: chain.correct_series_array(series, 2))
+    assert warp2pass.launch_count == before + 2 * T and len(calls) == 2 * T
+    for data, cols, D in calls:
+        assert torch.equal(warp2pass.warp_rows_t(data, cols, D), warp2pass.warp_rows_t_reference(data, cols, D))
+    for k in range(T):
+        assert torch.equal(out[:, :, k], chain.correct_array(series[:, :, k].contiguous()))
+
+
+def test_checker_crop_warps_through_k1():
+    """The colour checker's crop is shaped on the card: its warp to the
+    checker's aspect ratio is one K1 pair, bitwise against the plain version,
+    and the swatches agree with the CPU's."""
+    import darsia_tpu_torch as dt
+
+    ref = dt.ColorCheckerAfter2014().swatches_rgb
+    crop = torch.from_numpy(np.kron(ref, np.ones((60, 60, 1))).astype(np.float32))
+    before = warp2pass.launch_count
+    swatches, calls = _recorded_k1_calls(lambda: dt.CustomColorChecker(image=crop.cuda()).swatches_rgb)
+    assert warp2pass.launch_count == before + 2 and len(calls) == 2
+    for data, cols, D in calls:
+        assert torch.equal(warp2pass.warp_rows_t(data, cols, D), warp2pass.warp_rows_t_reference(data, cols, D))
+    # Flat swatches: the two warps agree inside them.
+    assert np.abs(swatches - dt.CustomColorChecker(image=crop).swatches_rgb).max() <= 1e-5

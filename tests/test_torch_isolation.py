@@ -77,6 +77,39 @@ series = np.stack([base_u8, probe], axis=2)
 corrected = dt.OpticalImage(torch.from_numpy(series), transformations=[trans, curv],
                             series=True, time=[0.0, 1.0], **meta)
 assert corrected.img.shape[2] == 2 and corrected.img.shape[:2] == base_img.img.shape[:2]
+
+# The rig's correction workflow: a checker found on a noise frame, drift
+# fused into the curvature warp, illumination and color corrections, a
+# drifting series, and the corrections saved and read back.
+import tempfile
+from pathlib import Path
+from types import SimpleNamespace
+
+ref = dt.ColorCheckerAfter2014().swatches_rgb
+rig = (rng.random((240, 400, 3)) * 255).astype(np.uint8)
+rig[20:100, 250:370] = (np.kron(ref, np.ones((20, 20, 1))) * 255).astype(np.uint8)
+rig_t = torch.from_numpy(rig)
+_, voxels = dt.find_colorchecker(rig_t)
+drift = dt.DriftCorrection(rig_t, {"roi": voxels})
+rig_curv = dt.CurvatureCorrection(config={"bulge": {"vertical_bulge": -1e-7}})
+shape = [dt.Resize(shape=(240, 400)), drift, rig_curv]
+corrected_base = dt.OpticalImage(rig_t, transformations=shape, width=2.0, height=1.2)
+illum = dt.IlluminationCorrection()
+cfg = SimpleNamespace(width=20, num_samples=8, seed=42)
+samples = illum.select_random_samples(np.ones((240, 400), bool), cfg)
+illum.setup(corrected_base, [samples], outliers=0.1, interpolation="illumination")
+color = dt.ColorCorrection(corrected_base, {"roi": voxels, "clip": False})
+probe_rig = torch.from_numpy(np.roll(rig, (2, 3), axis=(0, 1)))
+read = dt.OpticalImage(probe_rig, transformations=shape + [illum, color], width=2.0, height=1.2)
+assert read.img.shape == (240, 400, 3) and torch.isfinite(read.img).all()
+assert (drift.pullback_translation(probe_rig) - torch.tensor([2.0, 3.0])).abs().max() < 0.1
+drifting = torch.stack([torch.roll(rig_t, (k, -k), (0, 1)) for k in range(3)], dim=2)
+series_out = dt.OpticalImage(drifting, transformations=[drift, rig_curv], series=True, time=[0.0, 1.0, 2.0])
+assert series_out.img.shape == (240, 400, 3, 3)
+with tempfile.TemporaryDirectory() as tmp:
+    for k, corr in enumerate(shape + [illum, color, dt.TypeCorrection(np.float32)]):
+        corr.save(Path(tmp) / f"c{k}")
+        assert type(dt.read_correction(Path(tmp) / f"c{k}.npz")) is type(corr)
 print("ok", tuple(out.img.shape))
 """
 
