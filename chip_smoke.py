@@ -70,8 +70,9 @@ checkout, in phases; any failure raises and exits non-zero:
    correction's pair (C = 24), the drift + curvature chain's pair at its
    own bound (static + 1 + 64, C = 3), a drifting series' per-frame pair,
    and the colour checker crop's pair (its warp to the checker's aspect
-   ratio in a rig reading call): bitwise against the plain version, timed
-   (ms, GB/s, share of the bound, launch geometry).
+   ratio in a rig reading call), and the piecewise perspective's pair at
+   the bound derived from its field: bitwise against the plain version,
+   timed (ms, GB/s, share of the bound, launch geometry).
 14. The rig's reading path (``presets/workflows/rig.py:103-214`` of the JAX
    package): the bench frame with a 4x6 checker of the post-2014 reference
    swatches painted at (200, 2600), 60 px per swatch; ``find_colorchecker``
@@ -98,9 +99,41 @@ checkout, in phases; any failure raises and exits non-zero:
    pair per frame; ms per series, median of 3), every frame bitwise equal to
    the frame corrected alone.
 
+17. The shape zoo on the bench frame (uint8, 4K): ``RotationCorrection``
+   (0.5 degrees about the centre), ``AffineCorrection`` (fit from 4
+   coordinate pairs of a 3 px shift and a 0.2 degree turn: rotation,
+   translation and scaling recovered within 1e-9) and
+   ``GeneralizedPerspectiveCorrection`` (fit from 16 coordinate pairs of a
+   mild perspective: A, b and c recovered within 1e-6).  Each output on the
+   card is bitwise equal to the same object's output for the frame as a CPU
+   tensor; 0 K1 launches; ms per call (median of 5 after a warm-up), and
+   the set-up time of each host-built field on its own.
+18. ``PiecewisePerspectiveTransform.find_and_warp`` on ``Patches(image,
+   [8, 16])`` of the smooth 4K image with a smooth displacement of at most
+   20 px: exactly 2 K1 launches per call, at the bound derived from the
+   field; the result against the gather warp of the same field within the
+   bench gate (phase 4's thresholds) and against plain K1 within mean
+   |diff| <= 1e-5; ``blend_and_assemble`` of untouched patches (overlap
+   0.1) returns the base within 1e-6.  Its K1 pair joins phase 13.
+19. Colour.  ``RelativeColorCorrection`` (degree 2) calibrated from 48
+   samples each of 4 flat colour cards under a known smooth gain: the
+   smooth image under that gain returns to itself within 1e-3; set-up ms
+   (the field evaluated on the card), ms per call, device busy ms and peak
+   memory; 0 K1 launches.  ``ExperimentalColorCorrection`` on the rig
+   frame with its painted checker: 2 K1 launches per call (the checker
+   crop's pair), the checker within mean |diff| <= 0.02 of the reference
+   swatches, ms per call and the host's share.
+20. The rig's saved state: its baseline saved with ``Image.save`` and each
+   of its corrections with ``save`` into a temporary folder (as
+   ``presets/workflows/rig.py:534-554`` of the JAX package does), read back
+   with ``imread`` and ``read_correction``; the reading path through the
+   loaded objects is bitwise equal to the path through the originals, 4 K1
+   launches per call.  ``DeformationCorrection`` in ``transformations=``
+   equals ``ImageRegistration(base)(probe)``: 2 K1 launches each.
+
 Every launch count is set to 0 just before each path of phases 3, 5-7,
-8-11 and 14-16 and read just after it; the ``kernels`` line's K1 launches
-are their sum.  Each of phases 8-12 and 14-16 prints its seconds.  The
+8-11 and 14-20 and read just after it; the ``kernels`` line's K1 launches
+are their sum.  Each of phases 8-12 and 14-20 prints its seconds.  The
 second-to-last line is a JSON object of per-kernel results; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
@@ -298,6 +331,16 @@ def k1_cases(w2p, lanes, device) -> list:
             raise AssertionError(f"rig reading call: {len(calls)} K1 calls, want 4")
         for k, (data, cols, D) in enumerate(calls[2:]):
             cases.append({"name": f"checker crop pass {k + 1}", "data": data, "cols": cols, "D": D})
+    piecewise = lanes.get("piecewise")
+    if piecewise is not None:
+        calls = frame_k1_calls(w2p, piecewise["warp"])
+        if len(calls) != 2 or any(D != piecewise["max_disp"] for _, _, D in calls):
+            raise AssertionError(
+                f"piecewise perspective: K1 calls {[c[2] for c in calls]}, want 2 at "
+                f"{piecewise['max_disp']}"
+            )
+        for k, (data, cols, D) in enumerate(calls):
+            cases.append({"name": f"piecewise pass {k + 1}", "data": data, "cols": cols, "D": D})
     return cases
 
 
@@ -1297,6 +1340,344 @@ def phase_drifting_series(dt, w2p, rig, device, card: str) -> dict:
     return {"ms": ms, "launches": counts["warp_rows_t"]}
 
 
+def bitwise_on_cpu(correction, frame: torch.Tensor, out: torch.Tensor, path: str) -> float:
+    """The same object's output for the frame as a CPU tensor, bitwise equal
+    to ``out`` from the card; returns the CPU call's seconds."""
+    tic = time.perf_counter()
+    on_cpu = correction.correct_array(frame.cpu())
+    seconds = time.perf_counter() - tic
+    if on_cpu.device.type != "cpu" or not torch.equal(out.cpu(), on_cpu):
+        differ = int((out.cpu() != on_cpu).sum())
+        raise AssertionError(f"{path}: card and CPU outputs differ in {differ} values")
+    return seconds
+
+
+def phase_shape_zoo(dt, w2p, lanes, device, card: str) -> dict:
+    """Rotation, affine and generalized perspective corrections on the bench
+    frame: nearest-voxel gather warps, no K1."""
+    tic = time.perf_counter()
+    frame = torch.from_numpy(lanes["base_u8"]).to(device)
+    image = dt.OpticalImage(frame, **META)
+    cs = image.coordinatesystem
+    rng = np.random.default_rng(6)
+    results = {}
+
+    def run(name, correction, setup_s):
+        correction.correct_array(frame)  # warm-up (and the field's first use)
+        out, ms, each, counts = median_call_ms(
+            w2p, lambda: correction.correct_array(frame), 5, 0, name
+        )
+        if out.shape != frame.shape or out.dtype != frame.dtype:
+            raise AssertionError(f"{name}: output {tuple(out.shape)} {out.dtype}")
+        cpu_s = bitwise_on_cpu(correction, frame, out, name)
+        moved = float((out != frame).any(dim=-1).float().mean())
+        print(
+            f"{name} ({H}x{W} uint8, gather warp order 0): {ms} ms per call (median of 5: "
+            f"{each}), launches {counts} on {card}; bitwise equal to the CPU tensor's output "
+            f"({cpu_s:.2f} s there); field set-up (host) {setup_s:.3f} s; {100 * moved:.1f}% "
+            "of the pixels change"
+        )
+        results[name] = {"ms": ms, "setup_s": setup_s}
+
+    rotation = dt.RotationCorrection([H / 2, W / 2], rotations=[np.deg2rad(0.5)])
+    run("RotationCorrection", rotation, 0.0)
+
+    # 4 coordinate pairs of a 3 px shift and a 0.2 degree turn.
+    angle = np.deg2rad(0.2)
+    R = np.array([[np.cos(angle), -np.sin(angle)], [np.sin(angle), np.cos(angle)]])
+    shift = np.array([3 * cs.voxel_size["x"], -3 * cs.voxel_size["y"]])
+    src = np.asarray(cs.coordinate([[200, 300], [1500, 400], [1400, 2900], [300, 2700]]))
+    dst = shift + (R @ src.T).T
+    affine = dt.AffineCorrection(cs, cs, dt.make_coordinate(src), dt.make_coordinate(dst))
+    t = affine.transformation
+    fit_err = max(
+        np.abs(t.rotation - R).max(), np.abs(t.translation - shift).max(), abs(t.scaling - 1.0)
+    )
+    if not fit_err <= 1e-9:
+        raise AssertionError(f"AffineCorrection: fit off its generating parameters by {fit_err}")
+    t0 = time.perf_counter()
+    affine._coords(device)
+    run("AffineCorrection", affine, time.perf_counter() - t0)
+
+    # 16 coordinate pairs of a mild perspective, in the model's own (inverse)
+    # direction: src = (A dst + b) / (c . dst + 1).
+    A = np.array([[1.002, 0.003], [-0.002, 0.999]])
+    b = np.array([0.004, -0.006])
+    c = np.array([2e-3, 1e-3])
+    dst = rng.random((16, 2)) * np.array([META["width"], META["height"]])
+    src = ((A @ dst.T).T + b) / ((dst @ c) + 1)[:, None]
+    t0 = time.perf_counter()
+    perspective = dt.GeneralizedPerspectiveCorrection(
+        cs, cs, dt.make_coordinate(src), dt.make_coordinate(dst)
+    )
+    fit_s = time.perf_counter() - t0
+    t = perspective.transformation
+    fit_err_p = max(np.abs(t.A - A).max(), np.abs(t.b - b).max(), np.abs(t.c - c).max())
+    if not fit_err_p <= 1e-6:
+        raise AssertionError(f"GeneralizedPerspectiveCorrection: fit off A, b, c by {fit_err_p}")
+    t0 = time.perf_counter()
+    perspective._coords(device)
+    run("GeneralizedPerspectiveCorrection", perspective, time.perf_counter() - t0)
+    print(
+        f"shape zoo: affine fit off its parameters by {fit_err} (bound 1e-9), perspective fit "
+        f"by {fit_err_p} (bound 1e-6, fit {fit_s:.2f} s); phase {time.perf_counter() - tic:.2f} s"
+    )
+    return results
+
+
+def phase_piecewise(dt, w2p, lanes, device, card: str, profile) -> dict:
+    """``find_and_warp`` on 8x16 patches of the smooth 4K image: one K1 pair
+    per call at the bound derived from the field."""
+    from darsia_tpu_torch.corrections.shape import piecewiseperspective as module
+    from darsia_tpu_torch.ops.warp import identity_grid, warp_backend
+
+    tic = time.perf_counter()
+    image = dt.OpticalImage(smooth_image(device), **META)
+    patches = dt.Patches(image, [8, 16])
+    centers = patches.centers_voxels
+    # (x, y) px at the patch centers: smooth, at most 20 px.
+    disp = np.stack(
+        [
+            20.0 * np.sin(np.pi * centers[..., 1] / W) * np.cos(np.pi * centers[..., 0] / H),
+            -16.0 * np.sin(np.pi * centers[..., 0] / H),
+        ],
+        axis=-1,
+    )
+    transform = dt.PiecewisePerspectiveTransform()
+
+    def warp_once():
+        return transform.find_and_warp(patches, disp)
+
+    # The field and bound of a call, recorded where it reaches the warp.
+    seen = {}
+
+    def recording(data, coords, **kwargs):
+        seen.update(data=data, coords=coords, **kwargs)
+        return warp_backend(data, coords, **kwargs)
+
+    module.warp_backend = recording
+    try:
+        warp_once()  # warm-up
+    finally:
+        module.warp_backend = warp_backend
+    ident = identity_grid((H, W), device)
+    derived = int(np.ceil(float((seen["coords"] - ident).abs().max()))) + 1
+    if seen["max_disp"] != derived or not 2 <= derived <= 24:
+        raise AssertionError(f"piecewise: bound {seen['max_disp']}, derived {derived}")
+    out, ms, each, counts = median_call_ms(w2p, warp_once, 5, 2, "piecewise perspective")
+    img = out.img
+    if img.shape != image.img.shape or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"piecewise: bad output {tuple(img.shape)}")
+    ref = warp_backend(seen["data"], seen["coords"], order=1, force="gather")
+    plain = warp_backend(
+        seen["data"], seen["coords"], order=1, max_disp=derived, warp_impl="plain"
+    )
+    torch.cuda.synchronize()
+    d_plain = float((img - plain).abs().mean())
+    if not d_plain <= 1e-5:
+        raise AssertionError(f"piecewise vs plain K1: mean |diff| = {d_plain}")
+    err = (img - ref)[8:-8, 8:-8].abs().cpu().numpy()
+    gate = {
+        "mean": float(err.mean()),
+        "p999": float(np.percentile(err, 99.9)),
+        "max": float(err.max()),
+    }
+    if not (gate["mean"] < 2e-3 and gate["p999"] < 0.05 and gate["max"] < 0.45):
+        raise AssertionError(f"piecewise vs gather warp: {gate}")
+    blended = dt.Patches(image, [8, 16], rel_overlap=0.1).blend_and_assemble()
+    d_blend = float((blended.img - image.img).abs().max())
+    if not d_blend <= 1e-6 or blended.img.device != image.img.device:
+        raise AssertionError(f"blend_and_assemble of untouched patches: max |diff| {d_blend}")
+    print(
+        f"piecewise perspective ({H}x{W}x3 float32, 8x16 patches, |d| <= 20 px, bound "
+        f"{derived}): {ms} ms per call (median of 5: {each}), launches {counts} on {card}; "
+        f"vs the gather warp of the same field {gate}; mean|diff| vs plain K1 {d_plain}; "
+        f"blend_and_assemble of untouched patches max|diff| {d_blend}; phase "
+        f"{time.perf_counter() - tic:.2f} s"
+    )
+    if profile is not None:
+        profile_frame(warp_once, ms, profile, "piecewise")
+    lanes["piecewise"] = {"warp": warp_once, "max_disp": derived}
+    return {"ms": ms, "launches": counts["warp_rows_t"]}
+
+
+# The painted checker's box on the rig frame, as slices.
+CHECKER_ROI = (
+    slice(CHECKER_AT[0], CHECKER_AT[0] + 4 * SWATCH_PX),
+    slice(CHECKER_AT[1], CHECKER_AT[1] + 6 * SWATCH_PX),
+)
+
+
+def phase_colour(dt, w2p, rig, device, card: str, profile) -> dict:
+    """``RelativeColorCorrection`` (degree 2) against a known gain, and
+    ``ExperimentalColorCorrection`` on the rig frame."""
+    tic = time.perf_counter()
+    reference = smooth_image(device)
+    image = dt.OpticalImage(reference, **META)
+    cs = image.coordinatesystem
+    # The gain 1 / q, q in the span of the degree-2 space (1, y, y^2, x, xy,
+    # xy^2): the fit can undo it exactly.
+    yy = torch.arange(H, dtype=torch.float32, device=device)[:, None]
+    xx = torch.arange(W, dtype=torch.float32, device=device)[None, :]
+    x = float(cs._coordinate_of_origin_voxel[0]) + xx * cs.voxel_size["x"] + 0 * yy
+    y = float(cs._coordinate_of_origin_voxel[1]) - yy * cs.voxel_size["y"] + 0 * xx
+    q = torch.stack([1.0 + 0.05 * x - 0.1 * y, 0.9 + 0.04 * x * y, 1.1 - 0.06 * y * y + 0.02 * x], -1)
+    gain = 1.0 / q
+    frame = reference * gain
+    relative = dt.RelativeColorCorrection(dt.OpticalImage(frame, **META), config={"degree": 2})
+    rng = np.random.default_rng(7)
+    for colour in ([0.7, 0.3, 0.4], [0.2, 0.6, 0.5], [0.5, 0.5, 0.8], [0.4, 0.7, 0.2]):
+        # A flat colour card under the gain, sampled at 48 voxels.
+        voxels = np.stack([rng.integers(0, H, 48), rng.integers(0, W, 48)], axis=1)
+        card_frame = torch.tensor(colour, dtype=torch.float32, device=device) * gain
+        observed = card_frame[torch.from_numpy(voxels[:, 0]).to(device), torch.from_numpy(voxels[:, 1]).to(device)]
+        relative.add_calibration_data(cs.coordinate(voxels), observed.cpu().numpy(), colour)
+    del card_frame
+    t0 = time.perf_counter()
+    relative.calibrate()
+    calibrate_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    relative.setup()
+    torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    if relative._evaluated.device != frame.device or tuple(relative._evaluated.shape) != (H, W, 3, 3):
+        raise AssertionError("relative colour field: not on the card at (H, W, 3, 3)")
+    relative.correct_array(frame)  # warm-up
+    torch.cuda.reset_peak_memory_stats(device)
+    out, ms, each, counts = median_call_ms(
+        w2p, lambda: relative.correct_array(frame), 5, 0, "relative colour correction"
+    )
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    back = float((out - reference).abs().max())
+    if not back <= 1e-3:
+        raise AssertionError(f"relative colour: corrected frame off its reference by {back}")
+    busy = device_busy_ms(lambda: relative.correct_array(frame))
+    print(
+        f"relative colour correction ({H}x{W}x3 float32, degree 2, field "
+        f"{relative._evaluated.numel() * 4 / 1e6:.0f} MB on the card): {ms} ms per call (median "
+        f"of 5: {each}), launches {counts} on {card}; device busy {busy:.3f} ms per call; peak "
+        f"{peak_gib:.2f} GiB; calibrate {calibrate_ms:.1f} ms (host), set-up {setup_ms:.1f} ms; "
+        f"corrected frame vs its reference max|diff| {back} (bound 1e-3)"
+    )
+    if profile is not None:
+        profile_frame(lambda: relative.correct_array(frame), ms, profile, "relative_colour")
+    result = {"relative_ms": ms, "relative_setup_ms": setup_ms, "relative_busy_ms": busy}
+    del relative, frame, gain, q, out
+
+    rig_frame_t = torch.from_numpy(rig["frame"]).to(device)
+    experimental = dt.ExperimentalColorCorrection(roi=CHECKER_ROI)
+    experimental.correct_array(rig_frame_t)  # warm-up
+    out, ms, each, counts = median_call_ms(
+        w2p, lambda: experimental.correct_array(rig_frame_t), 5, 2, "experimental colour correction"
+    )
+    if tuple(out.shape) != (H, W, 3) or out.dtype != torch.float32 or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"experimental colour: bad output {tuple(out.shape)} {out.dtype}")
+    swatches = torch.from_numpy(
+        np.kron(dt.ColorCheckerAfter2014().swatches_rgb, np.ones((SWATCH_PX, SWATCH_PX, 1))).astype(np.float32)
+    ).to(device)
+    d_checker = float((out[CHECKER_ROI] - swatches).abs().mean())
+    if not d_checker <= 0.02:
+        raise AssertionError(f"experimental colour: checker off its reference by {d_checker}")
+    busy = device_busy_ms(lambda: experimental.correct_array(rig_frame_t))
+    print(
+        f"experimental colour correction ({H}x{W} uint8 -> float32): {ms} ms per call (median "
+        f"of 5: {each}), launches {counts} on {card}; device busy {busy:.3f} ms per call, the "
+        f"host's share {1 - busy / ms:.4f}; checker vs the reference swatches mean|diff| "
+        f"{d_checker}; phase {time.perf_counter() - tic:.2f} s"
+    )
+    if profile is not None:
+        profile_frame(lambda: experimental.correct_array(rig_frame_t), ms, profile, "experimental_colour")
+    result.update(
+        experimental_ms=ms,
+        experimental_busy_ms=busy,
+        launches=counts["warp_rows_t"],
+    )
+    return result
+
+
+def phase_saved_state(dt, w2p, lanes, rig, device, card: str) -> dict:
+    """The rig's baseline and corrections saved to a folder and read back;
+    ``DeformationCorrection`` in a transformation chain."""
+    import tempfile
+
+    tic = time.perf_counter()
+    originals = rig["shape"] + rig["colour"]
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp)
+        t0 = time.perf_counter()
+        rig["baseline"].save(folder / "baseline.npz")
+        paths = []
+        for kind, corrections in (("shape", rig["shape"]), ("color", rig["colour"])):
+            for i, correction in enumerate(corrections):
+                name = type(correction).__name__.lower()
+                paths.append(folder / f"{kind}_correction_{i}_{name}.npz")
+                correction.save(paths[-1])
+        save_s = time.perf_counter() - t0
+        size_mb = sum(p.stat().st_size for p in folder.iterdir()) / 1e6
+        t0 = time.perf_counter()
+        baseline = dt.imread(folder / "baseline.npz")
+        loaded = [dt.read_correction(p) for p in paths]
+        load_s = time.perf_counter() - t0
+    if baseline.img.device != rig["baseline"].img.device or not torch.equal(
+        baseline.img, rig["baseline"].img
+    ):
+        raise AssertionError("saved baseline: not read back onto the card, or not equal")
+    if type(baseline) is not type(rig["baseline"]) or baseline.dimensions != rig["baseline"].dimensions:
+        raise AssertionError("saved baseline: class or dimensions changed")
+    if [type(c) for c in loaded] != [type(c) for c in originals]:
+        raise AssertionError(f"read_correction: {[type(c).__name__ for c in loaded]}")
+
+    def read(transformations):
+        return dt.OpticalImage(rig["probe"], transformations=transformations, **META)
+
+    # A correction read from a file sets itself up at its first use (the
+    # curvature's composed field, the drift's baseline spectrum), as the
+    # originals did in phase 14: one call apart, then the counted ones.
+    t0 = time.perf_counter()
+    read(loaded)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    via_loaded, ms_loaded, _, counts = median_call_ms(
+        w2p, lambda: read(loaded), 1, 4, "reading path through loaded corrections"
+    )
+    via_originals, ms_originals, _, counts2 = median_call_ms(
+        w2p, lambda: read(originals), 1, 4, "reading path through the original corrections"
+    )
+    if not torch.equal(via_loaded.img, via_originals.img):
+        err = float((via_loaded.img - via_originals.img).abs().max())
+        raise AssertionError(f"loaded vs original corrections: max |diff| {err}")
+
+    # DeformationCorrection in a chain == the registration called directly.
+    config = {"N_patches": [8, 16], "rel_overlap": 0.1, "quality_tol": 0.02}
+    base = lanes["analysis"].base
+    probe = staged_probe(dt, lanes, device)
+    deformation = dt.DeformationCorrection(base, config)
+    metadata = probe.metadata()
+
+    def chained():
+        return dt.OpticalImage(probe.img, transformations=[deformation], **metadata)
+
+    chained()  # warm-up: the base spectra
+    via_chain, ms_chain, _, counts3 = median_call_ms(w2p, chained, 1, 2, "DeformationCorrection")
+    direct, _, _, counts4 = median_call_ms(
+        w2p, lambda: dt.ImageRegistration(base, **config)(probe), 1, 2, "ImageRegistration"
+    )
+    if not torch.equal(via_chain.img, direct.img):
+        err = float((via_chain.img - direct.img).abs().max())
+        raise AssertionError(f"DeformationCorrection vs ImageRegistration: max |diff| {err}")
+    launches = sum(c["warp_rows_t"] for c in (counts, counts2, counts3, counts4))
+    print(
+        f"saved rig state: baseline + {len(paths)} corrections, {size_mb:.1f} MB, saved in "
+        f"{save_s:.2f} s, read back in {load_s:.2f} s (the baseline onto the card); reading "
+        f"path through the loaded objects {ms_loaded:.1f} ms (their first call, with its "
+        f"set-up, {first_ms:.1f} ms), through the originals "
+        f"{ms_originals:.1f} ms, bitwise equal, launches {counts} each on {card}; "
+        f"DeformationCorrection in transformations= {ms_chain:.2f} ms, == "
+        f"ImageRegistration(base)(probe), launches {counts3} each; phase "
+        f"{time.perf_counter() - tic:.2f} s"
+    )
+    return {"launches": launches}
+
 
 def profile_frame(fn, ms_per_call: float, out_dir: Path, name: str, frames: int = 3):
     """torch.profiler over a few calls of ``fn`` (a frame, or a call of a
@@ -1413,6 +1794,10 @@ def main() -> int:
     rig_read = phase_rig_read(dt, w2p, lanes["rig"], device, card, args.profile)
     drift_lane = phase_drift_pipeline(dt, w2p, lanes, lanes["rig"], device, card, args.profile)
     drifting = phase_drifting_series(dt, w2p, lanes["rig"], device, card)
+    phase_shape_zoo(dt, w2p, lanes, device, card)
+    piecewise = phase_piecewise(dt, w2p, lanes, device, card, args.profile)
+    colour = phase_colour(dt, w2p, lanes["rig"], device, card, args.profile)
+    saved = phase_saved_state(dt, w2p, lanes, lanes["rig"], device, card)
     phase_kernel_fields(w2p, lanes, device)
 
     passes = [k1["pass1"], k1["pass2"]]
@@ -1422,6 +1807,7 @@ def main() -> int:
         + sum(lane["launches"] for lane in series.values())
         + sum(p["launches"] for p in (flexible, after_frame, multiscale, series_corr))
         + sum(p["launches"] for p in (rig_read, drift_lane, drifting))
+        + sum(p["launches"] for p in (piecewise, colour, saved))
     )
     results = {
         "warp_rows_t": {

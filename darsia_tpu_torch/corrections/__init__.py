@@ -20,31 +20,56 @@ from .color.colorcorrection import (
     CustomColorChecker,
 )
 from .color.dynamicilluminationcorrection import DynamicIlluminationCorrection
+from .color.experimentalcolorcorrection import EOTF, ExperimentalColorCorrection
 from .color.illuminationcorrection import IlluminationCorrection
 from .color.patchwiseilluminationcorrection import PatchwiseIlluminationCorrection
+from .color.relativecolorcorrection import RelativeColorCorrection
 from .fuse import FusedCorrectionChain, apply_transformation_chain, fused_chain
+from .shape.affine import AffineCorrection, AffineTransformation
 from .shape.curvature import CurvatureCorrection
+from .shape.deformation import DeformationCorrection
 from .shape.drift import DriftCorrection
+from .shape.generalizedperspective import (
+    GeneralizedPerspectiveCorrection,
+    GeneralizedPerspectiveTransformation,
+)
+from .shape.piecewiseperspective import PiecewisePerspectiveTransform
+from .shape.quad import extract_quadrilateral_ROI, homography_from_points, quad_coordinate_grid
+from .shape.rotation import RotationCorrection
+from .shape.transformation import BaseTransformation, TransformationCorrection
 from .shape.translation import TranslationCorrection, TranslationEstimator
 
 __all__ = [
     "AdaptiveBalance",
     "AffineBalance",
+    "AffineCorrection",
+    "AffineTransformation",
+    "AnyCorrection",
     "BaseBalance",
     "BaseCorrection",
+    "BaseTransformation",
+    "CORRECTION_REGISTRY",
     "ClassicColorChecker",
     "ColorBalance",
     "ColorChecker",
     "ColorCheckerAfter2014",
     "ColorCorrection",
-    "CORRECTION_REGISTRY",
     "CurvatureCorrection",
     "CustomColorChecker",
+    "DeformationCorrection",
     "DriftCorrection",
     "DynamicIlluminationCorrection",
+    "EOTF",
+    "ExperimentalColorCorrection",
     "FusedCorrectionChain",
+    "GeneralizedPerspectiveCorrection",
+    "GeneralizedPerspectiveTransformation",
     "IlluminationCorrection",
     "PatchwiseIlluminationCorrection",
+    "PiecewisePerspectiveTransform",
+    "RelativeColorCorrection",
+    "RotationCorrection",
+    "TransformationCorrection",
     "TranslationCorrection",
     "TranslationEstimator",
     "TypeCorrection",
@@ -52,32 +77,50 @@ __all__ = [
     "affine_balance",
     "apply_transformation_chain",
     "color_balance",
+    "extract_quadrilateral_ROI",
     "find_colorchecker",
     "fused_chain",
+    "homography_from_points",
+    "quad_coordinate_grid",
     "read_correction",
     "white_balance",
 ]
 
-#: Class-name dispatch for :func:`read_correction` (the JAX package's
-#: registry, for the classes ported so far).
+#: Class-name dispatch for :func:`read_correction`: the JAX package's
+#: registry (``Resize`` joins below).
 CORRECTION_REGISTRY = {
     "ColorCorrection": ColorCorrection,
     "IlluminationCorrection": IlluminationCorrection,
     "PatchwiseIlluminationCorrection": PatchwiseIlluminationCorrection,
     "DynamicIlluminationCorrection": DynamicIlluminationCorrection,
+    "RelativeColorCorrection": RelativeColorCorrection,
+    "ExperimentalColorCorrection": ExperimentalColorCorrection,
     "TypeCorrection": TypeCorrection,
     "CurvatureCorrection": CurvatureCorrection,
+    "AffineCorrection": AffineCorrection,
+    "RotationCorrection": RotationCorrection,
     "TranslationCorrection": TranslationCorrection,
     "DriftCorrection": DriftCorrection,
+    "GeneralizedPerspectiveCorrection": GeneralizedPerspectiveCorrection,
 }
 
 
-def _register_resize() -> None:
+def _register_resize():
     # Resize lives in restoration but takes part in correction chains; a late
     # import avoids a circular one.
     from ..restoration.resize import Resize
 
     CORRECTION_REGISTRY["Resize"] = Resize
+    return (
+        TypeCorrection
+        | DriftCorrection
+        | CurvatureCorrection
+        | IlluminationCorrection
+        | PatchwiseIlluminationCorrection
+        | ColorCorrection
+        | Resize
+    )
 
 
-_register_resize()
+#: Union of the corrections a rig's transformation chain accepts.
+AnyCorrection = _register_resize()

@@ -14,6 +14,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from ..utils.npz import load_npz
+
 __all__ = ["BaseCorrection", "TypeCorrection", "read_correction"]
 
 
@@ -75,7 +77,7 @@ class BaseCorrection:
         path = Path(path)
         if not path.is_file():
             raise FileNotFoundError(f"File {path} not found.")
-        self._load_state_dict(np.load(path, allow_pickle=True)["state"][0])
+        self._load_state_dict(load_npz(path)["state"][0])
 
     def _state_dict(self) -> dict:
         """Serializable parameter state (tensors as numpy). Override with load."""
@@ -126,8 +128,7 @@ def read_correction(path: Union[str, Path]):
     from . import CORRECTION_REGISTRY
 
     path = Path(path)
-    with np.load(path, allow_pickle=True) as data:
-        class_name = str(data["class_name"])
+    class_name = str(load_npz(path, names=("class_name",))["class_name"])
     if class_name not in CORRECTION_REGISTRY:
         raise ValueError(f"Unknown correction class {class_name}.")
     cls = CORRECTION_REGISTRY[class_name]

@@ -29,6 +29,7 @@ from ...ops.polynomial_color import colour_correction
 from ...ops.resize import resize_array
 from ...utils.dtype import convert_dtype
 from ...utils.kmeans import dominant_color
+from ...utils.npz import load_npz
 from ...utils.point import VoxelArray, make_voxel
 from ..base import BaseCorrection
 from ..shape.quad import extract_quadrilateral_ROI
@@ -322,6 +323,6 @@ class ColorCorrection(BaseCorrection):
         path = Path(path)
         if not path.exists():
             raise FileNotFoundError(f"File {path} does not exist.")
-        data = np.load(path, allow_pickle=True)
+        data = load_npz(path)
         self.config = data["config"][0]
         self._init_from_config(base=CustomColorChecker(reference_colors=data["base"]))

@@ -20,6 +20,7 @@ import torch
 from ...image.image import as_numpy
 from ...utils.dtype import host_float32
 from ...utils.extractcharacteristicdata import extract_characteristic_data
+from ...utils.npz import load_npz
 from ..base import BaseCorrection
 
 __all__ = ["DynamicIlluminationCorrection"]
@@ -77,7 +78,7 @@ class DynamicIlluminationCorrection(BaseCorrection):
         )
 
     def load(self, path: Path) -> None:
-        data = np.load(Path(path), allow_pickle=True)
+        data = load_npz(path)
         self.base_colors = data["base_colors"]
         self.colorspace = str(data["colorspace"])
         self.samples = [

@@ -24,6 +24,7 @@ from ...ops.color import convert_trichromatic, rgb_to_gray
 from ...utils.dtype import convert_dtype
 from ...utils.extractcharacteristicdata import extract_characteristic_data
 from ...utils.interpolation import interpolate_to_image, polynomial_design_matrix
+from ...utils.npz import load_npz
 from ...utils.point import make_voxel
 from ..base import BaseCorrection
 
@@ -245,7 +246,7 @@ class IlluminationCorrection(BaseCorrection):
         path = Path(path)
         if not path.is_file():
             raise FileNotFoundError(f"File {path} not found.")
-        data = np.load(path, allow_pickle=True)
+        data = load_npz(path)
         self.colorspace = str(data["colorspace"])
         arrays = data["scaling_arrays"]
         dims = [float(d) for d in data["dimensions"]]

@@ -19,6 +19,7 @@ import torch
 
 from ...image.image import as_numpy
 from ...ops.resize import _resize_jax
+from ...utils.npz import load_npz
 from ..base import BaseCorrection
 
 __all__ = ["PatchwiseIlluminationCorrection"]
@@ -65,9 +66,9 @@ class PatchwiseIlluminationCorrection(BaseCorrection):
     @staticmethod
     def _load(image) -> torch.Tensor:
         if isinstance(image, (str, Path)):
-            raise NotImplementedError(
-                "reading an image from a path needs imread, which is not ported yet"
-            )
+            from ...image.imread import imread
+
+            image = imread(image)
         data = image.img if hasattr(image, "img") else image
         return data if isinstance(data, torch.Tensor) else torch.from_numpy(np.asarray(data))
 
@@ -134,5 +135,5 @@ class PatchwiseIlluminationCorrection(BaseCorrection):
         np.savez(path, class_name=type(self).__name__, correction_grid=self.correction_grid)
 
     def load(self, path: Path) -> None:
-        self.correction_grid = np.load(Path(path), allow_pickle=True)["correction_grid"]
+        self.correction_grid = load_npz(path)["correction_grid"]
         self._grid_cache = {}

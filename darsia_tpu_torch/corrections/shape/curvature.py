@@ -29,6 +29,7 @@ import torch
 
 from ...image.image import Image, as_numpy, as_tensor
 from ...ops.warp import identity_grid, warp_backend
+from ...utils.npz import load_npz
 from ...utils.point import make_voxel
 from ..base import BaseCorrection
 from .quad import extract_quadrilateral_ROI
@@ -408,6 +409,6 @@ class CurvatureCorrection(BaseCorrection):
         path = Path(path)
         if not path.is_file():
             raise FileNotFoundError(f"File {path} not found.")
-        data = np.load(path, allow_pickle=True)
+        data = load_npz(path)
         self.config = load_curvature_correction_config_from_dict(data["config"][0])
         self.cache = {}

@@ -21,6 +21,7 @@ import torch
 from ...image.image import as_numpy
 from ...ops.fft import phase_correlation_prepared, prepare_phase_reference
 from ...utils.box import bounding_box
+from ...utils.npz import load_npz
 from ..base import BaseCorrection
 from .translation import _common_shape, _crop, _shift_to_translation, _to_gray, translate_array
 
@@ -129,7 +130,7 @@ class DriftCorrection(BaseCorrection):
         )
 
     def load(self, path) -> None:
-        data = np.load(path, allow_pickle=True)
+        data = load_npz(path)
         self.base = torch.from_numpy(data["base"])
         config = dict(data["config"][0])
         roi_bounds = config.pop("roi_bounds", None)

@@ -18,6 +18,7 @@ from ...image.image import as_tensor
 from ...ops.color import rgb_to_gray
 from ...ops.fft import phase_correlation
 from ...ops.warp import identity_grid, warp_backend
+from ...utils.npz import load_npz
 from ..base import BaseCorrection
 
 __all__ = ["TranslationCorrection", "TranslationEstimator", "translate_array"]
@@ -146,4 +147,4 @@ class TranslationCorrection(BaseCorrection):
         np.savez(path, class_name=type(self).__name__, translation=self.translation)
 
     def load(self, path) -> None:
-        self.translation = np.load(Path(path), allow_pickle=True)["translation"]
+        self.translation = load_npz(path)["translation"]

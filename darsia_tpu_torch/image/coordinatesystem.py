@@ -37,6 +37,18 @@ class CoordinateSystem:
         vs = img.voxel_size
         self.voxel_size = {"x": vs[1], "y": vs[0]}
         self._coordinate_of_origin_voxel = np.asarray(img.origin, dtype=float)
+        # The Cartesian bounding box, from the two opposite corner voxels.
+        corners = np.vstack(
+            (self._coordinate_of_origin_voxel, np.asarray(self.coordinate(list(self.shape))))
+        )
+        self.min_coordinate = corners.min(axis=0)
+        self.max_coordinate = corners.max(axis=0)
+        self.domain = {
+            "xmin": float(self.min_coordinate[0]),
+            "xmax": float(self.max_coordinate[0]),
+            "ymin": float(self.min_coordinate[1]),
+            "ymax": float(self.max_coordinate[1]),
+        }
 
     @property
     def voxels(self) -> VoxelArray:

@@ -13,6 +13,7 @@ series is corrected frame for frame with the same correction.
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Optional, Union
 from warnings import warn
 
@@ -301,6 +302,21 @@ class Image:
         return type(self)(img=convert_dtype(self.img, data_type), **self.metadata())
 
     img_as = astype
+
+    # ------------------------------------------------------------------- I/O
+
+    def save(self, path: Union[str, Path]) -> None:
+        """Persist the image (array + metadata) as a compressed npz, which
+        ``imread`` of this package and of the JAX package read: every
+        metadata value is a plain numpy or Python value."""
+        path = Path(path).with_suffix(".npz")
+        path.parent.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(
+            path,
+            array=as_numpy(self.img),
+            metadata=np.array([self.metadata()], dtype=object),
+            image_class=type(self).__name__,
+        )
 
     # ------------------------------------------------------------ arithmetic
     # Each result holds a new tensor; the operands' tensors are not aliased.

@@ -12,13 +12,16 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .warp2pass import warp_two_pass
 
 __all__ = [
     "PALLAS_MAX_DISP",
+    "affine_grid",
     "compose_coordinate_maps",
+    "displacement_grid",
     "identity_grid",
     "perspective_grid",
     "warp",
@@ -175,6 +178,39 @@ def warp_backend(
         valid = ((coords >= 0) & (coords <= upper)).all(dim=0)
         out = torch.where(valid[..., None] if out.dim() == 3 else valid, out, cval)
     return out
+
+
+def affine_grid(matrix, translation, out_shape: tuple, device) -> torch.Tensor:
+    """Coordinate field of an affine pull-back map, on ``device``: output
+    voxel ``p`` samples the input at ``matrix @ p + translation``.
+
+    The products are summed axis by axis in float32 (no matmul), so the
+    field is the same on every device, down to the last bit: a nearest-voxel
+    warp of it picks the same voxels on the card as on the CPU.
+
+    Args:
+        matrix: (dim, dim) array-like.
+        translation: (dim,) array-like.
+        out_shape: output spatial shape.
+
+    """
+    matrix = np.asarray(matrix, dtype=np.float32)
+    translation = np.asarray(translation, dtype=np.float32)
+    grid = identity_grid(tuple(out_shape), device)
+    rows = []
+    for d in range(len(out_shape)):
+        acc = grid[0] * float(matrix[d, 0])
+        for e in range(1, len(out_shape)):
+            acc = acc + grid[e] * float(matrix[d, e])
+        rows.append(acc + float(translation[d]))
+    return torch.stack(rows, dim=0)
+
+
+def displacement_grid(displacement: torch.Tensor) -> torch.Tensor:
+    """Coordinate field of a ``(dim, *shape)`` voxel displacement field, on
+    its device: output voxel ``p`` samples the input at
+    ``p + displacement[:, p]``."""
+    return identity_grid(tuple(displacement.shape[1:]), displacement.device) + displacement
 
 
 def perspective_grid(homography: torch.Tensor, out_shape: tuple) -> torch.Tensor:

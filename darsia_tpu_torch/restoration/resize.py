@@ -16,6 +16,7 @@ import torch
 
 from ..ops.resize import resize_array
 from ..utils.dtype import convert_dtype
+from ..utils.npz import load_npz
 
 __all__ = ["Resize", "resize"]
 
@@ -115,7 +116,7 @@ class Resize:
         np.savez(path, class_name="Resize", state=np.array([state], dtype=object))
 
     def load(self, path) -> None:
-        state = np.load(path, allow_pickle=True)["state"][0]
+        state = load_npz(path)["state"][0]
         self.shape = state["shape"]
         self.fx = state["fx"]
         self.fy = state["fy"]

@@ -388,7 +388,7 @@ def test_illumination_sampling_edge_cases():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "uint8"])
-def test_patchwise_illumination_against_jax(dtype):
+def test_patchwise_illumination_against_jax(dtype, tmp_path):
     rng = np.random.default_rng(7)
     base = (_lit_frame(60, 80).astype(np.float32) / 255 * 0.5 + 0.25).astype(np.float32)
     shifted = np.roll(base, 3, axis=0)
@@ -414,8 +414,14 @@ def test_patchwise_illumination_against_jax(dtype):
     means = t.extract_color_values_patches(torch.from_numpy(base), full=True)
     j_means = j.extract_color_values_patches(base, full=True)
     assert all(np.abs(a - b).max() <= COLOR_TOL for a, b in zip(means, j_means))
-    with pytest.raises(NotImplementedError, match="imread"):
-        dt.PatchwiseIlluminationCorrection(image="baseline.jpg", baseline_images=["baseline.jpg"])
+    # A path goes through imread, which reads npz and npy files (on the
+    # card; tests/test_torch_io.py) and names the decoder a photograph needs.
+    (tmp_path / "baseline.jpg").write_bytes(b"\0")
+    jpg = tmp_path / "baseline.jpg"
+    with pytest.raises(NotImplementedError, match="cv2"):
+        dt.PatchwiseIlluminationCorrection(image=jpg, baseline_images=[jpg])
+    with pytest.raises(FileNotFoundError):
+        dt.PatchwiseIlluminationCorrection(image="none.npz", baseline_images=["none.npz"])
 
 
 def test_dynamic_illumination_against_jax():

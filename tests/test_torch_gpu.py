@@ -326,3 +326,120 @@ def test_checker_crop_warps_through_k1():
         assert torch.equal(warp2pass.warp_rows_t(data, cols, D), warp2pass.warp_rows_t_reference(data, cols, D))
     # Flat swatches: the two warps agree inside them.
     assert np.abs(swatches - dt.CustomColorChecker(image=crop).swatches_rgb).max() <= 1e-5
+
+
+def _bench_like(h=240, w=320, seed=11):
+    rng = np.random.default_rng(seed)
+    return (rng.random((h, w, 3)) * 255).astype(np.uint8)
+
+
+def test_shape_zoo_runs_on_the_card_by_default_and_matches_the_cpu():
+    """numpy input goes to the card; a nearest-voxel warp of a host-built (or
+    product-summed) field picks the same voxels there as on the CPU."""
+    import darsia_tpu_torch as dt
+
+    frame = _bench_like()
+    image = dt.OpticalImage(frame, width=3.2, height=2.4)
+    assert image.img.device.type == "cuda"
+    cs = image.coordinatesystem
+    src = np.asarray(cs.coordinate([[20, 30], [200, 40], [190, 300], [30, 280]]))
+    rng = np.random.default_rng(12)
+    dst_p = rng.random((16, 2)) * np.array([3.2, 2.4])
+    src_p = (dst_p @ np.array([[1.002, 0.003], [-0.002, 0.999]]).T + 0.004) / (dst_p @ [2e-3, 1e-3] + 1)[:, None]
+    corrections = [
+        dt.RotationCorrection([120, 160], rotations=[np.deg2rad(0.5)]),
+        dt.AffineCorrection(cs, cs, dt.make_coordinate(src), dt.make_coordinate(src + 0.03)),
+        dt.GeneralizedPerspectiveCorrection(cs, cs, dt.make_coordinate(src_p), dt.make_coordinate(dst_p)),
+    ]
+    before = warp2pass.launch_count
+    for correction in corrections:
+        out = correction(image)
+        assert out.img.device.type == "cuda" and out.img.dtype == torch.uint8
+        on_cpu = correction.correct_array(torch.from_numpy(frame))
+        assert on_cpu.device.type == "cpu" and torch.equal(out.img.cpu(), on_cpu)
+    assert warp2pass.launch_count == before  # gather warps only
+
+
+def test_piecewise_perspective_warps_through_k1():
+    import darsia_tpu_torch as dt
+
+    frame = _bench_like().astype(np.float32) / 255.0
+    image = dt.OpticalImage(frame, width=3.2, height=2.4)
+    patches = dt.Patches(image, [3, 4], rel_overlap=0.1)
+    assert patches(1, 2).img.device.type == "cuda"
+    assert (patches.blend_and_assemble().img - image.img).abs().max().item() <= 1e-6
+    disp = np.random.default_rng(13).uniform(-4, 4, (3, 4, 2))
+    before = warp2pass.launch_count
+    out, calls = _recorded_k1_calls(lambda: dt.PiecewisePerspectiveTransform().find_and_warp(patches, disp))
+    assert warp2pass.launch_count == before + 2 and len(calls) == 2
+    assert out.img.device.type == "cuda" and out.img.shape == image.img.shape
+    for data, cols, D in calls:
+        assert 2 <= D <= 16
+        assert torch.equal(warp2pass.warp_rows_t(data, cols, D), warp2pass.warp_rows_t_reference(data, cols, D))
+    # The CPU takes the gather warp of the same spline: the two-pass warp's
+    # own difference to exact bilinear on noise, bounded by the image range.
+    on_cpu = dt.PiecewisePerspectiveTransform().find_and_warp(
+        dt.Patches(dt.OpticalImage(frame, width=3.2, height=2.4, device="cpu"), [3, 4]), disp
+    )
+    assert (out.img.cpu() - on_cpu.img).abs().mean().item() <= 0.05
+
+
+def test_colour_corrections_and_files_on_the_card(tmp_path):
+    import darsia_tpu_torch as dt
+
+    frame = _bench_like().astype(np.float32) / 255.0
+    image = dt.OpticalImage(frame, width=3.2, height=2.4)
+    relative = dt.RelativeColorCorrection(image, config={"degree": 1})
+    rng = np.random.default_rng(14)
+    relative.add_calibration_data(rng.random((30, 2)), rng.random((30, 3)), [0.5, 0.5, 0.5])
+    relative.calibrate()
+    relative.setup()
+    assert relative._evaluated.device.type == "cuda"
+    out = relative(image)
+    relative_cpu = dt.RelativeColorCorrection(dt.OpticalImage(frame, width=3.2, height=2.4, device="cpu"))
+    relative.save(tmp_path / "relative")
+    relative_cpu.load(tmp_path / "relative.npz")
+    on_cpu = relative_cpu.correct_array(torch.from_numpy(frame))
+    assert out.img.device.type == "cuda" and (out.img.cpu() - on_cpu).abs().max().item() <= 1e-5
+
+    ref = dt.ColorCheckerAfter2014().swatches_rgb
+    checker = np.kron(ref, np.ones((40, 40, 1))).astype(np.float32) * np.array([0.9, 1.0, 0.8], np.float32)
+    experimental = dt.ExperimentalColorCorrection()
+    before = warp2pass.launch_count
+    corrected = experimental(dt.OpticalImage(checker, width=2.4, height=1.6))
+    assert warp2pass.launch_count == before + 2  # the checker crop's pair
+    assert corrected.img.device.type == "cuda"
+    flat = corrected.img.cpu().numpy()[5:-5, 5:-5]
+    assert np.abs(flat - np.kron(ref, np.ones((40, 40, 1)))[5:-5, 5:-5]).mean() <= 0.02
+
+    # Files: an image saved from the card comes back onto it.
+    image.save(tmp_path / "image")
+    back = dt.imread(tmp_path / "image.npz")
+    assert back.img.device.type == "cuda" and torch.equal(back.img, image.img)
+    assert dt.imread(tmp_path / "image.npz", device="cpu").img.device.type == "cpu"
+    stacked = dt.stack([image, back])
+    assert stacked.img.device.type == "cuda" and stacked.img.shape == (240, 320, 2, 3)
+    assert dt.zeros_like(image, "voxels").img.device.type == "cuda"
+    patchwise = dt.PatchwiseIlluminationCorrection(
+        tmp_path / "image.npz", [tmp_path / "image.npz"], nw=16, limit=8
+    )
+    assert patchwise.correct_array(image.img).device.type == "cuda"
+
+
+def test_deformation_correction_is_the_registration():
+    import darsia_tpu_torch as dt
+
+    rng = np.random.default_rng(15)
+    base = torch.nn.functional.avg_pool2d(
+        torch.from_numpy(rng.random((1, 3, 246, 326)).astype(np.float32)), 7, 1
+    )[0].permute(1, 2, 0).contiguous().numpy()
+    probe = np.roll(base, (1, 2), axis=(0, 1))
+    meta = {"width": 3.2, "height": 2.4}
+    base_img = dt.OpticalImage(base, **meta)
+    config = {"N_patches": [2, 2], "rel_overlap": 0.2, "quality_tol": 0.01}
+    deformation = dt.DeformationCorrection(base_img, config)
+    before = warp2pass.launch_count
+    out = dt.OpticalImage(probe, transformations=[deformation], **meta)
+    assert warp2pass.launch_count == before + 2
+    direct = dt.ImageRegistration(base_img, **config)(dt.OpticalImage(probe, **meta))
+    assert out.img.device.type == "cuda" and torch.equal(out.img, direct.img)

@@ -2,7 +2,9 @@
 
 A subprocess blocks ``jax`` and ``cv2`` (``sys.modules[name] = None`` makes
 any import of them fail), imports ``darsia_tpu_torch`` and runs the small
-correct -> register -> concentrate pipeline on a numpy-made frame.
+correct -> register -> concentrate pipeline on a numpy-made frame.  A second
+subprocess also blocks ``darsia_tpu`` and reads the image and every
+correction file that the JAX package wrote beforehand in this process.
 """
 
 import subprocess
@@ -110,7 +112,102 @@ with tempfile.TemporaryDirectory() as tmp:
     for k, corr in enumerate(shape + [illum, color, dt.TypeCorrection(np.float32)]):
         corr.save(Path(tmp) / f"c{k}")
         assert type(dt.read_correction(Path(tmp) / f"c{k}.npz")) is type(corr)
+
+# The rest of the correction registry, patches and the saved rig state.
+small = corrected_base.subregion((slice(0, 96), slice(0, 128)))
+cs = small.coordinatesystem
+src = dt.make_coordinate(cs.coordinate(rng.random((5, 2)) * [96, 128]))
+affine = dt.AffineCorrection(cs, cs, src, dt.make_coordinate(np.asarray(src) + 0.01))
+rotation = dt.RotationCorrection([48, 64], rotations=[0.01])
+perspective = dt.GeneralizedPerspectiveCorrection(
+    cs, cs, dt.make_voxel(rng.random((14, 2)) * [96, 128]), dt.make_voxel(rng.random((14, 2)) * [96, 128]),
+    {"maxiter": 5},
+)
+for corr in (affine, rotation, perspective):
+    assert corr(small).img.shape == small.img.shape
+relative = dt.RelativeColorCorrection(small, config={"degree": 1})
+pts = rng.random((30, 2))
+relative.add_calibration_data(pts, rng.random((30, 3)), [0.5, 0.5, 0.5])
+relative.calibrate()
+relative.setup()
+assert torch.isfinite(relative(small.img_as(torch.float32)).img).all()
+experimental = dt.ExperimentalColorCorrection(roi=(slice(20, 100), slice(250, 370)))
+assert torch.isfinite(experimental(dt.OpticalImage(rig_t, width=2.0, height=1.2)).img).all()
+patches = dt.Patches(small.img_as(torch.float32), [2, 3], rel_overlap=0.1)
+assert (patches.blend_and_assemble().img - patches.base.img).abs().max() < 1e-6
+warped = dt.PiecewisePerspectiveTransform().find_and_warp(patches, rng.random((2, 3, 2)))
+assert warped.img.shape == small.img.shape and torch.isfinite(warped.img).all()
+deformed = dt.DeformationCorrection(small.img_as(torch.float32), {"N_patches": [2, 2]})
+assert deformed(small.img_as(torch.float32)).img.shape == small.img.shape
+assert dt.stack([small, small]).series and dt.weight(small, 2.0).img.shape == small.img.shape
+with tempfile.TemporaryDirectory() as tmp:
+    corrected_base.save(Path(tmp) / "baseline.npz")
+    back = dt.imread(Path(tmp) / "baseline.npz", device="cpu")
+    assert torch.equal(back.img, corrected_base.img) and type(back) is dt.OpticalImage
 print("ok", tuple(out.img.shape))
+"""
+
+# Reads what ``test_port_reads_jax_files_without_the_jax_package`` wrote with
+# the JAX package: argv[2] is the folder; per class NAME.npz (the
+# correction), NAME_in.npy (an input) and NAME_out.npy (the JAX package's
+# result); image.npz with image.npy; affine.npz.
+READ_SCRIPT = r"""
+import sys
+for name in ("jax", "jaxlib", "darsia_tpu", "cv2", "pandas", "matplotlib"):
+    sys.modules[name] = None
+sys.path.insert(0, sys.argv[1])
+from pathlib import Path
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+import darsia_tpu_torch as dt
+
+folder = Path(sys.argv[2])
+image = dt.imread(folder / "image.npz", device="cpu")
+assert type(image) is dt.OpticalImage and type(image.origin) is np.ndarray
+assert np.array_equal(image.img.numpy(), np.load(folder / "image.npy"))
+assert image.dimensions == [0.96, 1.28] and image.origin.tolist() == [0.25, 1.5]
+assert image.name == "baseline" and image.date.year == 2024
+
+names = sorted(p.stem[:-3] for p in folder.glob("*_in.npy"))
+assert len(names) == 12, names
+for name in names:
+    correction = dt.read_correction(folder / f"{name}.npz")
+    assert type(correction).__name__ == name
+    data = torch.from_numpy(np.load(folder / f"{name}_in.npy"))
+    if name == "RelativeColorCorrection":
+        # No baseline in the file: set it, then set the field up.
+        correction.baseline = dt.OpticalImage(data, width=1.28, height=0.96)
+        correction.setup()
+    got = correction(data).numpy()
+    want = np.load(folder / f"{name}_out.npy")
+    assert got.shape == want.shape and got.dtype == want.dtype, name
+    if got.dtype == np.uint8:
+        diff = np.abs(got.astype(int) - want.astype(int))
+        assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3, name
+    elif name == "RotationCorrection":
+        # Nearest-voxel picks: equal but for rounding ties of the field.
+        assert (got != want).any(axis=-1).mean() <= 1e-3, name
+    elif name == "ExperimentalColorCorrection":
+        # Held in linear light: the encode's slope is unbounded at black.
+        assert np.abs(got**2.2 - want**2.2).max() <= 1e-5, name
+    else:
+        assert np.abs(got - want).max() <= 1e-5 * max(1.0, np.abs(want).max()), name
+
+affine = dt.AffineCorrection(image.coordinatesystem, image.coordinatesystem)
+affine.load(folder / "affine.npz")
+assert abs(affine.transformation.scaling - 1.01) < 1e-12
+try:
+    dt.read_correction(folder / "affine.npz")
+except ValueError as err:
+    assert "coordinate systems" in str(err)
+else:
+    raise AssertionError("read_correction read an AffineCorrection file")
+loaded = [m for m, module in sys.modules.items() if module is not None]
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "darsia_tpu") for m in loaded)
+print("ok", len(names))
 """
 
 
@@ -123,6 +220,65 @@ def test_port_runs_without_jax_and_cv2():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().startswith("ok")
+
+
+def test_port_reads_jax_files_without_the_jax_package(tmp_path):
+    """The JAX package writes an image and one file of every correction class
+    that its own ``read_correction`` loads; a subprocess that can import
+    neither ``jax`` nor ``darsia_tpu`` reads and applies them all."""
+    import datetime
+
+    import jax.numpy as jnp
+    import numpy as np
+    from test_torch_color_corrections import _checker_frame, _jax_written, jax_find
+
+    import darsia_tpu as da
+
+    frame, _ = _checker_frame()
+    objects = _jax_written(tmp_path, frame, jax_find(frame)[1])
+    rng = np.random.default_rng(0)
+    small = (frame[:96, :128] / 255.0).astype(np.float32)
+    meta = {"width": 1.28, "height": 0.96}
+    relative = da.RelativeColorCorrection(da.OpticalImage(jnp.asarray(small), **meta), config={"degree": 1})
+    relative.add_calibration_data(rng.random((30, 2)), rng.random((30, 3)), [0.5, 0.5, 0.5])
+    relative.calibrate()
+    relative.setup()
+    roi = (slice(100, 220), slice(1300, 1480))
+    objects["RelativeColorCorrection"] = (relative, small)
+    objects["ExperimentalColorCorrection"] = (da.ExperimentalColorCorrection(roi=roi), frame)
+    objects["RotationCorrection"] = (da.RotationCorrection([48, 64], rotations=[0.01]), small)
+    for name, (obj, data) in objects.items():
+        obj.save(tmp_path / name)
+        np.save(tmp_path / f"{name}_in.npy", data)
+        np.save(tmp_path / f"{name}_out.npy", np.asarray(obj(jnp.asarray(data))))
+    image = da.OpticalImage(
+        jnp.asarray(frame[:96, :128]),
+        origin=[0.25, 1.5],
+        name="baseline",
+        date=datetime.datetime(2024, 3, 1),
+        **meta,
+    )
+    image.save(tmp_path / "image")
+    np.save(tmp_path / "image.npy", frame[:96, :128])
+    cs = image.coordinatesystem
+    src = np.asarray(cs.coordinate(rng.random((5, 2)) * [96, 128]))
+    da.AffineCorrection(cs, cs, da.make_coordinate(src), da.make_coordinate(1.01 * src)).save(
+        tmp_path / "affine"
+    )
+    # The image file does pickle a class of the JAX package.
+    import zipfile
+
+    with zipfile.ZipFile(tmp_path / "image.npz") as archive:
+        assert b"darsia_tpu" in archive.read("metadata.npy")
+
+    proc = subprocess.run(
+        [sys.executable, "-c", READ_SCRIPT, str(REPO), str(tmp_path)],
+        capture_output=True,
+        text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok 12"
 
 
 def test_package_sources_import_no_jax():
