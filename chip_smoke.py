@@ -131,9 +131,49 @@ checkout, in phases; any failure raises and exits non-zero:
    launches per call.  ``DeformationCorrection`` in ``transformations=``
    equals ``ImageRegistration(base)(probe)``: 2 K1 launches each.
 
+A. Solvers and the TVD row of the JAX package's bench (``bench.py:726-731``):
+   ``split_bregman_tvd`` at 512 x 512, mu = 10, ell = 1, 30 iterations,
+   anisotropic, ``eps=None``, 10 calls closed by one synchronize
+   (``tvd_512_iters_per_s``); Jacobi(600), CG and MG on one 512 x 512 H1
+   problem agree with each other and the known solution within 5e-4 (the
+   CPU test's tolerance); MG (5 cycles, depth 4) at 1703 x 3180 with
+   heterogeneous mass and diffusion fields lowers the residual at least
+   tenfold; ms per call.
+B. Restoration on the main path: the two-warp lane of phase 5 with
+   ``ConcentrationAnalysis(restoration=CombinedModel([Resize(0.5x),
+   TVD("isotropic bregman", weight 5, 30 iterations, eps 1e-4),
+   Resize(original)]))``, timed as phase 5 and in turns with phase 5's lane:
+   exactly 4 K1 launches per frame, each bitwise equal to plain K1 on the
+   frame's own data, the frame with plain K1 within mean |diff| <= 1e-5.
+   Then ``TVD`` alone on that lane's full-resolution concentration map for
+   each method (Chambolle with its eps; isotropic Bregman, 30 iterations,
+   eps 1e-4, with Jacobi(20), CG(20) and MG(1 cycle, depth 3)): ms per call
+   (median of 3), iterations taken (counted in the timed call), the ROF
+   energy before and after (it must fall), and the card's result against the
+   same call on the CPU tensor at a 256 x 384 crop (fixed-count Bregman:
+   2e-5; Chambolle with its eps: 1e-4).  Last, how the stop flag is read: the
+   port's loop (one host read per iteration) in turns with a loop that
+   freezes its state on the device and reads the flag every eighth
+   iteration, on Chambolle at 4K and at 512 x 512 and on Bregman with CG(20)
+   at 4K: bitwise equal results and counts, ms and peak memory each.
+C. A CT-sized volume: a seeded 256 x 512 x 512 float32 ``ScalarImage``
+   (``space_dim=3``; 32-voxel blocks plus noise): ``chambolle_tvd``,
+   ``split_bregman_tvd(dim=3, max_num_iter=10)`` and
+   ``H1_regularization(dim=3)`` (ms per call, total variation lowered);
+   ``slice`` along x, y and z by coordinate equals the index slice;
+   ``reduce_axis`` average against the tensor's mean; ``Geometry.integrate``
+   against the float64 numpy sum times the voxel volume within 1e-5
+   relative; ``subregion``, ``roi`` (on a slice) and ``eval``; saved with
+   ``Image.save`` and read back with ``imread``, equal.  Peak device memory.
+D. Filters at 4K on the lane's concentration map: ``median_filter`` (radius
+   1 and 2), ``VolumeAveraging`` (REV of 5 and of 8 voxels),
+   ``uniform_refinement`` (+1, -1) and ``equalize_voxel_size``: ms per call
+   (median of 3); each equal to the same call on the CPU tensor (median:
+   exactly; averaging: 1e-6; resizes: 1e-5).
+
 Every launch count is set to 0 just before each path of phases 3, 5-7,
-8-11 and 14-20 and read just after it; the ``kernels`` line's K1 launches
-are their sum.  Each of phases 8-12 and 14-20 prints its seconds.  The
+8-11, 14-20 and B and read just after it; the ``kernels`` line's K1 launches
+are their sum.  Each of phases 8-12, 14-20 and A-D prints its seconds.  The
 second-to-last line is a JSON object of per-kernel results; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
@@ -141,6 +181,7 @@ second-to-last line is a JSON object of per-kernel results; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -1679,11 +1720,509 @@ def phase_saved_state(dt, w2p, lanes, rig, device, card: str) -> dict:
     return {"launches": launches}
 
 
+def rof_energy(u: torch.Tensor, f: torch.Tensor, tv_weight: float) -> float:
+    """``1/2 |u - f|^2 + tv_weight * TV_iso(u)`` in float64 on the card."""
+    u64, f64 = u.double(), f.double()
+    squares = None
+    for ax in range(u.dim()):
+        g = torch.diff(u64, dim=ax, append=u64.narrow(ax, u64.shape[ax] - 1, 1)) ** 2
+        squares = g if squares is None else squares + g
+    return float(0.5 * ((u64 - f64) ** 2).sum() + tv_weight * squares.sqrt().sum())
+
+
+def median_ms(fn, reps: int = 3):
+    """(last output, median ms, each ms) of ``reps`` calls, each closed by a
+    synchronize, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    each = []
+    for _ in range(reps):
+        tic = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        each.append((time.perf_counter() - tic) * 1e3)
+    return out, float(np.median(each)), each
+
+
+def frozen_loop(read_every: int):
+    """The loop the port's ``iterate_while`` is timed against: the stopping
+    rule never leaves the device.  Every iteration computes the next state and
+    keeps the old one where the test has failed (``torch.where``), so the
+    result is bitwise what leaving at that iteration gives; the flag is read
+    on the host only every ``read_every`` iterations, to leave the loop."""
+
+    def loop(cond, body, state, maxiter, start=0):
+        device = state[0].device
+        active = torch.ones((), dtype=torch.bool, device=device)
+        taken = torch.full((), start, dtype=torch.int64, device=device)
+        for it in range(start, maxiter):
+            active = active & cond(state, it)
+            new_state = body(state, it)
+            state = tuple(torch.where(active, new, old) for new, old in zip(new_state, state))
+            taken = taken + active
+            if (it - start) % read_every == read_every - 1 and not active.item():
+                break
+        return state, int(taken)
+
+    return loop
+
+
+@contextlib.contextmanager
+def stopping_loops(loop=None):
+    """Record the iteration count of every loop with a stopping rule that
+    runs inside (the outermost loop's is the last), and run them through
+    ``loop`` in place of the port's ``iterate_while`` where one is given."""
+    import importlib
+
+    modules = [
+        importlib.import_module(f"darsia_tpu_torch.{name}")
+        for name in ("ops.solvers", "ops.tv", "restoration.split_bregman_tvd")
+    ]
+    original = modules[0].iterate_while
+    counts = []
+
+    def recorded(*args, **kwargs):
+        state, taken = (loop or original)(*args, **kwargs)
+        counts.append(taken)
+        return state, taken
+
+    for module in modules:
+        module.iterate_while = recorded
+    try:
+        yield counts
+    finally:
+        for module in modules:
+            module.iterate_while = original
+
+
+def bench_tvd_image(n: int) -> np.ndarray:
+    """The image of the JAX package's TVD bench row (bench.py:727-729)."""
+    rng = np.random.default_rng(0)
+    blocks = np.kron(rng.random((n // 32, n // 32)), np.ones((32, 32)))
+    return np.clip(blocks + 0.1 * rng.standard_normal((n, n)), 0, 1).astype(np.float32)
+
+
+def phase_solvers(dt, device, card: str, profile) -> dict:
+    """Phase A: the bench's TVD row and the three solvers."""
+    tic = time.perf_counter()
+    n, iters, reps = 512, 30, 10
+    img = torch.from_numpy(bench_tvd_image(n)).to(device)
+
+    def run():
+        return dt.split_bregman_tvd(
+            img, mu=10.0, ell=1.0, max_num_iter=iters, isotropic=False, eps=None
+        )
+
+    out = run()  # warm-up
+    torch.cuda.synchronize()
+    if tuple(out.shape) != (n, n) or not bool(torch.isfinite(out).all()):
+        raise AssertionError("TVD at 512: bad output")
+    energy = (rof_energy(img, img, 10.0), rof_energy(out, img, 10.0))
+    if not energy[1] < energy[0]:
+        raise AssertionError(f"TVD at 512: ROF energy {energy[0]} -> {energy[1]}")
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = run()
+    torch.cuda.synchronize()
+    seconds = (time.perf_counter() - t0) / reps
+    iters_per_s = iters / seconds
+    print(
+        f"TVD bench row (split_bregman_tvd, {n}x{n}, mu=10, ell=1, {iters} iterations, "
+        f"anisotropic, eps=None, Jacobi(20); {reps} calls, one synchronize): "
+        f"tvd_512_iters_per_s {iters_per_s}, {seconds * 1e3} ms per call on {card}; ROF "
+        f"energy {energy[0]:.1f} -> {energy[1]:.1f}"
+    )
+    if profile is not None:
+        profile_frame(run, seconds * 1e3, profile, "tvd_512", frames=2)
+
+    # One H1 problem, three solvers (tests/test_torch_solvers.py's tolerance).
+    g = torch.Generator(device=device).manual_seed(5)
+    x_true = torch.rand((n, n), generator=g, device=device)
+    mass, diff = 1.0, 0.5
+    rhs = mass * x_true - dt.fv_laplace(x_true, dim=2, diffusion_coeff=diff)
+    solvers = {
+        "Jacobi(600)": dt.Jacobi(maxiter=600, mass_coeff=mass, diffusion_coeff=diff),
+        "CG(400, 1e-12)": dt.CG(maxiter=400, tol=1e-12, mass_coeff=mass, diffusion_coeff=diff),
+        "MG(60, 1e-12)": dt.MG(maxiter=60, tol=1e-12, mass_coeff=mass, diffusion_coeff=diff),
+    }
+    zero = torch.zeros_like(x_true)
+    sols, times = {}, {}
+    for name, solver in solvers.items():
+        sols[name], times[name], _ = median_ms(lambda: solver(zero, rhs))
+    errs = {name: float((sol - x_true).abs().max()) for name, sol in sols.items()}
+    names = list(sols)
+    apart = max(
+        float((sols[a] - sols[b]).abs().max()) for a in names for b in names if a < b
+    )
+    if not (max(errs.values()) <= 5e-4 and apart <= 5e-4):
+        raise AssertionError(f"solver family at 512: errors {errs}, apart {apart}")
+    print(
+        f"solver family on one {n}x{n} H1 problem: max |x - x_true| {errs}, apart "
+        f"{apart}; ms per call {times}"
+    )
+
+    # Multigrid at 4K with heterogeneous fields.
+    shape = (OH, W)
+    x = torch.rand(shape, generator=g, device=device)
+    mass_f = 0.5 + torch.rand(shape, generator=g, device=device)
+    diff_f = 0.2 + torch.rand(shape, generator=g, device=device)
+    rhs = mass_f * x
+    mg = dt.MG(depth=4, smoother_iterations=3, maxiter=5, mass_coeff=mass_f, diffusion_coeff=diff_f)
+    torch.cuda.reset_peak_memory_stats(device)
+    solved, mg_ms, _ = median_ms(lambda: mg(x, rhs))
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    before = float(torch.linalg.vector_norm(rhs - mg.operator(x)))
+    after = float(torch.linalg.vector_norm(rhs - mg.operator(solved)))
+    if not after <= 0.1 * before:
+        raise AssertionError(f"MG at 4K: residual {before} -> {after}")
+    print(
+        f"MG (5 V-cycles, depth 4, 3 sweeps) at {shape} with heterogeneous mass and "
+        f"diffusion: {mg_ms} ms per call, residual {before:.3f} -> {after:.5f}, peak "
+        f"{peak_gib:.2f} GiB; phase {time.perf_counter() - tic:.2f} s"
+    )
+    return {"tvd_512_iters_per_s": iters_per_s, "mg_4k_ms": mg_ms}
+
+
+TVD_WEIGHT = 5.0  # Bregman methods: mu = 1 / weight = 0.2
+TVD_ITERS = 30
+TVD_EPS = 1e-4
+CHAMBOLLE = {"weight": 0.1, "eps": 2e-4, "max_num_iter": 200}
+
+
+def restoration_chain(dt):
+    """Resize(0.5x) -> TVD -> Resize(original), as the FluidFlower presets
+    build their ``restoration=`` (presets/fluidflower/benchmarkco2model.py:52-58
+    of the JAX package)."""
+    return dt.CombinedModel(
+        [
+            dt.Resize(fx=0.5, fy=0.5),
+            dt.TVD(
+                method="isotropic bregman",
+                weight=TVD_WEIGHT,
+                max_num_iter=TVD_ITERS,
+                eps=TVD_EPS,
+            ),
+            dt.Resize(shape=(OH, W)),
+        ]
+    )
+
+
+def phase_restoration_lane(dt, w2p, lanes, device, card: str, profile) -> dict:
+    """Phase B: the two-warp lane with the TVD restoration chain, then TVD
+    alone at full resolution with each method."""
+    tic = time.perf_counter()
+    analysis = dt.ConcentrationAnalysis(
+        base=lanes["analysis"].base,
+        signal_reduction=dt.MonochromaticReduction(color="gray"),
+        restoration=restoration_chain(dt),
+        model=dt.LinearModel(scaling=2.0),
+        **{"diff option": "positive"},
+    )
+    pipeline = dt.FusedAnalysisPipeline(
+        transformations=[lanes["trans"], lanes["curv"]],
+        registration=lanes["registration"],
+        analysis=analysis,
+    )
+    probe = torch.from_numpy(lanes["probe_u8"]).to(device)
+    pipeline(probe)  # warm-up
+    torch.cuda.synchronize()
+    frames = 5
+    torch.cuda.reset_peak_memory_stats(device)
+    out, ms, counts, windows = run_frames(w2p, pipeline, probe, frames, "restoration lane")
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    diff, plain_ms = plain_frames(w2p, pipeline, probe, out.img, frames, "restoration lane")
+    # K1 at this pipeline's own calls: bitwise equal to its plain version.
+    calls = frame_k1_calls(w2p, lambda: pipeline(probe))
+    if len(calls) != 4:
+        raise AssertionError(f"restoration lane: {len(calls)} K1 calls per frame, want 4")
+    for k, (data, cols, D) in enumerate(calls):
+        if not torch.equal(w2p.warp_rows_t(data, cols, D), w2p.warp_rows_t_reference(data, cols, D)):
+            raise AssertionError(f"restoration lane: K1 call {k} != plain")
+    # The staged objects (the restoration chain on the staged concentration).
+    staged = analysis(lanes["registration"](staged_probe(dt, lanes, device))).img
+    staged_err = float((staged - out.img).abs().mean())
+    if not staged_err <= 1e-3:
+        raise AssertionError(f"restoration lane vs staged objects: mean |dconc| = {staged_err}")
+    # Against phase 5's lane (10 Jacobi sweeps as its restoration), in turns.
+    turns = []
+    for lane in (lanes["two_warp"], pipeline, pipeline, lanes["two_warp"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            lane(probe)
+        torch.cuda.synchronize()
+        turns.append((time.perf_counter() - t0) / frames * 1e3)
+    print(
+        f"two-warp lane with the TVD restoration chain (Resize 0.5x -> isotropic Bregman "
+        f"weight {TVD_WEIGHT}, {TVD_ITERS} iterations, eps {TVD_EPS}, Jacobi(20) -> Resize): "
+        f"{ms} ms/frame ({WINDOWS} windows of {frames} frames, each {windows}), launches "
+        f"{counts} on {card}; K1 bitwise at its 4 calls; with plain K1 {plain_ms} ms/frame, "
+        f"mean|dconc| vs plain K1 {diff}, vs staged objects {staged_err}; in turns with "
+        f"phase 5's lane (ms/frame, 5 frames each): phase 5 {turns[0]}, restoration "
+        f"{turns[1]}, restoration {turns[2]}, phase 5 {turns[3]}; peak {peak_gib:.2f} GiB"
+    )
+    if profile is not None:
+        profile_frame(lambda: pipeline(probe), ms, profile, "restoration_lane", frames=2)
+
+    # TVD alone on the lane's full-resolution concentration map (the map the
+    # chain restores, before it).
+    conc = lanes["two_warp"](probe).img.contiguous()
+    crop = conc[700:956, 1400:1784].contiguous()
+    methods = {
+        "chambolle": ({"method": "chambolle", **CHAMBOLLE}, None),
+        "bregman Jacobi(20)": ({}, lambda: dt.Jacobi(maxiter=20)),
+        "bregman CG(20)": ({}, lambda: dt.CG(maxiter=20, tol=1e-6)),
+        "bregman MG(1, depth 3)": ({}, lambda: dt.MG(maxiter=1, depth=3, smoother_iterations=3)),
+    }
+    report = {}
+    for name, (options, make_solver) in methods.items():
+        if make_solver is None:
+            call = lambda x, eps=options["eps"]: dt.TVD(**{**options, "eps": eps})(x)  # noqa: E731
+            tv_weight, fixed_eps, tol = options["weight"], options["eps"], 1e-4
+        else:
+            def call(x, eps=TVD_EPS, make_solver=make_solver):
+                return dt.TVD(
+                    method="isotropic bregman", weight=TVD_WEIGHT, max_num_iter=TVD_ITERS,
+                    eps=eps, solver=make_solver(),
+                )(x)
+
+            tv_weight, fixed_eps, tol = 1.0 / TVD_WEIGHT, None, 2e-5
+        torch.cuda.reset_peak_memory_stats(device)
+        with stopping_loops() as loop_counts:
+            restored, call_ms, each = median_ms(lambda: call(conc))
+        taken = loop_counts[-1]  # of the last timed call
+        method_peak = torch.cuda.max_memory_allocated(device) / 2**30
+        if tuple(restored.shape) != tuple(conc.shape) or not bool(torch.isfinite(restored).all()):
+            raise AssertionError(f"TVD {name} at 4K: bad output")
+        energy = (rof_energy(conc, conc, tv_weight), rof_energy(restored, conc, tv_weight))
+        if not energy[1] < energy[0]:
+            raise AssertionError(f"TVD {name} at 4K: ROF energy {energy[0]} -> {energy[1]}")
+        # The card against the CPU tensor, at a crop: Chambolle with its eps
+        # (it may stop an iteration apart), Bregman with a fixed count.
+        on_card = call(crop, fixed_eps)
+        on_cpu = call(crop.cpu(), fixed_eps)
+        apart = float((on_card.cpu() - on_cpu).abs().max())
+        if not apart <= tol:
+            raise AssertionError(f"TVD {name}: card vs CPU at the crop, max |diff| {apart} > {tol}")
+        report[name] = {"ms": call_ms, "iterations": taken}
+        print(
+            f"TVD {name} at {tuple(conc.shape)}: {call_ms} ms per call (each {each}), "
+            f"{taken} iterations, ROF energy {energy[0]:.2f} -> {energy[1]:.2f}, peak "
+            f"{method_peak:.2f} GiB; card vs CPU at a 256x384 crop: max |diff| {apart} "
+            f"(tolerance {tol})"
+        )
+        if profile is not None and name == "bregman Jacobi(20)":
+            profile_frame(lambda: call(conc), call_ms, profile, "tvd_4k", frames=1)
+
+    # The stop flag: the port's loop (one host read per iteration) against a
+    # loop that freezes its state on the device and reads every eighth, in
+    # turns, on a device-bound call, a launch-bound one and one whose inner
+    # solver stops by a rule of its own.
+    small = torch.from_numpy(bench_tvd_image(512)).to(device)
+    cases = {
+        "Chambolle at 4K": lambda: dt.TVD(method="chambolle", **CHAMBOLLE)(conc),
+        "Chambolle at 512x512": lambda: dt.TVD(method="chambolle", **CHAMBOLLE)(small),
+        "isotropic Bregman with CG(20) at 4K": lambda: dt.TVD(
+            method="isotropic bregman", weight=TVD_WEIGHT, max_num_iter=TVD_ITERS,
+            eps=TVD_EPS, solver=dt.CG(maxiter=20, tol=1e-6),
+        )(conc),
+    }
+    cadence = {}
+    for name, run in cases.items():
+        readings = {"every iteration": [], "frozen, every eighth": []}
+        results = {}
+        for key in ("every iteration", "frozen, every eighth") * 2:
+            loop = None if key == "every iteration" else frozen_loop(8)
+            torch.cuda.reset_peak_memory_stats(device)
+            with stopping_loops(loop) as loop_counts:
+                restored, call_ms, _ = median_ms(run, reps=2)
+            readings[key].append(call_ms)
+            results[key] = (restored, loop_counts[-1], torch.cuda.max_memory_allocated(device) / 2**30)
+        (plain_out, plain_taken, plain_peak), (frozen_out, frozen_taken, frozen_peak) = results.values()
+        if not torch.equal(plain_out, frozen_out) or plain_taken != frozen_taken:
+            raise AssertionError(f"{name}: the result depends on how the stop flag is read")
+        cadence[name] = readings
+        print(
+            f"{name}, stop flag read every iteration {readings['every iteration']} ms (peak "
+            f"{plain_peak:.2f} GiB), state frozen on the device and flag read every eighth "
+            f"{readings['frozen, every eighth']} ms (peak {frozen_peak:.2f} GiB), in turns, "
+            f"median of 2 each; {plain_taken} iterations, results bitwise equal"
+        )
+    print(f"restoration phase {time.perf_counter() - tic:.2f} s")
+    return {
+        "launches": counts["warp_rows_t"],
+        "ms_per_frame": ms,
+        "conc": conc,
+        "methods": report,
+        "flag_ms": cadence,
+    }
+
+
+def total_variation(u: torch.Tensor) -> float:
+    return float(sum(torch.diff(u, dim=ax).abs().sum(dtype=torch.float64) for ax in range(u.dim())))
+
+
+def phase_volume(dt, device, card: str) -> dict:
+    """Phase C: a CT-sized 3-D image through TVD, H1 and the N-d image core."""
+    import tempfile
+
+    tic = time.perf_counter()
+    shape, block = (256, 512, 512), 32
+    g = torch.Generator(device=device).manual_seed(0)
+    coarse = torch.rand(tuple(n // block for n in shape), generator=g, device=device)
+    for ax in range(3):
+        coarse = coarse.repeat_interleave(block, dim=ax)
+    data = (coarse + 0.1 * torch.randn(shape, generator=g, device=device)).clamp_(0, 1)
+    del coarse
+    dimensions = [n * 1e-4 for n in shape]  # 0.1 mm voxels
+    volume = dt.ScalarImage(data, space_dim=3, dimensions=dimensions, name="ct")
+    tv0 = total_variation(data)
+    torch.cuda.reset_peak_memory_stats(device)
+    runs = {
+        "chambolle_tvd(weight 0.1, eps 2e-4, <= 50)": lambda: dt.chambolle_tvd(
+            data, weight=0.1, eps=2e-4, max_num_iter=50
+        ),
+        "split_bregman_tvd(dim=3, mu 0.2, 10 iterations)": lambda: dt.split_bregman_tvd(
+            data, mu=0.2, dim=3, max_num_iter=10
+        ),
+        "H1_regularization(dim=3, mu 1, Jacobi(30))": lambda: dt.H1_regularization(
+            volume, mu=1.0, omega=1.0, dim=3
+        ).img,
+    }
+    times = {}
+    for name, fn in runs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        tv = total_variation(out)
+        if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()) or not tv < tv0:
+            raise AssertionError(f"{name}: bad output (TV {tv0} -> {tv})")
+        print(f"3-D {name} at {shape}: {times[name]} ms (one call), TV {tv0:.4g} -> {tv:.4g}")
+        del out
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+
+    # The N-d core: slices, reduction, integration, subregion, roi, eval.
+    cs = volume.coordinatesystem
+    for axis, matrix_axis in (("x", 1), ("y", 2), ("z", 0)):
+        index = shape[matrix_axis] // 3
+        voxel = np.zeros(3)
+        voxel[matrix_axis] = index + 0.5
+        cut = float(np.asarray(cs.coordinate(voxel))["xyz".find(axis)])
+        by_coordinate, by_index = volume.slice(cut, axis), volume.slice(index, matrix_axis)
+        if not (
+            torch.equal(by_coordinate.img, by_index.img)
+            and torch.equal(by_index.img, data.select(matrix_axis, index))
+            and by_coordinate.dimensions == by_index.dimensions
+            and by_coordinate.space_dim == 2
+        ):
+            raise AssertionError(f"slice along {axis}: coordinate and index slices differ")
+    averaged, reduce_ms, _ = median_ms(lambda: dt.reduce_axis(volume, "z", mode="average"))
+    mean_err = float((averaged.img - data.mean(dim=0)).abs().max())
+    if averaged.shape != shape[1:] or not mean_err <= 1e-5:
+        raise AssertionError(f"reduce_axis average: max |diff| {mean_err}")
+    integral, integrate_ms, _ = median_ms(lambda: volume.geometry().integrate(volume))
+    host = data.cpu().numpy()
+    exact = float(host.sum(dtype=np.float64) * np.prod(volume.voxel_size))
+    if not abs(integral - exact) <= 1e-5 * abs(exact):
+        raise AssertionError(f"Geometry.integrate: {integral} vs {exact}")
+    # A host array goes to the card and is summed there: the same number.
+    if volume.geometry().integrate(host) != integral:
+        raise AssertionError("Geometry.integrate: a numpy array and the card's tensor differ")
+    box = (slice(10, 138), slice(100, 356), slice(7, 263))
+    sub = volume.subregion(box)
+    if not (torch.equal(sub.img, data[box]) and np.allclose(sub.dimensions, [0.0128, 0.0256, 0.0256])):
+        raise AssertionError("subregion of the volume: wrong box or dimensions")
+    plane = volume.slice(100, 0)
+    roi = dt.ROI([[0.01, 0.01], [0.04, 0.012], [0.035, 0.04]])
+    picked = plane.roi(roi)
+    if picked.img.numel() == 0 or picked.img.shape[0] >= plane.img.shape[0]:
+        raise AssertionError(f"roi of a slice: shape {tuple(picked.img.shape)}")
+    rng = np.random.default_rng(1)
+    voxels = rng.integers(0, 256, (1000, 3))
+    points = dt.make_coordinate(np.asarray(cs.coordinate(voxels + 0.5)))
+    values = volume.eval(points)
+    if not np.array_equal(values, host[voxels[:, 0], voxels[:, 1], voxels[:, 2]]):
+        raise AssertionError("eval at voxel centres: not the voxels' values")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        volume.save(Path(tmp) / "volume")
+        save_s = time.perf_counter() - t0
+        size_mb = (Path(tmp) / "volume.npz").stat().st_size / 1e6
+        t0 = time.perf_counter()
+        back = dt.imread(Path(tmp) / "volume.npz")
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+    if not (
+        type(back) is dt.ScalarImage
+        and back.img.device.type == "cuda"
+        and torch.equal(back.img, data)
+        and back.space_dim == 3
+        and back.indexing == "ijk"
+        and back.dimensions == volume.dimensions
+        and np.array_equal(back.origin, volume.origin)
+        and back.name == "ct"
+    ):
+        raise AssertionError("the volume read back differs from the one saved")
+    print(
+        f"3-D image core at {shape}: slices by coordinate == by index along x, y, z; "
+        f"reduce_axis average {reduce_ms} ms (max |diff| vs mean {mean_err}); "
+        f"Geometry.integrate {integrate_ms} ms ({integral} vs float64 numpy {exact}); "
+        f"subregion, roi {tuple(picked.img.shape)}, eval at 1000 points; saved {size_mb:.1f} MB "
+        f"in {save_s:.2f} s, read back in {read_s:.2f} s; peak {peak_gib:.2f} GiB on {card}; "
+        f"phase {time.perf_counter() - tic:.2f} s"
+    )
+    return {"ms": times, "peak_gib": peak_gib}
+
+
+def phase_filters(dt, conc: torch.Tensor, device, card: str) -> dict:
+    """Phase D: median, volume averaging and the resizes at 4K, each against
+    the same call on the CPU tensor."""
+    tic = time.perf_counter()
+    image = dt.ScalarImage(conc, **META)
+    on_cpu = dt.ScalarImage(conc.cpu(), **META)
+    g = torch.Generator(device=device).manual_seed(3)
+    mask = (torch.rand(conc.shape, generator=g, device=device) > 0.3).to(torch.float32)
+    voxel = image.voxel_size[0]
+    filters = {}
+    for radius in (1, 2):
+        filters[f"median_filter(radius {radius})"] = (
+            lambda img, radius=radius: dt.median_filter(img.img, radius), 0.0
+        )
+    for size in (5, 8):
+        def average(img, size=size):
+            rev = dt.REV((size - 0.5) * voxel, img)
+            if rev.size != size:
+                raise AssertionError(f"REV of {size} voxels has size {rev.size}")
+            return dt.VolumeAveraging(rev, mask.to(img.device))(img).img
+
+        filters[f"VolumeAveraging(REV {size} voxels)"] = (average, 1e-6)
+    for levels in (1, -1):
+        filters[f"uniform_refinement({levels:+d})"] = (
+            lambda img, levels=levels: dt.uniform_refinement(img, levels).img, 1e-5
+        )
+    filters["equalize_voxel_size"] = (lambda img: dt.equalize_voxel_size(img).img, 1e-5)
+    times = {}
+    for name, (fn, tol) in filters.items():
+        out, times[name], _ = median_ms(lambda: fn(image))
+        want = fn(on_cpu)
+        apart = float((out.cpu() - want).abs().max())
+        if tuple(out.shape) != tuple(want.shape) or not apart <= tol:
+            raise AssertionError(f"{name}: card vs CPU max |diff| {apart} > {tol}")
+        print(
+            f"{name} at {tuple(conc.shape)} -> {tuple(out.shape)}: {times[name]} ms per "
+            f"call; card vs CPU max |diff| {apart} (tolerance {tol})"
+        )
+    print(f"filters at 4K on {card}: phase {time.perf_counter() - tic:.2f} s")
+    return times
+
+
 def profile_frame(fn, ms_per_call: float, out_dir: Path, name: str, frames: int = 3):
     """torch.profiler over a few calls of ``fn`` (a frame, or a call of a
     path): kernel tables (by device time, and by the host's own time) and
-    a Chrome trace into ``out_dir`` (``profile_<name>.*``), device busy time
-    and idle share printed."""
+    a Chrome trace (dropped above 8 MB) into ``out_dir``
+    (``profile_<name>.*``), device busy time and idle share printed."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -1705,6 +2244,8 @@ def profile_frame(fn, ms_per_call: float, out_dir: Path, name: str, frames: int 
         for e in json.loads(trace.read_text())["traceEvents"]
         if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e
     ]
+    if trace.stat().st_size > 8e6:
+        trace.unlink()  # ~10^4 ops per call: the tables are kept, the trace is not
     busy = busy_us(events)
     busy_ms = busy / 1e3 / frames
     k1 = [e["dur"] for e in events if "warp_rows_t_kernel" in e.get("name", "")]
@@ -1798,6 +2339,10 @@ def main() -> int:
     piecewise = phase_piecewise(dt, w2p, lanes, device, card, args.profile)
     colour = phase_colour(dt, w2p, lanes["rig"], device, card, args.profile)
     saved = phase_saved_state(dt, w2p, lanes, lanes["rig"], device, card)
+    phase_solvers(dt, device, card, args.profile)
+    restoration = phase_restoration_lane(dt, w2p, lanes, device, card, args.profile)
+    phase_filters(dt, restoration.pop("conc"), device, card)
+    phase_volume(dt, device, card)
     phase_kernel_fields(w2p, lanes, device)
 
     passes = [k1["pass1"], k1["pass2"]]
@@ -1807,7 +2352,7 @@ def main() -> int:
         + sum(lane["launches"] for lane in series.values())
         + sum(p["launches"] for p in (flexible, after_frame, multiscale, series_corr))
         + sum(p["launches"] for p in (rig_read, drift_lane, drifting))
-        + sum(p["launches"] for p in (piecewise, colour, saved))
+        + sum(p["launches"] for p in (piecewise, colour, saved, restoration))
     )
     results = {
         "warp_rows_t": {

@@ -1,6 +1,9 @@
 """Analysis: registration, concentration and the fused per-frame pipeline."""
 
-from .concentrationanalysis import ConcentrationAnalysis
+from .concentrationanalysis import (
+    ConcentrationAnalysis,
+    PriorPosteriorConcentrationAnalysis,
+)
 from .fusedpipeline import FusedAnalysisPipeline
 from .imageregistration import (
     DiffeomorphicImageRegistration,
@@ -15,5 +18,6 @@ __all__ = [
     "FusedAnalysisPipeline",
     "ImageRegistration",
     "MultiscaleDiffeomorphicImageRegistration",
+    "PriorPosteriorConcentrationAnalysis",
     "TranslationAnalysis",
 ]

@@ -18,10 +18,10 @@ from warnings import warn
 import numpy as np
 import torch
 
-from ..image.image import Image, ScalarImage, as_tensor
+from ..image.image import Image, ScalarImage, as_numpy, as_tensor
 from ..ops.resize import resize_array
 
-__all__ = ["ConcentrationAnalysis"]
+__all__ = ["ConcentrationAnalysis", "PriorPosteriorConcentrationAnalysis"]
 
 
 class ConcentrationAnalysis:
@@ -47,6 +47,8 @@ class ConcentrationAnalysis:
                 warn("The baseline image needed to be converted to float.")
             self.base = base[0].copy()
             self._base_collection = base
+            if self.base.space_dim != 2:
+                raise NotImplementedError("concentration analysis of 2-D images only")
         self.signal_reduction = signal_reduction
         self.balancing = balancing
         self.model = model
@@ -111,8 +113,8 @@ class ConcentrationAnalysis:
         signal = self._clean_signal(self._reduce_signal(diff))
         balanced = self._balance_signal(signal)
         if self.first_restoration_then_model:
-            return self._convert_signal(self._restore_signal(balanced))
-        return self._restore_signal(self._convert_signal(balanced))
+            return self._convert_signal(self._restore_signal(balanced), diff)
+        return self._restore_signal(self._convert_signal(balanced, diff))
 
     def pipeline_fn(self):
         """``pipeline(data, reference=None) -> concentration`` on tensors."""
@@ -197,5 +199,37 @@ class ConcentrationAnalysis:
     def _restore_signal(self, signal):
         return signal if self.restoration is None else self.restoration(signal)
 
-    def _convert_signal(self, signal):
+    def _convert_signal(self, signal, diff):
         return signal if self.model is None else self.model(signal)
+
+
+class PriorPosteriorConcentrationAnalysis(ConcentrationAnalysis):
+    """Concentration analysis with a posterior review of the prior model.
+
+    ``posterior_model(signal, prior > 0, diff)`` is any callable on numpy
+    arrays (a criterion on the prior's connected regions): the three tensors
+    are copied to the host for it and its result goes back to their device.
+    """
+
+    def __init__(
+        self,
+        base,
+        signal_reduction,
+        balancing,
+        restoration,
+        prior_model,
+        posterior_model,
+        labels=None,
+        **kwargs,
+    ) -> None:
+        self.posterior_model = posterior_model
+        super().__init__(
+            base, signal_reduction, balancing, restoration, prior_model, labels, **kwargs
+        )
+
+    def _convert_signal(self, signal, diff):
+        prior = self.model(signal) if self.model is not None else signal
+        posterior = self.posterior_model(
+            as_numpy(signal), as_numpy(prior) > 0, as_numpy(diff)
+        )
+        return as_tensor(np.asarray(posterior), signal.device)

@@ -1,7 +1,7 @@
 """Physical images: a tensor plus metadata.
 
-Counterpart of :mod:`darsia_tpu.image.image` for 2-D images, single frames
-or time series.  ``Image.img`` is a ``torch.Tensor``: a tensor input stays on
+Counterpart of :mod:`darsia_tpu.image.image`: 1-, 2- and 3-D images, single
+frames or time series.  ``Image.img`` is a ``torch.Tensor``: a tensor input stays on
 its device, a numpy input goes to ``device`` (the CUDA card unless the
 caller asks for another, e.g. ``device="cpu"``).  The metadata (physical
 dimensions in meters, Cartesian origin, dates and times) stays on the host.
@@ -13,6 +13,7 @@ series is corrected frame for frame with the same correction.
 
 from __future__ import annotations
 
+from datetime import datetime
 from pathlib import Path
 from typing import Optional, Union
 from warnings import warn
@@ -21,10 +22,18 @@ import numpy as np
 import torch
 
 from ..utils.dtype import convert_dtype
-from ..utils.point import CoordinateArray, VoxelArray
+from ..utils.point import Coordinate, CoordinateArray, Voxel, VoxelArray
 from .coordinatesystem import CoordinateSystem
+from .indexing import interpret_indexing
 
-__all__ = ["Image", "OpticalImage", "ScalarImage", "as_numpy", "as_tensor"]
+__all__ = [
+    "ExtensiveImage",
+    "Image",
+    "OpticalImage",
+    "ScalarImage",
+    "as_numpy",
+    "as_tensor",
+]
 
 
 def as_tensor(array, device=None) -> torch.Tensor:
@@ -55,15 +64,58 @@ def as_numpy(array) -> np.ndarray:
     return np.asarray(array)
 
 
+def voxel_box(roi, coordinatesystem) -> tuple:
+    """The box ``roi`` spans as a tuple of voxel slices, one per space axis:
+    ``roi`` is such a tuple already, a VoxelArray, or a CoordinateArray of
+    Cartesian points (clipped to the image)."""
+    if isinstance(roi, (CoordinateArray, VoxelArray)):
+        if isinstance(roi, CoordinateArray):
+            roi = coordinatesystem.voxel(roi)
+        box = np.asarray(roi)
+        voxels = tuple(
+            slice(max(0, int(box[:, d].min())), min(int(box[:, d].max()), n))
+            for d, n in enumerate(coordinatesystem.shape)
+        )
+    elif isinstance(roi, tuple):
+        voxels = roi
+    else:
+        raise ValueError(
+            f"roi of type {type(roi)} not supported; need tuple of slices, "
+            "VoxelArray, or CoordinateArray."
+        )
+    if len(voxels) != coordinatesystem.dim:
+        raise ValueError(f"roi {voxels} does not span {coordinatesystem.dim} axes")
+    return voxels
+
+
 def _is_none(value) -> bool:
     if isinstance(value, list):
         return all(v is None for v in value)
     return value is None
 
 
+def _default_origin(space_dim: int, indexing: str, dimensions: list) -> list:
+    """The origin that lets the reversed axes (y in 2-D; y and z in 3-D) span
+    [0, dimension]."""
+    origin = space_dim * [0.0]
+    for counter, index in enumerate(indexing):
+        axis_pos, reverse_axis = interpret_indexing(index, "xyz"[:space_dim])
+        if reverse_axis:
+            origin[axis_pos] = dimensions[counter]
+    return origin
+
+
+def _absent(what: str, library: str):
+    return NotImplementedError(
+        f"{what} is not ported: it needs {library}, which is not a dependency of "
+        "this package; copy the data to the host (as_numpy) and plot or encode "
+        "it there"
+    )
+
+
 class Image:
-    """Physical 2-D image: ``(H, W[, T][, C])``, matrix indexing, the time
-    axis (series only) after the space axes.
+    """Physical image: space axes (1 to 3, matrix indexing), then the time
+    axis (series only), then range axes, e.g. ``(H, W[, T][, C])``.
 
     Args:
         img: tensor or numpy array.
@@ -71,9 +123,9 @@ class Image:
             every frame of a series).
         device: where a numpy ``img`` goes (default: the CUDA card); a tensor
             moves there only when it is given.
-        **kwargs: metadata: ``dimensions`` (or ``height``/``width``),
-            ``origin``, ``series``, ``scalar``, ``date``, ``reference_date``,
-            ``time``, ``name``.
+        **kwargs: metadata: ``space_dim``, ``dimensions`` (or ``height``/
+            ``width``/``depth`` for axes 0/1/2), ``origin``, ``series``,
+            ``scalar``, ``date``, ``reference_date``, ``time``, ``name``.
 
     """
 
@@ -83,21 +135,23 @@ class Image:
         self.img = as_tensor(img, device)
 
         self.space_dim = int(kwargs.get("space_dim", kwargs.get("dim", 2)))
-        self.indexing = kwargs.get("indexing", "ij")
-        if self.space_dim != 2 or self.indexing != "ij":
-            raise NotImplementedError("only 2-D matrix-indexed images are ported")
+        if self.space_dim not in (1, 2, 3):
+            raise ValueError(f"space_dim {self.space_dim} not supported")
+        self.indexing = kwargs.get("indexing", "ijk"[: self.space_dim])
+        if self.indexing != "ijk"[: self.space_dim]:
+            raise ValueError("matrix indexing only")
 
-        dimensions = list(kwargs.get("dimensions", [1.0, 1.0]))
+        dimensions = list(kwargs.get("dimensions", self.space_dim * [1.0]))
         if "height" in kwargs:
             dimensions[0] = kwargs["height"]
         if "width" in kwargs:
             dimensions[1] = kwargs["width"]
+        if "depth" in kwargs and self.space_dim > 2:
+            dimensions[2] = kwargs["depth"]
         self.dimensions = [float(d) for d in dimensions]
-        # Cartesian coordinate of voxel (0, 0): y runs against rows, so the
-        # default origin sits at (0, height).
-        self.origin = np.asarray(
-            kwargs.get("origin", [0.0, self.dimensions[0]]), dtype=float
-        )
+        # Cartesian coordinate of voxel (0, ..., 0).
+        default_origin = _default_origin(self.space_dim, self.indexing, self.dimensions)
+        self.origin = np.asarray(kwargs.get("origin", default_origin), dtype=float)
         self.name = kwargs.get("name")
 
         self.series = bool(kwargs.get("series", False))
@@ -148,6 +202,10 @@ class Image:
         return self.img.device
 
     @property
+    def space_num(self) -> int:
+        return int(np.prod(self.shape[: self.space_dim], dtype=int))
+
+    @property
     def num_voxels(self) -> list:
         return list(self.shape[: self.space_dim])
 
@@ -158,6 +216,25 @@ class Image:
     @property
     def coordinatesystem(self) -> CoordinateSystem:
         return CoordinateSystem(self)
+
+    @property
+    def opposite_corner(self) -> Coordinate:
+        """Cartesian coordinate of the corner opposite to the origin."""
+        return self.coordinatesystem.coordinate(self.num_voxels)
+
+    @property
+    def domain(self) -> tuple:
+        """(xmin, xmax) in 1-D, (xmin, xmax, ymin, ymax) in 2-D."""
+        if self.space_dim == 1:
+            return (self.origin[0], self.opposite_corner[0])
+        if self.space_dim == 2:
+            opposite = self.opposite_corner
+            return (self.origin[0], opposite[0], opposite[1], self.origin[1])
+        raise NotImplementedError
+
+    def as_numpy(self) -> np.ndarray:
+        """Host copy of the data."""
+        return as_numpy(self.img)
 
     # -------------------------------------------------------------- metadata
 
@@ -194,6 +271,29 @@ class Image:
             setattr(self, key, value)
 
     # ------------------------------------------------------------------ time
+
+    def update_reference_time(self, reference) -> None:
+        """Redefine the reference: a datetime (times follow from the dates)
+        or a shift in seconds of the relative times."""
+        if isinstance(reference, datetime):
+            self.reference_date = reference
+            self.set_time()
+        else:
+            delta = float(reference)
+            if self.series:
+                self.time = [None if t is None else t - delta for t in self.time]
+            elif self.time is not None:
+                self.time = self.time - delta
+
+    def reset_reference_time(self) -> None:
+        """Make the first slice's date (without dates: its time) the reference."""
+        if _is_none(self.date):
+            if isinstance(self.time, list) and self.time and self.time[0] is not None:
+                base = self.time[0]
+                self.time = [None if t is None else t - base for t in self.time]
+        else:
+            self.reference_date = self.date[0] if isinstance(self.date, list) else self.date
+            self.set_time()
 
     def append(self, image: "Image", offset=None) -> None:
         """Append another image (a frame or a series) along the time axis,
@@ -258,24 +358,8 @@ class Image:
                 Cartesian points spanning the box.
 
         """
-        if isinstance(roi, (CoordinateArray, VoxelArray)):
-            if isinstance(roi, CoordinateArray):
-                roi = self.coordinatesystem.voxel(roi)
-            box = np.asarray(roi)
-            voxels = tuple(
-                slice(max(0, int(box[:, d].min())), min(int(box[:, d].max()), n))
-                for d, n in enumerate(self.num_voxels)
-            )
-        elif isinstance(roi, tuple):
-            voxels = roi
-        else:
-            raise ValueError(
-                f"roi of type {type(roi)} not supported; need tuple of slices, "
-                "VoxelArray, or CoordinateArray."
-            )
-        if len(voxels) != self.space_dim:
-            raise ValueError(f"roi {voxels} does not span {self.space_dim} axes")
         cs = self.coordinatesystem
+        voxels = voxel_box(roi, cs)
         sizes = self.num_voxels
         origin = cs.coordinate([0 if sl.start is None else sl.start for sl in voxels])
         opposite = cs.coordinate(
@@ -283,10 +367,93 @@ class Image:
         )
         extent = np.abs(np.asarray(opposite) - np.asarray(origin))
         metadata = self.metadata()
-        # Matrix axis i is Cartesian y, axis j is x.
-        metadata["dimensions"] = [float(extent[1]), float(extent[0])]
+        # The Cartesian extents in the order of the matrix axes.
+        metadata["dimensions"] = [
+            float(extent[interpret_indexing(index, "xyz"[: self.space_dim])[0]])
+            for index in self.indexing
+        ]
         metadata["origin"] = np.asarray(origin)
         return type(self)(img=self.img[voxels], **metadata)
+
+    def roi(self, roi) -> "Image":
+        """The subregion of a :class:`~darsia_tpu_torch.image.roi.ROI`."""
+        return roi(self)
+
+    def slice(self, cut: Union[float, int], axis: Union[str, int]) -> "Image":
+        """The slice normal to ``axis`` at ``cut`` (a view of the tensor): a
+        Cartesian axis ("x", "y", "z") takes ``cut`` as a coordinate, a matrix
+        axis (int) as a voxel index.
+
+        A cut outside the image picks the plane the JAX package's indexing
+        picks: a negative index counts from the end, and what then still lies
+        outside is clamped to the first or last plane."""
+        from ..signals.reduction.dimensionreduction import reduce_axis
+
+        if isinstance(axis, str):
+            full_coordinate = np.zeros(self.space_dim, dtype=float)
+            full_coordinate["xyz"[: self.space_dim].find(axis)] = cut
+            # The matrix axis the coordinate system maps this Cartesian axis
+            # to (in 3-D: x -> 1, y -> 2, z -> 0).
+            axis, _ = interpret_indexing(axis, self.indexing)
+            cut = int(self.coordinatesystem.voxel(full_coordinate)[axis])
+        planes = self.num_voxels[axis]
+        cut = min(max(cut + planes if cut < 0 else cut, 0), planes - 1)
+        return reduce_axis(self, axis, mode="slice", slice_idx=cut)
+
+    def eval(self, point, interpolation: str = "nearest") -> np.ndarray:
+        """The image's values at physical points (``Coordinate`` types or
+        float arrays) or voxels (``Voxel`` types or integer arrays), clipped
+        to the image: gathered on the device, returned as numpy."""
+        pts = np.atleast_2d(np.asarray(point))
+        if isinstance(point, (Coordinate, CoordinateArray)) or (
+            not isinstance(point, (Voxel, VoxelArray))
+            and np.issubdtype(pts.dtype, np.floating)
+        ):
+            voxels = np.atleast_2d(np.asarray(self.coordinatesystem.voxel(pts)))
+        else:
+            voxels = pts.astype(int)
+        voxels = np.clip(voxels, 0, np.array(self.num_voxels) - 1)
+        index = tuple(
+            torch.from_numpy(np.ascontiguousarray(voxels[:, d])).to(self.device)
+            for d in range(self.space_dim)
+        )
+        values = as_numpy(self.img[index])
+        return values[0] if np.asarray(point).ndim == 1 else values
+
+    def resize(self, cx: float, cy: Optional[float] = None) -> None:
+        """Rescale the image in place by the factors (cx, cy) along x and y."""
+        from ..restoration.resize import resize as _resize
+
+        cy = cx if cy is None else cy
+        ny = max(int(round(self.num_voxels[0] * cy)), 1)
+        nx = max(int(round(self.num_voxels[1] * cx)), 1)
+        self.img = _resize(self, shape=(ny, nx)).img
+
+    def reset_origin(self, return_image: bool = False):
+        """Set the origin to the default (reversed axes span [0, dimension]);
+        with ``return_image`` also return an image that keeps the old one."""
+        metadata = self.metadata()
+        self.origin = np.asarray(
+            _default_origin(self.space_dim, self.indexing, self.dimensions), dtype=float
+        )
+        if return_image:
+            return type(self)(img=self.img, **metadata)
+        return None
+
+    def geometry(self):
+        """The flat :class:`~darsia_tpu_torch.measure.integration.Geometry`
+        of this image."""
+        from ..measure.integration import Geometry
+
+        return Geometry(**self.shape_metadata())
+
+    def integral(self) -> float:
+        """Integral over space of a scalar single image."""
+        if not self.scalar:
+            raise NotImplementedError("Integration only implemented for scalar images.")
+        if self.series:
+            raise NotImplementedError("Integration only implemented for single images.")
+        return float(self.geometry().integrate(self))
 
     # ------------------------------------------------------------------ data
 
@@ -317,6 +484,17 @@ class Image:
             metadata=np.array([self.metadata()], dtype=object),
             image_class=type(self).__name__,
         )
+
+    def to_vtk(self, path, name: str = "data") -> None:
+        raise _absent("to_vtk", "a VTK writer")
+
+    def show(self, *args, **kwargs) -> None:
+        raise _absent("show", "matplotlib")
+
+    show_matplotlib = show_plain = show
+
+    def show_plotly(self, *args, **kwargs) -> None:
+        raise _absent("show_plotly", "plotly")
 
     # ------------------------------------------------------------ arithmetic
     # Each result holds a new tensor; the operands' tensors are not aliased.
@@ -368,6 +546,65 @@ class ScalarImage(Image):
         kwargs["scalar"] = True
         super().__init__(img, transformations, device, **kwargs)
 
+    def write(self, path: Union[str, Path], **kwargs) -> None:
+        """Write the data to ``.npy`` or ``.csv`` (rows of axis 0)."""
+        path = Path(path)
+        suffix = path.suffix.lower()
+        if suffix in (".png", ".jpg", ".jpeg", ".tif", ".tiff"):
+            raise _absent(f"writing {suffix} files", "an image encoder (cv2)")
+        data = self.as_numpy()
+        path.parent.mkdir(parents=True, exist_ok=True)
+        if suffix == ".npy":
+            np.save(path, data)
+        elif suffix == ".csv":
+            np.savetxt(path, data.reshape(data.shape[0], -1), delimiter=",")
+        else:
+            raise NotImplementedError(f"Suffix {suffix} not supported.")
+
+    def to_csv(
+        self,
+        path: Union[str, Path],
+        *,
+        delimiter: str = ",",
+        header: Optional[str] = None,
+        float_format: str = "{:.2e}",
+    ) -> None:
+        """Write one row per voxel: the cell centre's coordinates, then the
+        value (``x[, y[, z]], value``)."""
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        arr = self.as_numpy()
+        if arr.ndim != self.space_dim:
+            raise ValueError(
+                "to_csv requires a non-series scalar image (array rank == space_dim)."
+            )
+        use_header = None if header is None else str(header).strip()
+        if use_header is not None and use_header.lower() == "none":
+            use_header = None
+        if use_header is not None:
+            columns = [part.strip() for part in use_header.split(delimiter)]
+            if len(columns) != self.space_dim + 1:
+                raise ValueError(f"CSV header must provide {self.space_dim + 1} columns.")
+        centers = (
+            np.stack(
+                np.meshgrid(*(np.arange(n) for n in arr.shape), indexing="ij"), axis=-1
+            ).reshape(-1, self.space_dim)
+            + 0.5
+        )
+        coords = np.asarray(self.coordinatesystem.coordinate(centers), dtype=float)
+        fmt = float_format.strip()
+        if fmt.startswith("{:") and fmt.endswith("}"):
+            fmt = "%" + fmt[2:-1]
+        table = np.concatenate([coords, arr.reshape(-1, 1).astype(float)], axis=1)
+        np.savetxt(
+            path, table, delimiter=delimiter, fmt=fmt, header=use_header or "", comments=""
+        )
+
+
+class ExtensiveImage(ScalarImage):
+    """Image of an extensive (integrable) quantity: its integral is the sum
+    of its values."""
+
 
 class OpticalImage(Image):
     """Trichromatic photograph (RGB range axis)."""
@@ -413,3 +650,38 @@ class OpticalImage(Image):
         metadata.pop("scalar", None)
         metadata["name"] = key
         return ScalarImage(to_monochromatic(data, key), **metadata)
+
+    def add_grid(
+        self,
+        origin=None,
+        dx: float = 1.0,
+        dy: float = 1.0,
+        color: tuple = (125, 125, 125),
+        thickness: int = 9,
+    ) -> "OpticalImage":
+        """A copy with a Cartesian grid drawn over it (on the host; for
+        visual checks)."""
+        origin = np.asarray(self.origin if origin is None else origin, dtype=float)
+        data = np.array(self.as_numpy(), copy=True)
+        if np.issubdtype(data.dtype, np.floating):
+            color = tuple(c / 255.0 for c in color)
+        cs = self.coordinatesystem
+        num_h = int(np.ceil(self.dimensions[1] / dx)) + 1
+        num_v = int(np.ceil(self.dimensions[0] / dy)) + 1
+        h, w = self.num_voxels
+        half = thickness // 2
+        for n in range(-num_h, num_h + 1):
+            col = int(cs.voxel(np.array([origin[0] + n * dx, origin[1]]))[1])
+            if 0 <= col < w:
+                data[:, max(col - half, 0) : col + half + 1, :3] = color[:3]
+        for n in range(-num_v, num_v + 1):
+            row = int(cs.voxel(np.array([origin[0], origin[1] + n * dy]))[0])
+            if 0 <= row < h:
+                data[max(row - half, 0) : row + half + 1, :, :3] = color[:3]
+        return OpticalImage(img=data, device=self.device, **self.metadata())
+
+    def write(self, path, **kwargs) -> None:
+        raise _absent("writing photographs", "an image encoder (cv2)")
+
+    def encode(self, suffix: str, **kwargs) -> bytes:
+        raise _absent("encoding photographs", "an image encoder (cv2)")

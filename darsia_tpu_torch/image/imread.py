@@ -22,13 +22,18 @@ from pathlib import Path
 import numpy as np
 
 from ..utils.npz import load_npz
-from .image import Image, OpticalImage, ScalarImage
+from .image import ExtensiveImage, Image, OpticalImage, ScalarImage
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["imread", "imread_from_numpy", "imread_from_npz"]
 
-_CLASSES = {"Image": Image, "ScalarImage": ScalarImage, "OpticalImage": OpticalImage}
+_CLASSES = {
+    "Image": Image,
+    "ScalarImage": ScalarImage,
+    "ExtensiveImage": ExtensiveImage,
+    "OpticalImage": OpticalImage,
+}
 
 #: Suffixes the JAX package reads, and the decoder each needs.
 _MISSING_DECODERS = {

@@ -1,17 +1,59 @@
-"""Matrix-free stencil solver for ``mass*x - div(D grad x) = rhs``.
+"""Matrix-free stencil solvers for ``mass*x - div(D grad x) = rhs``.
 
-Counterpart of :mod:`darsia_tpu.ops.solvers` (the damped Jacobi lane).  The
-sweeps run as a Python loop of tensor ops (the JAX package's
-``lax.fori_loop``).
+Counterpart of :mod:`darsia_tpu.ops.solvers`: damped Jacobi, conjugate
+gradients and geometric multigrid with Jacobi smoothing, all built from
+stencil ops on tensors of the caller's device.  The first ``dim`` axes are
+spatial; the coefficients are scalars or tensors broadcastable to the image.
+
+Fixed-count loops (the JAX package's ``lax.fori_loop``) are Python loops of
+tensor ops and never read a tensor on the host.  Loops with a stopping rule
+(``lax.while_loop``) go through :func:`iterate_while`, which computes the rule
+on the device and reads it once per iteration.
 """
 
 from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Union
 
 import torch
 
 from ..utils.derivatives import fv_laplace
 
-__all__ = ["jacobi_solve", "neighbor_accumulation", "operator_diagonal"]
+__all__ = [
+    "build_coefficient_pyramid",
+    "cg_solve",
+    "clamp_depth",
+    "iterate_while",
+    "jacobi_solve",
+    "mg_solve",
+    "neighbor_accumulation",
+    "operator_diagonal",
+]
+
+def iterate_while(
+    cond: Callable[[tuple, int], Union[bool, torch.Tensor]],
+    body: Callable[[tuple, int], tuple],
+    state: tuple,
+    maxiter: int,
+    start: int = 0,
+) -> tuple:
+    """``while it < maxiter and cond(state, it): state = body(state, it)``.
+
+    ``cond`` returns a bool or a 0-d bool tensor, which is read on the host
+    once per iteration: the loop's only host read.  Measured on an H100 against a
+    loop that computes every iteration, freezes the state with
+    ``torch.where`` once the test fails and reads the flag every eighth
+    iteration (``chip_smoke.py``, PERF.md): the read costs less than the
+    extra pass over the state.
+
+    Returns the final state and the number of iterations taken.
+    """
+    it = start
+    while it < maxiter and bool(cond(state, it)):
+        state = body(state, it)
+        it += 1
+    return state, it
 
 
 def neighbor_accumulation(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -28,12 +70,18 @@ def neighbor_accumulation(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def _operator(x, mass_coeff, diffusion_coeff, dim, h):
-    # Zero-flux FV operator, the fixed point of the JAX package's Jacobi.
+    # Zero-flux FV operator, the fixed point of the JAX package's Jacobi and
+    # the adjoint of the TVD shrinkage gradient.
     return mass_coeff * x - fv_laplace(x, dim=dim, h=h, diffusion_coeff=diffusion_coeff)
 
 
 def operator_diagonal(mass_coeff, diffusion_coeff, shape, dim, h, device):
-    """Exact diagonal of ``mass*I - div(D grad)`` via 2-colouring."""
+    """Exact diagonal of ``mass*I - div(D grad)`` via 2-colouring.
+
+    Applying the operator to the two checkerboard indicator fields and
+    masking recovers the diagonal of a nearest-neighbour stencil, boundary
+    closures and heterogeneous coefficients included.
+    """
     idx_sum = sum(
         torch.arange(shape[d], device=device).reshape(
             [-1 if k == d else 1 for k in range(len(shape))]
@@ -47,6 +95,17 @@ def operator_diagonal(mass_coeff, diffusion_coeff, shape, dim, h, device):
     return diag
 
 
+def _sweeps(x, rhs, mass_coeff, diffusion_coeff, dim, h, iters, omega, diag=None):
+    if diag is None:
+        diag = operator_diagonal(
+            mass_coeff, diffusion_coeff, tuple(x.shape), dim, h, x.device
+        )
+    for _ in range(iters):
+        residual = rhs - _operator(x, mass_coeff, diffusion_coeff, dim, h)
+        x = x + omega * residual / diag
+    return x
+
+
 def jacobi_solve(
     x0: torch.Tensor,
     rhs: torch.Tensor,
@@ -56,13 +115,166 @@ def jacobi_solve(
     h: float = 1.0,
     maxiter: int = 1,
     omega: float = 0.8,
+    diag: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Damped Jacobi sweeps in residual form, ``x <- x + omega D^-1 (rhs - A x)``."""
-    diag = operator_diagonal(
-        mass_coeff, diffusion_coeff, tuple(x0.shape), dim, h, x0.device
-    )
-    x = x0
-    for _ in range(maxiter):
-        residual = rhs - _operator(x, mass_coeff, diffusion_coeff, dim, h)
-        x = x + omega * residual / diag
+    """Damped Jacobi sweeps in residual form, ``x <- x + omega D^-1 (rhs - A x)``
+    with the exact stencil diagonal (also the multigrid smoother).
+
+    ``diag`` takes the diagonal (:func:`operator_diagonal` at these
+    coefficients, shape and ``h``) from a caller that solves repeatedly with
+    the same coefficients; it is computed here otherwise.
+    """
+    return _sweeps(x0, rhs, mass_coeff, diffusion_coeff, dim, h, maxiter, omega, diag)
+
+
+def cg_solve(
+    x0: torch.Tensor,
+    rhs: torch.Tensor,
+    mass_coeff,
+    diffusion_coeff,
+    dim: int = 2,
+    h: float = 1.0,
+    tol: float = 1e-8,
+    maxiter: int = 100,
+) -> torch.Tensor:
+    """Conjugate gradients on the stencil operator; stops when the squared
+    residual falls to ``tol**2`` times the squared norm of ``rhs``."""
+
+    def A(x):
+        return _operator(x, mass_coeff, diffusion_coeff, dim, h)
+
+    def dot(a, b):
+        return torch.dot(a.flatten(), b.flatten())
+
+    r0 = rhs - A(x0)
+    rs0 = dot(r0, r0)
+    threshold = tol**2 * dot(rhs, rhs).clamp(min=1e-30)
+
+    def cond(state, it):
+        return state[3] > threshold
+
+    def body(state, it):
+        x, r, p, rs = state
+        Ap = A(p)
+        alpha = rs / dot(p, Ap).clamp(min=1e-30)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        rs_new = dot(r, r)
+        beta = rs_new / rs.clamp(min=1e-30)
+        return (x, r, r + beta * p, rs_new)
+
+    (x, *_), _ = iterate_while(cond, body, (x0, r0, r0, rs0), maxiter)
+    return x
+
+
+def _restrict(x, dim: int):
+    """Coarsen by 2 per axis: average even/odd pairs, drop a trailing odd entry
+    (a tensor, or a numpy coefficient field that is still on the host)."""
+    for ax in range(dim):
+        n = x.shape[ax]
+        index = [slice(None)] * x.ndim
+        index[ax] = slice(0, n - n % 2, 2)
+        even = x[tuple(index)]
+        index[ax] = slice(1, n, 2)
+        odd = x[tuple(index)]
+        x = (even + odd) / 2
+    return x
+
+
+def _prolong(x: torch.Tensor, target_shape: tuple, dim: int) -> torch.Tensor:
+    """Refine by 2 per axis (nearest repeat) and edge-pad to the target shape."""
+    for ax in range(dim):
+        # Each entry twice, as a broadcast and a reshape (no host sync).
+        doubled = list(x.shape)
+        doubled[ax] *= 2
+        x = x.unsqueeze(ax + 1).expand(*x.shape[: ax + 1], 2, *x.shape[ax + 1 :]).reshape(doubled)
+    for ax in range(dim):
+        missing = target_shape[ax] - x.shape[ax]
+        if missing > 0:
+            last = x.narrow(ax, x.shape[ax] - 1, 1)
+            x = torch.cat([x] + [last] * missing, dim=ax)
+    return x
+
+
+def build_coefficient_pyramid(coeff, shape: tuple, dim: int, depth: int) -> list:
+    """Per-level restriction of a coefficient (a scalar stays as it is)."""
+    levels = [coeff]
+    for _ in range(depth):
+        if isinstance(coeff, torch.Tensor) and coeff.dim() >= dim:
+            coeff = _restrict(coeff, dim)
+        levels.append(coeff)
+    return levels
+
+
+def clamp_depth(depth: int, shape: tuple, dim: int) -> int:
+    """The multigrid depth that keeps the coarsest level non-degenerate."""
+    return min(depth, max(int(math.log2(max(min(shape[:dim]), 2))) - 1, 0))
+
+
+def mg_solve(
+    x0: torch.Tensor,
+    rhs: torch.Tensor,
+    mass_pyramid: tuple,
+    diffusion_pyramid: tuple,
+    dim: int = 2,
+    h: float = 1.0,
+    depth: int = 2,
+    smoother_iterations: int = 5,
+    maxiter: int = 100,
+    tol: Optional[float] = None,
+    diagonals: Optional[dict] = None,
+) -> torch.Tensor:
+    """Geometric multigrid V-cycles with damped Jacobi (0.8) smoothing.
+
+    The coefficients come as per-level pyramids
+    (:func:`build_coefficient_pyramid`, ``depth + 2`` levels).  With
+    ``tol=None`` exactly ``maxiter`` cycles run; else the cycles stop when the
+    increment ``|x - x_prev| / |x0|`` falls below ``tol``.
+
+    Each level's operator diagonal is computed once and kept in
+    ``diagonals`` (level -> tensor); a caller that solves repeatedly with the
+    same pyramids, shape and ``h`` passes the same dict again.
+    """
+    diagonals = {} if diagonals is None else diagonals
+
+    def smoother(x, b, level, hh):
+        mass, diff = mass_pyramid[level], diffusion_pyramid[level]
+        if level not in diagonals:
+            diagonals[level] = operator_diagonal(
+                mass, diff, tuple(x.shape), dim, hh, x.device
+            )
+        return _sweeps(
+            x, b, mass, diff, dim, hh, smoother_iterations, 0.8, diagonals[level]
+        )
+
+    def v_cycle(x, b, level, remaining_depth, hh):
+        x = smoother(x, b, level, hh)
+        r = b - _operator(x, mass_pyramid[level], diffusion_pyramid[level], dim, hh)
+        rc = _restrict(r, dim)
+        if remaining_depth == 0:
+            eps = smoother(torch.zeros_like(rc), rc, level + 1, 2 * hh)
+        else:
+            eps = v_cycle(torch.zeros_like(rc), rc, level + 1, remaining_depth - 1, 2 * hh)
+        x = x + _prolong(eps, tuple(x.shape), dim)
+        return smoother(x, b, level, hh)
+
+    if tol is None:
+        x = x0
+        for _ in range(maxiter):
+            x = v_cycle(x, rhs, 0, depth, h)
+        return x
+
+    x0_norm = torch.linalg.vector_norm(x0).clamp(min=1e-30)
+
+    def cond(state, it):
+        x, prev = state
+        if it == 0:
+            return True
+        return torch.linalg.vector_norm(x - prev) / x0_norm >= tol
+
+    def body(state, it):
+        x, _ = state
+        return (v_cycle(x, rhs, 0, depth, h), x)
+
+    (x, _), _ = iterate_while(cond, body, (x0, x0 + 1.0), maxiter)
     return x

@@ -1,7 +1,6 @@
 """Resize of physical images.
 
-Counterpart of :mod:`darsia_tpu.restoration.resize` (``Resize`` and
-``resize``): resampling runs on the image's device through
+Counterpart of :mod:`darsia_tpu.restoration.resize`: resampling runs on the image's device through
 :func:`darsia_tpu_torch.ops.resize.resize_array`, with optional
 integral-preserving ("conservative") rescaling for extensive quantities.
 """
@@ -18,7 +17,7 @@ from ..ops.resize import resize_array
 from ..utils.dtype import convert_dtype
 from ..utils.npz import load_npz
 
-__all__ = ["Resize", "resize"]
+__all__ = ["Resize", "equalize_voxel_size", "resize", "uniform_refinement"]
 
 
 class Resize:
@@ -127,3 +126,23 @@ class Resize:
 def resize(image, **kwargs):
     """Functional resize of an Image (kwargs as in :class:`Resize`)."""
     return Resize(**kwargs)(image)
+
+
+def equalize_voxel_size(image, voxel_size: Optional[float] = None, **kwargs):
+    """Resize a 2-D image so all voxels become squares of size ``voxel_size``
+    (default: the smaller of the two present sizes); ``interpolation`` in
+    ``kwargs`` (default "inter_linear")."""
+    if voxel_size is None:
+        voxel_size = min(image.voxel_size)
+    shape = tuple(int(round(image.dimensions[i] / voxel_size)) for i in range(2))
+    interpolation = kwargs.get("interpolation", "inter_linear")
+    return Resize(shape=shape, interpolation=interpolation)(image)
+
+
+def uniform_refinement(image, levels: int):
+    """Refine (levels > 0, linear) or coarsen (levels < 0, area) a 2-D image
+    by powers of two."""
+    factor = 2.0**levels
+    shape = tuple(max(int(round(n * factor)), 1) for n in image.num_voxels[:2])
+    interpolation = "inter_linear" if levels >= 0 else "inter_area"
+    return Resize(shape=shape, interpolation=interpolation)(image)

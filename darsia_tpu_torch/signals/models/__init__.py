@@ -1,5 +1,7 @@
 """Signal models."""
 
-from .linearmodel import LinearModel, Model
+from .basemodel import Model
+from .combinedmodel import CombinedModel
+from .linearmodel import LinearModel
 
-__all__ = ["LinearModel", "Model"]
+__all__ = ["CombinedModel", "LinearModel", "Model"]

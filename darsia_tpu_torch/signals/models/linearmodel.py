@@ -7,21 +7,9 @@ from __future__ import annotations
 
 import torch
 
+from .basemodel import Model
+
 __all__ = ["LinearModel", "Model"]
-
-
-class Model:
-    """Base model: callable on tensors or Images (same return type)."""
-
-    def __call__(self, img, *args):
-        if hasattr(img, "img"):
-            out = img.copy()
-            out.img = self.call_array(img.img, *args)
-            return out
-        return self.call_array(img, *args)
-
-    def call_array(self, signal: torch.Tensor, *args) -> torch.Tensor:
-        raise NotImplementedError
 
 
 class LinearModel(Model):

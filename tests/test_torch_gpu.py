@@ -443,3 +443,105 @@ def test_deformation_correction_is_the_registration():
     assert warp2pass.launch_count == before + 2
     direct = dt.ImageRegistration(base_img, **config)(dt.OpticalImage(probe, **meta))
     assert out.img.device.type == "cuda" and torch.equal(out.img, direct.img)
+
+
+# ------------------------------------------- restoration and the N-d core
+
+
+def _blocks(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    coarse = rng.random(tuple(-(-n // 8) for n in shape))
+    img = np.kron(coarse, np.ones((8,) * len(shape)))[tuple(slice(0, n) for n in shape)]
+    return np.clip(img + 0.1 * rng.standard_normal(shape), 0, 1).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", [(96, 128), (24, 32, 40)], ids=str)
+def test_chambolle_on_the_card_matches_the_cpu(shape):
+    """With its eps the card may stop an iteration apart from the CPU (the
+    energy is a float32 reduction): 1e-4; a fixed count to 2e-5."""
+    import darsia_tpu_torch as dt
+
+    img = torch.from_numpy(_blocks(shape))
+    for eps, cap, tol in ((2e-4, 200, 1e-4), (0.0, 15, 2e-5)):
+        on_cpu = dt.chambolle_tvd(img, weight=0.15, eps=eps, max_num_iter=cap)
+        on_card = dt.chambolle_tvd(img.cuda(), weight=0.15, eps=eps, max_num_iter=cap)
+        assert on_card.is_cuda and (on_card.cpu() - on_cpu).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("solver", ["Jacobi", "CG", "MG"])
+@pytest.mark.parametrize("isotropic", [False, True], ids=["anisotropic", "isotropic"])
+def test_split_bregman_on_the_card_matches_the_cpu(isotropic, solver):
+    """Fixed count (``eps=None``): 2e-5 on a unit-range image; numpy input
+    goes to the card by default."""
+    import darsia_tpu_torch as dt
+
+    img = _blocks((96, 128), seed=1)
+    omega = (0.5 + np.random.default_rng(2).random((96, 128))).astype(np.float32)
+    make = {
+        "Jacobi": lambda: dt.Jacobi(maxiter=10),
+        "CG": lambda: dt.CG(maxiter=10),
+        "MG": lambda: dt.MG(maxiter=1, depth=2),
+    }[solver]
+    kw = {"mu": 0.3, "omega": omega, "max_num_iter": 8, "isotropic": isotropic}
+    on_cpu = dt.split_bregman_tvd(img, solver=make(), device="cpu", **kw)
+    on_card = dt.split_bregman_tvd(img, solver=make(), **kw)
+    assert on_card.is_cuda and (on_card.cpu() - on_cpu).abs().max().item() <= 2e-5
+    volume = _blocks((24, 32, 40), seed=3)
+    on_cpu = dt.split_bregman_tvd(volume, mu=0.3, dim=3, max_num_iter=4, solver=make(), device="cpu")
+    on_card = dt.split_bregman_tvd(volume, mu=0.3, dim=3, max_num_iter=4, solver=make())
+    assert (on_card.cpu() - on_cpu).abs().max().item() <= 2e-5
+
+
+def test_volume_slices_and_integral_on_the_card():
+    import darsia_tpu_torch as dt
+
+    data = _blocks((24, 32, 40), seed=4)
+    volume = dt.ScalarImage(data, space_dim=3, dimensions=[0.24, 0.32, 0.4])
+    assert volume.img.is_cuda
+    cs = volume.coordinatesystem
+    for axis, matrix_axis in (("x", 1), ("y", 2), ("z", 0)):
+        voxel = np.zeros(3)
+        voxel[matrix_axis] = 7.5
+        cut = float(np.asarray(cs.coordinate(voxel))["xyz".find(axis)])
+        plane = volume.slice(cut, axis)
+        assert plane.img.is_cuda and plane.space_dim == 2
+        assert np.array_equal(plane.img.cpu().numpy(), np.take(data, 7, axis=matrix_axis))
+    exact = data.astype(np.float64).sum() * 1e-6
+    assert abs(volume.integral() - exact) <= 1e-6 * exact
+    assert np.array_equal(volume.eval(dt.make_voxel([[3, 4, 5]])), data[3:4, 4, 5])
+    assert dt.median_filter(data[0], 2).is_cuda
+
+
+def test_geometry_integrates_numpy_and_fits_its_weights_on_the_card(monkeypatch):
+    """Numpy data goes to the card by default, and the weight map is fitted
+    to data of another shape there: no tensor of the way lies on the CPU."""
+    import darsia_tpu_torch as dt
+
+    data = _blocks((96, 128), seed=5)
+    weight = (0.2 + np.random.default_rng(6).random((96, 128))).astype(np.float32)
+    image = dt.ScalarImage(data, dimensions=[0.96, 1.28])
+    geometry = dt.WeightedGeometry(weight, **image.shape_metadata())
+    exact = (data.astype(np.float64) * weight).sum() * 1e-4
+    half = dt.resize(image, shape=(48, 64))
+    made = []
+    for name in ("to", "cpu"):
+        original = getattr(torch.Tensor, name)
+
+        def record(self, *args, _original=original, **kwargs):
+            out = _original(self, *args, **kwargs)
+            made.append((self.device.type, out.device.type, out.dim()))
+            return out
+
+        monkeypatch.setattr(torch.Tensor, name, record)
+    total = geometry.integrate(data)
+    coarse = geometry.integrate(half)
+    monkeypatch.undo()
+    assert abs(total - exact) <= 1e-6 * exact and abs(coarse - exact) <= 1e-2 * exact
+    # Host arrays go up to the card; what comes down is the resized weight
+    # map (kept on the host, as all voxel volumes are) and nothing else.
+    assert ("cpu", "cuda", 2) in made
+    assert [m for m in made if m[1] == "cpu" and m[0] == "cpu"] == []
+    mg = dt.MG(mass_coeff=weight, diffusion_coeff=0.5, maxiter=1)
+    mg.restrict_parameters()
+    assert isinstance(mg.mass_coeff, np.ndarray)
+    assert mg(half.img, half.img).is_cuda

@@ -144,6 +144,61 @@ with tempfile.TemporaryDirectory() as tmp:
     corrected_base.save(Path(tmp) / "baseline.npz")
     back = dt.imread(Path(tmp) / "baseline.npz", device="cpu")
     assert torch.equal(back.img, corrected_base.img) and type(back) is dt.OpticalImage
+
+# The restoration layer, the solvers and the N-d image core.
+noisy = torch.from_numpy(rng.random((40, 48)).astype(np.float32))
+field = torch.from_numpy((0.5 + rng.random((40, 48))).astype(np.float32))
+for method in ("chambolle", "anisotropic bregman", "isotropic bregman", "heterogeneous bregman"):
+    restored = dt.TVD(method=method, weight=0.2, max_num_iter=4)(noisy)
+    assert restored.shape == noisy.shape and torch.isfinite(restored).all()
+for solver in (dt.Jacobi(maxiter=3), dt.CG(maxiter=3), dt.MG(maxiter=1, depth=2)):
+    smooth = dt.split_bregman_tvd(noisy, mu=0.2, omega=field, max_num_iter=2, solver=solver)
+    assert torch.isfinite(smooth).all()
+    assert torch.isfinite(dt.H1_regularization(noisy, field, 0.5, solver=solver)).all()
+assert torch.isfinite(dt.chambolle_tvd(torch.from_numpy(rng.random((8, 10, 12)).astype(np.float32)))).all()
+assert dt.laplace(noisy).shape == dt.fv_laplace(noisy, diffusion_coeff=field).shape == noisy.shape
+assert dt.backward_diff(noisy, 0)[-1].abs().max() == 0 and dt.forward_diff(noisy, 1)[:, 0].abs().max() == 0
+assert dt.median_filter(noisy, 2).shape == noisy.shape and dt.Median()(noisy).shape == noisy.shape
+scalar = dt.ScalarImage(noisy, width=0.48, height=0.4)
+averaging = dt.VolumeAveraging(dt.REV(0.03, scalar), (field > 0.7).float())
+assert torch.isfinite(averaging(scalar).img).all() and dt.uniform_filter(noisy, 4).shape == noisy.shape
+assert torch.isfinite(dt.volume_average(scalar, field, 0.03).img).all()
+labels = np.zeros((40, 48), int); labels[:, 24:] = 1
+assert isinstance(dt.porosity_based_averaging(labels, field, scalar, disk_size=2, rev_size=0.03), dt.VolumeAveraging)
+mask = rng.random((40, 48)) > 0.6
+for clean in (dt.BinaryRemoveSmallObjects(4), dt.BinaryFillHoles(6), dt.BinaryLocalConvexCover(8)):
+    assert clean(mask).shape == mask.shape
+assert dt.morphology.skeletonize(mask).dtype == bool and dt.morphology.label(mask)[1] > 0
+chain = dt.CombinedModel([dt.Resize(fx=0.5, fy=0.5), dt.TVD(max_num_iter=3), dt.Resize(shape=(40, 48))])
+assert chain(scalar).img.shape == (40, 48)
+posterior = dt.PriorPosteriorConcentrationAnalysis(
+    None, None, None, chain, dt.LinearModel(scaling=2.0), lambda s, prior, diff: s * prior
+)
+assert posterior(scalar).img.shape == (40, 48)
+volume = dt.ScalarImage(torch.from_numpy(rng.random((8, 10, 12)).astype(np.float32)),
+                        space_dim=3, dimensions=[0.08, 0.1, 0.12])
+cs3 = volume.coordinatesystem
+assert cs3.dim == 3 and np.array_equal(cs3.voxel(cs3.coordinate([3, 4, 5]) + 1e-9 * np.array([1, -1, -1])), [3, 4, 5])
+assert volume.slice(0.035, "x").shape == (8, 12) and volume.slice(2, 0).shape == (10, 12)
+assert dt.reduce_axis(volume, "z").shape == (10, 12) and dt.extrude_along_axis(scalar, 0.1, 3).shape == (3, 40, 48)
+assert np.allclose(volume.subregion((slice(1, 5), slice(2, 8), slice(0, 6))).dimensions, [0.04, 0.06, 0.06])
+assert volume.eval(dt.make_voxel([[1, 2, 3]])).shape == (1,)
+assert abs(volume.integral() - volume.img.double().sum().item() * 1e-6) < 1e-9
+assert isinstance(volume.geometry(), dt.Geometry) and volume.geometry().make_extensive(volume).img.shape == (8, 10, 12)
+assert abs(dt.PorousGeometry(0.5, **scalar.shape_metadata()).integrate(scalar) - 0.5 * scalar.integral()) < 1e-9
+assert scalar.roi(dt.ROI([[0.1, 0.1], [0.4, 0.1], [0.3, 0.3]])).img.shape[0] > 0
+assert dt.equalize_voxel_size(scalar).shape == dt.uniform_refinement(scalar, 0).shape == (40, 48)
+aligned = dt.CoordinateTransformation(
+    scalar.coordinatesystem, scalar.coordinatesystem,
+    dt.make_coordinate([[0.1, 0.1], [0.4, 0.1], [0.3, 0.3]]), dt.make_coordinate([[0.11, 0.1], [0.41, 0.1], [0.31, 0.3]]),
+)(scalar)
+assert aligned.img.shape[1] > 40
+with tempfile.TemporaryDirectory() as tmp:
+    volume.save(Path(tmp) / "volume")
+    back = dt.imread(Path(tmp) / "volume.npz", device="cpu")
+    assert back.space_dim == 3 and torch.equal(back.img, volume.img)
+    volume.to_csv(Path(tmp) / "volume.csv")
+    volume.write(Path(tmp) / "volume.npy")
 print("ok", tuple(out.img.shape))
 """
 
@@ -170,6 +225,11 @@ assert type(image) is dt.OpticalImage and type(image.origin) is np.ndarray
 assert np.array_equal(image.img.numpy(), np.load(folder / "image.npy"))
 assert image.dimensions == [0.96, 1.28] and image.origin.tolist() == [0.25, 1.5]
 assert image.name == "baseline" and image.date.year == 2024
+volume = dt.imread(folder / "volume.npz", device="cpu")
+assert type(volume) is dt.ScalarImage and volume.space_dim == 3 and volume.indexing == "ijk"
+assert np.array_equal(volume.img.numpy(), np.load(folder / "volume.npy"))
+assert volume.dimensions == [0.08, 0.1, 0.12] and volume.origin.tolist() == [0.5, 0.2, 0.3]
+assert volume.slice(0.25, "z").shape == (10, 12)
 
 names = sorted(p.stem[:-3] for p in folder.glob("*_in.npy"))
 assert len(names) == 12, names
@@ -260,6 +320,11 @@ def test_port_reads_jax_files_without_the_jax_package(tmp_path):
     )
     image.save(tmp_path / "image")
     np.save(tmp_path / "image.npy", frame[:96, :128])
+    volume = rng.random((8, 10, 12)).astype(np.float32)
+    da.ScalarImage(
+        jnp.asarray(volume), space_dim=3, dimensions=[0.08, 0.1, 0.12], origin=[0.5, 0.2, 0.3]
+    ).save(tmp_path / "volume")
+    np.save(tmp_path / "volume.npy", volume)
     cs = image.coordinatesystem
     src = np.asarray(cs.coordinate(rng.random((5, 2)) * [96, 128]))
     da.AffineCorrection(cs, cs, da.make_coordinate(src), da.make_coordinate(1.01 * src)).save(

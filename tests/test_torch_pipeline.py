@@ -199,3 +199,109 @@ def test_staged_public_objects(scene):
     t_conc = t["analysis"](t_reg).img.numpy()
     assert np.abs(t_conc - j_conc).max() <= 1e-4
     assert np.abs(t_conc - scene["j_conc"]).max() <= 1e-4
+
+
+# ------------------------------------------- restoration on the main path
+
+
+def _restorations(pkg, base):
+    """The restorations a ``ConcentrationAnalysis`` takes: a TVD, and the
+    resize -> TVD -> resize chain of the FluidFlower presets."""
+    tvd_options = {"method": "isotropic bregman", "weight": 0.2, "max_num_iter": 5, "eps": None}
+    chain = pkg.CombinedModel(
+        [
+            pkg.Resize(fx=0.5, fy=0.5),
+            pkg.TVD(**tvd_options),
+            pkg.Resize(shape=tuple(base.num_voxels)),
+        ]
+    )
+    return {
+        "tvd": pkg.TVD(**tvd_options),
+        "chambolle": pkg.TVD(method="chambolle", weight=0.1, eps=1e-3, max_num_iter=30),
+        "chain": chain,
+    }
+
+
+def _restored_analysis(pkg, objs, restoration, **kwargs):
+    return pkg.ConcentrationAnalysis(
+        base=objs["base"],
+        signal_reduction=pkg.MonochromaticReduction(color="gray"),
+        restoration=restoration,
+        model=pkg.LinearModel(scaling=2.0),
+        **{"diff option": "positive", **kwargs},
+    )
+
+
+@pytest.mark.parametrize("order", ["model_first", "restoration_first"])
+@pytest.mark.parametrize("name", ["tvd", "chambolle", "chain"])
+def test_concentration_with_tvd_restoration(scene, name, order):
+    """``ConcentrationAnalysis(restoration=TVD(...))`` alone and inside the
+    fused pipeline, against the JAX package: 1e-5 on the analysis alone
+    (fixed-count TVD; Chambolle with its eps), the lanes' 1e-4 through the
+    pipeline."""
+    j, t = scene["jax"], scene["torch"]
+    kwargs = {"restoration -> model": order == "restoration_first"}
+    ja = _restored_analysis(da, j, _restorations(da, j["base"])[name], **kwargs)
+    ta = _restored_analysis(dt, t, _restorations(dt, t["base"])[name], **kwargs)
+    corrected_j = da.OpticalImage(
+        jnp.asarray(scene["probe"]), transformations=[j["trans"], j["curv"]], **META
+    ).img_as(np.float32)
+    corrected_t = dt.OpticalImage(
+        torch.from_numpy(scene["probe"]), transformations=[t["trans"], t["curv"]], **META
+    ).img_as(torch.float32)
+    alone_j, alone_t = ja(corrected_j), ta(corrected_t)
+    assert isinstance(alone_t, dt.ScalarImage) and alone_t.img.shape == tuple(alone_j.img.shape)
+    assert np.abs(alone_t.img.numpy() - np.asarray(alone_j.img)).max() <= 1e-5
+    # Smoother than the same analysis without the restoration.
+    plain = _restored_analysis(dt, t, None, **kwargs)(corrected_t).img
+    tv = lambda x: (x.diff(dim=0).abs().sum() + x.diff(dim=1).abs().sum()).item()  # noqa: E731
+    assert tv(alone_t.img) < tv(plain)
+
+    pj = da.FusedAnalysisPipeline([j["trans"], j["curv"]], j["registration"], ja)
+    pt = dt.FusedAnalysisPipeline([t["trans"], t["curv"]], t["registration"], ta)
+    fused_j = pj(da.OpticalImage(jnp.asarray(scene["probe"]), **META))
+    fused_t = pt(dt.OpticalImage(torch.from_numpy(scene["probe"]), **META))
+    assert np.abs(fused_t.img.numpy() - np.asarray(fused_j.img)).max() <= 1e-4
+
+
+def test_prior_posterior_concentration_analysis(scene):
+    """The posterior model is any callable on numpy arrays: it gets the
+    signal, the prior's support and the difference, and its result goes back
+    to the signal's device."""
+    j, t = scene["jax"], scene["torch"]
+    seen = {}
+
+    def posterior(signal, prior_mask, diff):
+        seen["types"] = (type(signal), prior_mask.dtype, diff.shape)
+        return np.where(prior_mask & (signal > 0.04), signal, 0.0).astype(np.float32)
+
+    def build(pkg, objs):
+        return pkg.PriorPosteriorConcentrationAnalysis(
+            objs["base"],
+            pkg.MonochromaticReduction(color="gray"),
+            None,
+            _restorations(pkg, objs["base"])["tvd"],
+            pkg.LinearModel(scaling=2.0, offset=-0.01),
+            posterior,
+            **{"diff option": "positive", "restoration -> model": True},
+        )
+
+    corrected_j = da.OpticalImage(
+        jnp.asarray(scene["probe"]), transformations=[j["trans"], j["curv"]], **META
+    ).img_as(np.float32)
+    corrected_t = dt.OpticalImage(
+        torch.from_numpy(scene["probe"]), transformations=[t["trans"], t["curv"]], **META
+    ).img_as(torch.float32)
+    out_j = build(da, j)(corrected_j)
+    out_t = build(dt, t)(corrected_t)
+    assert seen["types"] == (np.ndarray, np.dtype(bool), tuple(corrected_t.img.shape))
+    assert isinstance(out_t, dt.ScalarImage)
+    got, want = out_t.img.numpy(), np.asarray(out_j.img)
+    # The posterior thresholds the signal: pixels within rounding of a
+    # threshold may fall either way; elsewhere the maps agree.
+    agree = (got > 0) == (want > 0)
+    assert agree.mean() >= 0.999
+    assert np.abs(got - want)[agree].max() <= 1e-5
+    assert 0.01 < (got > 0).mean() < 0.99
+    with pytest.raises(NotImplementedError):
+        dt.ConcentrationAnalysis(base=dt.ScalarImage(torch.zeros(4, 5, 6), space_dim=3))
