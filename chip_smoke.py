@@ -171,9 +171,34 @@ D. Filters at 4K on the lane's concentration map: ``median_filter`` (radius
    (median of 3); each equal to the same call on the CPU tensor (median:
    exactly; averaging: 1e-6; resizes: 1e-5).
 
+E. The heterogeneous colour-to-mass analysis behind the rig's reading path
+   (run after phase 14, on its rig): 12 seeded wavy layers as labels, per
+   label a seeded 5-colour relative ``ColorPath`` with its
+   ``ColorPathInterpolation`` at equidistant values and a 3-support
+   ``PWTransformation``; ``SimpleFlash(0.05, 0.5, 0.5, 1.0)``,
+   ``CO2MassAnalysis(baseline, 1.01, 23.0)``, an ``ExtrudedPorousGeometry``
+   (porosity 0.44, depth 0.019 m) and an ``ExpertKnowledgeAdapter`` with one
+   gas ROI.  The photograph read with ``OpticalImage(frame,
+   transformations=shape + colour)``, then
+   ``HeterogeneousColorToMassAnalysis(...)(image)``, then
+   ``geometry.integrate(result.mass)``: exactly 4 K1 launches per reading
+   call and none in the chain; every output finite; gas saturation 0 outside
+   the ROI.  A plume painted on the card along each label's path at seeded
+   parameters: the colour interpretation recovers them within 1e-4, the
+   integrated mass matches a float64 numpy reckoning of the chain within
+   1e-4 relative.  The chain on the card against the same chain on the CPU
+   tensor of a 512 x 1024 crop of the photograph read: every output within
+   1e-5 (mass maps relative to their largest value) but at ties of ``fit``
+   (two segments within 1e-6 of equally close with parameters more than 1e-6
+   apart; counted, fewer than 0.1% of the crop).  The calibration folder
+   written and read back gives the same mass.  Times: the chain per
+   photograph at 12 and 40 labels (median of 5 after a warm-up; device busy,
+   idle share, peak GiB), reading plus chain, save and ``from_folder``.
+
 Every launch count is set to 0 just before each path of phases 3, 5-7,
-8-11, 14-20 and B and read just after it; the ``kernels`` line's K1 launches
-are their sum.  Each of phases 8-12, 14-20 and A-D prints its seconds.  The
+8-11, 14-20, B and E and read just after it; the ``kernels`` line's K1
+launches are their sum, 586 before phase E and 28 in it (checked exactly).
+Each of phases 8-12, 14-20, A-D and E prints its seconds.  The
 second-to-last line is a JSON object of per-kernel results; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
@@ -209,6 +234,9 @@ ROW_CASES = [
     (H, W, 30, None, 1.0),
 ]
 SERIES_T = 8
+# K1 launches in the counted paths: phases 3-20 and B, then phase E (the
+# baseline read, one reading call, five timed reading calls: 4 each).
+K1_BEFORE_E, K1_IN_E = 586, 28
 WINDOWS = 3  # timed windows per lane
 # The card's published peaks (H100 SXM data sheet, 700 W): the bound of a
 # kernel is the larger of its bytes over the memory rate and its f32
@@ -2218,6 +2246,276 @@ def phase_filters(dt, conc: torch.Tensor, device, card: str) -> dict:
     return times
 
 
+# Phase E: the heterogeneous colour-to-mass analysis behind the rig's
+# reading path.  Twelve sand layers (a FluidFlower rig's), forty for a finely
+# segmented rig; the crop of the card-vs-CPU gate; the gas ROI (x, y in m).
+E_LAYERS, E_LAYERS_FINE = 12, 40
+E_CROP = (slice(600, 1112), slice(1000, 2024))
+E_GAS_ROI = np.array([[0.9, 1.25], [2.2, 0.55]])
+E_FLASH = (0.05, 0.5, 0.5, 1.0)  # tests/unit/test_color_to_mass.py:43-45
+E_POROSITY, E_DEPTH = 0.44, 0.019
+
+
+def layer_labels(layers: int, device, seed: int = 8) -> torch.Tensor:
+    """``layers`` seeded wavy horizontal layers over the corrected frame:
+    label k between boundaries k and k + 1 (amplitudes below a quarter of a
+    layer's height, so no two boundaries cross)."""
+    rng = np.random.default_rng(seed)
+    rows = torch.arange(OH, dtype=torch.float32, device=device)[:, None]
+    cols = torch.arange(W, dtype=torch.float32, device=device)[None, :]
+    labels = torch.zeros((OH, W), dtype=torch.int64, device=device)
+    height = OH / layers
+    for k in range(1, layers):
+        amp = rng.uniform(0.05, 0.25) * height
+        wave = rng.uniform(600.0, 2400.0)
+        boundary = k * height + amp * torch.sin(2 * np.pi * cols / wave + rng.uniform(0, 2 * np.pi))
+        labels += (rows >= boundary).to(torch.int64)
+    return labels
+
+
+def layer_models(dt, layers: int, seed: int = 9) -> tuple:
+    """Per label a seeded 5-colour RELATIVE colour path with its
+    interpolation at equidistant values, and a 3-support signal function.
+    Each path moves the same way in every channel (no fold back onto
+    itself), so a colour on it is far from its other segments."""
+    rng = np.random.default_rng(seed)
+    interps, functions = {}, {}
+    for label in range(layers):
+        direction = rng.choice([-1.0, 1.0], 3) * rng.uniform(0.3, 1.0, 3)
+        steps = rng.uniform(0.02, 0.06, (4, 1)) * direction
+        relative = np.cumsum(np.vstack([np.zeros(3), steps]), axis=0)
+        path = dt.ColorPath(
+            relative_colors=list(relative), base_color=rng.uniform(0.2, 0.6, 3), name=f"layer {label}"
+        )
+        interps[label] = dt.ColorPathInterpolation(
+            path, dt.ColorMode.RELATIVE, values=path.equidistant_distances
+        )
+        functions[label] = dt.PWTransformation(
+            supports=[0.0, rng.uniform(0.3, 0.7), 1.0], values=[0.0, rng.uniform(0.2, 0.8), 1.0]
+        )
+    return interps, functions
+
+
+def colour_to_mass_chain(dt, baseline, labels, layers: int, adapter):
+    """(chain, geometry) on the baseline's device."""
+    interps, functions = layer_models(dt, layers)
+    shape = tuple(baseline.img.shape[:2])
+    geometry = dt.ExtrudedPorousGeometry(
+        np.full(shape, E_POROSITY), np.full(shape, E_DEPTH), **baseline.shape_metadata()
+    )
+    chain = dt.HeterogeneousColorToMassAnalysis(
+        baseline=baseline,
+        labels=dt.Image(labels, scalar=True, **{k: v for k, v in baseline.metadata().items() if k != "scalar"}),
+        color_mode=dt.ColorMode.RELATIVE,
+        color_path_interpretation=interps,
+        signal_functions=functions,
+        flash=dt.SimpleFlash(*E_FLASH),
+        co2_mass_analysis=dt.CO2MassAnalysis(baseline, 1.01, 23.0),
+        geometry=geometry,
+        expert_knowledge_adapter=adapter,
+    )
+    return chain, geometry
+
+
+def chain_outputs(chain, image) -> dict:
+    """Every stage's output of ``chain`` on ``image``, by name."""
+    colour = chain.call_color_interpretation(image)
+    ph = chain.call_pH_analysis(colour)
+    result = chain.call_flash_and_mass_analysis(ph)
+    out = {"colour": colour.img, "pH": ph.img}
+    for key in ("saturation_g", "concentration_aq", "mass", "mass_g", "mass_aq"):
+        out[key] = getattr(result, key).img
+    return out
+
+
+def fit_ties(chain, image) -> torch.Tensor:
+    """Pixels where ``fit`` of the pixel's own label has two segments within
+    1e-6 of equally close that give different parameters (more than 1e-6
+    apart): there a last-bit difference may pick either."""
+    labels = chain.labels.img
+    diff = image.img - chain.color_analysis.base.img
+    ties = torch.zeros(labels.shape, dtype=torch.bool, device=labels.device)
+    for label, interp in chain.color_path_interpretation.items():
+        params, l1 = interp.color_path.fit_terms(diff, interp.color_mode, "equidistant")
+        near = l1 <= l1.min(dim=-1, keepdim=True).values + 1e-6
+        spread = torch.where(near, params, -torch.inf).amax(-1) - torch.where(near, params, torch.inf).amin(-1)
+        ties |= (labels == label) & (spread > 1e-6)
+    return ties
+
+
+def plume_reckoning(chain, labels: np.ndarray, params: np.ndarray, plume: np.ndarray, gas: np.ndarray) -> float:
+    """The integrated mass of the painted plume, in float64 numpy from the
+    painted parameters: the same chain reckoned independently."""
+    p = np.where(plume, params, 0.0)
+    x = np.clip(p, 0.0, 1.0)  # the signal functions' common domain
+    ph = np.zeros_like(x)
+    for label, function in chain.signal_model.model[1].models.items():
+        inside = labels == label
+        ph[inside] = np.interp(x[inside], function.supports, function.values)
+    lo_aq, hi_aq, lo_g, hi_g = E_FLASH
+    c_aq = np.clip((ph - lo_aq) / (hi_aq - lo_aq), 0.0, 1.0)
+    s_g = np.where(gas, np.clip((ph - lo_g) / (hi_g - lo_g), 0.0, 1.0), 0.0)
+    mass_analysis = chain.co2_mass_analysis
+    mass = mass_analysis.density_gaseous_co2 * s_g + mass_analysis.solubility_co2 * c_aq * np.clip(1 - s_g, 0, None)
+    voxel = np.prod(chain.geometry.voxel_size)
+    return float((mass * voxel * E_POROSITY * E_DEPTH).sum())
+
+
+def phase_colour_to_mass(dt, w2p, rig, device, card: str, profile) -> dict:
+    """Phase E: the rig's reading path, then the heterogeneous colour-to-mass
+    analysis, then the integrated mass."""
+    import tempfile
+    from types import SimpleNamespace
+
+    tic = time.perf_counter()
+    transformations = rig["shape"] + rig["colour"]
+
+    def read(img):
+        return dt.OpticalImage(img, transformations=transformations, **META)
+
+    launches = 0
+    baseline, _, _, counts = median_call_ms(w2p, lambda: read(rig["baseline"].img), 1, 4, "E: baseline read")
+    launches += counts["warp_rows_t"]
+    labels = layer_labels(E_LAYERS, device)
+    adapter = dt.ExpertKnowledgeAdapter(saturation_g_rois={"seal": SimpleNamespace(roi=E_GAS_ROI)})
+    t0 = time.perf_counter()
+    chain, geometry = colour_to_mass_chain(dt, baseline, labels, E_LAYERS, adapter)
+    setup_s = time.perf_counter() - t0
+
+    # The path: reading the photograph (4 K1 launches), the chain (none).
+    reset_counts(w2p)
+    image = read(rig["probe"])
+    torch.cuda.synchronize()
+    after_read = read_counts(w2p)
+    result = chain(image)
+    mass = geometry.integrate(result.mass)
+    counts = read_counts(w2p)
+    check_counts(after_read, {"warp_rows_t": 4}, "E: reading call")
+    check_counts(counts, {"warp_rows_t": 4}, "E: reading call + chain")
+    launches += counts["warp_rows_t"]
+    outputs = chain_outputs(chain, image)
+    for key, value in outputs.items():
+        if tuple(value.shape) != (OH, W) or not bool(torch.isfinite(value).all()):
+            raise AssertionError(f"E: {key} of the photograph: shape {tuple(value.shape)} or not finite")
+    if not torch.equal(outputs["mass"], result.mass.img):
+        raise AssertionError("E: the chain's stages differ from its call")
+    gas = adapter.mask_for(result.saturation_g, "saturation_g")
+    if bool((result.saturation_g.img[~gas] != 0).any()):
+        raise AssertionError("E: gas saturation outside the gas ROI")
+
+    # A plume painted on the corrected baseline along each label's path.
+    g = torch.Generator(device=device).manual_seed(10)
+    rows = torch.linspace(-1, 1, OH, device=device)[:, None]
+    cols = torch.linspace(-1, 1, W, device=device)[None, :]
+    plume = ((rows - 0.1) / 0.55) ** 2 + ((cols + 0.1) / 0.6) ** 2 < 1.0
+    params = (0.05 + 0.9 * torch.rand((OH, W), generator=g, device=device, dtype=torch.float64))
+    painted = baseline.img.clone()
+    for label, interp in chain.color_path_interpretation.items():
+        colour = interp.color_path.interpret(params, dt.ColorMode.RELATIVE, mode="equidistant")
+        where = (plume & (labels == label))[..., None]
+        painted = torch.where(where, baseline.img + colour.to(torch.float32), painted)
+    plume_image = dt.OpticalImage(painted, **META)
+    plume_out = chain_outputs(chain, plume_image)
+    recovered = float((plume_out["colour"] - params.to(torch.float32))[plume].abs().max())
+    outside = float(plume_out["colour"][~plume].abs().max())
+    if not (recovered <= 1e-4 and outside == 0.0):
+        raise AssertionError(f"E: plume parameters recovered within {recovered}, outside {outside}")
+    for key, value in plume_out.items():
+        if not bool(torch.isfinite(value).all()):
+            raise AssertionError(f"E: {key} of the plume not finite")
+    if bool((plume_out["saturation_g"][~gas] != 0).any()) or not bool((plume_out["saturation_g"][gas] > 0).any()):
+        raise AssertionError("E: the plume's gas saturation is not confined to the gas ROI")
+    plume_mass = geometry.integrate(plume_out["mass"])
+    want = plume_reckoning(
+        chain, labels.cpu().numpy(), params.cpu().numpy(), plume.cpu().numpy(), gas.cpu().numpy()
+    )
+    plume_err = abs(plume_mass - want) / abs(want)
+    if not plume_err <= 1e-4:
+        raise AssertionError(f"E: plume mass {plume_mass} vs float64 reckoning {want}: {plume_err}")
+
+    # The card against the CPU tensor on a crop of the photograph read.
+    crop_base = baseline.subregion(E_CROP)
+    crop_image = image.subregion(E_CROP)
+    crops = {}
+    for name, where in (("card", device), ("cpu", "cpu")):
+        base_w = dt.OpticalImage(crop_base.img.to(where).contiguous(), **crop_base.metadata())
+        image_w = dt.OpticalImage(crop_image.img.to(where).contiguous(), **crop_image.metadata())
+        crop_chain, _ = colour_to_mass_chain(
+            dt, base_w, labels[E_CROP].to(where).contiguous(), E_LAYERS, adapter
+        )
+        crops[name] = (crop_chain, image_w, chain_outputs(crop_chain, image_w))
+    ties = fit_ties(*crops["card"][:2])
+    n_ties = int(ties.sum())
+    if not n_ties < 1e-3 * ties.numel():
+        raise AssertionError(f"E: {n_ties} tie pixels in the crop")
+    keep = ~ties.cpu()
+    apart = {}
+    for key, on_card in crops["card"][2].items():
+        ref = crops["cpu"][2][key]
+        scale = float(ref.abs().max()) if key.startswith("mass") else 1.0
+        apart[key] = float((on_card.cpu() - ref)[keep].abs().max()) / max(scale, 1e-30)
+        if not apart[key] <= 1e-5:
+            raise AssertionError(f"E: crop {key}, card vs CPU {apart[key]} > 1e-5")
+
+    # Times: the chain at 12 and 40 labels, reading plus chain.
+    torch.cuda.reset_peak_memory_stats(device)
+    _, ms12, each12, _ = median_call_ms(w2p, lambda: chain(image), 5, 0, "E: chain, 12 labels")
+    peak12 = torch.cuda.max_memory_allocated(device) / 2**30
+    busy12 = device_busy_ms(lambda: chain(image))
+    labels40 = layer_labels(E_LAYERS_FINE, device)
+    chain40, _ = colour_to_mass_chain(dt, baseline, labels40, E_LAYERS_FINE, adapter)
+    chain40(image)  # warm-up
+    torch.cuda.reset_peak_memory_stats(device)
+    _, ms40, each40, _ = median_call_ms(w2p, lambda: chain40(image), 5, 0, "E: chain, 40 labels")
+    peak40 = torch.cuda.max_memory_allocated(device) / 2**30
+    _, ms_read, each_read, counts = median_call_ms(
+        w2p, lambda: chain(read(rig["probe"])), 5, 4, "E: reading + chain"
+    )
+    launches += counts["warp_rows_t"]
+
+    # The calibration folder written and read back.
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        chain.save(Path(tmp) / "c2m")
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = dt.HeterogeneousColorToMassAnalysis.from_folder(
+            Path(tmp) / "c2m", baseline, chain.labels, chain.co2_mass_analysis, geometry,
+            expert_knowledge_adapter=adapter,
+        )
+        load_s = time.perf_counter() - t0
+    again = loaded(image)
+    if not torch.equal(again.mass.img, result.mass.img) or geometry.integrate(again.mass) != mass:
+        raise AssertionError("E: the chain read back from its folder gives another mass")
+    print(
+        f"E. colour-to-mass behind the rig's reading path ({OH}x{W}, {E_LAYERS} layers, 5-colour "
+        f"relative paths, 3-support signal functions, SimpleFlash{E_FLASH}, CO2 mass at 1.01 bar, "
+        f"23 C, gas ROI): reading call {after_read} + chain 0 launches; mass {mass:.6g} kg; plume "
+        f"parameters recovered within {recovered:.3g} (bound 1e-4), its mass {plume_mass:.9g} vs "
+        f"float64 reckoning {want:.9g} (rel {plume_err:.3g}, bound 1e-4); card vs CPU at a "
+        f"512x1024 crop: max rel {max(apart.values()):.3g} ({apart}), {n_ties} tie pixels of "
+        f"{ties.numel()}; chain set-up {setup_s:.2f} s"
+    )
+    print(
+        f"E. on {card}: chain {ms12} ms per photograph at {E_LAYERS} labels (median of 5: {each12}; "
+        f"device busy {busy12:.3f} ms, idle {1 - busy12 / ms12:.3f}, peak {peak12:.2f} GiB), "
+        f"{ms40} ms at {E_LAYERS_FINE} labels ({each40}; peak {peak40:.2f} GiB); reading + chain "
+        f"{ms_read} ms ({each_read}); save {save_s:.3f} s, from_folder {load_s:.3f} s; phase "
+        f"{time.perf_counter() - tic:.2f} s"
+    )
+    if profile is not None:
+        profile_frame(lambda: chain(image), ms12, profile, "colour_to_mass_12")
+        profile_frame(lambda: chain40(image), ms40, profile, "colour_to_mass_40", frames=2)
+    return {
+        "launches": launches,
+        "ms12": ms12,
+        "ms40": ms40,
+        "read_ms": ms_read,
+        "busy12": busy12,
+        "ties": n_ties,
+    }
+
+
 def profile_frame(fn, ms_per_call: float, out_dir: Path, name: str, frames: int = 3):
     """torch.profiler over a few calls of ``fn`` (a frame, or a call of a
     path): kernel tables (by device time, and by the host's own time) and
@@ -2333,6 +2631,7 @@ def main() -> int:
     phase_series_concentration(dt, lanes, device, series_corr.pop("image"), card)
     lanes["rig"] = build_rig(dt, lanes, device)
     rig_read = phase_rig_read(dt, w2p, lanes["rig"], device, card, args.profile)
+    colour_to_mass = phase_colour_to_mass(dt, w2p, lanes["rig"], device, card, args.profile)
     drift_lane = phase_drift_pipeline(dt, w2p, lanes, lanes["rig"], device, card, args.profile)
     drifting = phase_drifting_series(dt, w2p, lanes["rig"], device, card)
     phase_shape_zoo(dt, w2p, lanes, device, card)
@@ -2346,7 +2645,7 @@ def main() -> int:
     phase_kernel_fields(w2p, lanes, device)
 
     passes = [k1["pass1"], k1["pass2"]]
-    k1_launches = (
+    earlier = (
         main_path["launches"]
         + single["launches"]
         + sum(lane["launches"] for lane in series.values())
@@ -2354,6 +2653,12 @@ def main() -> int:
         + sum(p["launches"] for p in (rig_read, drift_lane, drifting))
         + sum(p["launches"] for p in (piecewise, colour, saved, restoration))
     )
+    if earlier != K1_BEFORE_E or colour_to_mass["launches"] != K1_IN_E:
+        raise AssertionError(
+            f"K1 launches: {earlier} before phase E (want {K1_BEFORE_E}), "
+            f"{colour_to_mass['launches']} in it (want {K1_IN_E})"
+        )
+    k1_launches = earlier + colour_to_mass["launches"]
     results = {
         "warp_rows_t": {
             "launches": k1_launches,

@@ -4,7 +4,9 @@ Counterpart of :mod:`darsia_tpu.measure.integration`.  The voxel volumes are
 host-side numpy, as there; the weighted sum runs on the data's device (a
 tensor or an Image stays where it is, a numpy array goes to ``device``, the
 CUDA card by default), accumulates in float64 and comes back as a float or a
-numpy array.
+numpy array.  On the CPU it is the JAX package's numpy reduction, in its
+order, so the two packages' integrals of equal data are bitwise equal (a
+calibration that compares integrals then takes the same path in both).
 """
 
 from __future__ import annotations
@@ -116,8 +118,11 @@ class Geometry:
         """Integrate data (an Image, a tensor or a numpy array) over the
         geometry: the sum over the space axes of voxel volume times value, of
         the values alone for an :class:`ExtensiveImage`.  A numpy array goes
-        to ``device`` (the CUDA card by default) and is integrated there."""
+        to ``device`` (the CUDA card by default) and is integrated there; CPU
+        data is summed in the JAX package's order."""
         fetched = as_tensor(data.img if hasattr(data, "img") else data, device)
+        if fetched.device.type == "cpu":
+            return self._integrate_on_host(data, fetched.contiguous().numpy())
         axes = tuple(range(self.space_dim))
         if isinstance(data, ExtensiveImage):
             total = torch.sum(fetched, dim=axes)
@@ -128,6 +133,21 @@ class Geometry:
             else:
                 total = torch.sum(volume * fetched, dim=axes)
         return total.item() if total.dim() == 0 else as_numpy(total)
+
+    def _integrate_on_host(self, data, fetched: np.ndarray) -> Union[float, np.ndarray]:
+        """``integrate`` of CPU data: the JAX package's numpy reduction in its
+        order (the float64 products summed axis by axis), so the port's sums
+        on the CPU are bitwise the JAX package's."""
+        total = fetched
+        if not isinstance(data, ExtensiveImage):
+            self._prepare_cached_voxel_volume(list(fetched.shape[: self.space_dim]), "cpu")
+            volume = self.cached_voxel_volume
+            if isinstance(volume, np.ndarray) and fetched.ndim > self.space_dim:
+                volume = volume.reshape(volume.shape + (1,) * (fetched.ndim - self.space_dim))
+            total = np.multiply(volume, fetched)
+        for _ in range(self.space_dim):
+            total = np.sum(total, axis=0)
+        return float(total) if np.ndim(total) == 0 else total
 
     def make_extensive(self, data: Image) -> ExtensiveImage:
         """Convert intensive data to per-voxel integrated (extensive) data."""

@@ -13,6 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..image.image import as_tensor
 from ..ops.resize import resize_array
 from ..utils.dtype import convert_dtype
 from ..utils.npz import load_npz
@@ -83,7 +84,7 @@ class Resize:
     def __call__(self, img, overwrite: bool = False):
         """Resize a tensor or an Image (returning the same kind)."""
         is_image = hasattr(img, "img")
-        arr = img.img if is_image else torch.as_tensor(img)
+        arr = img.img if is_image else as_tensor(img)
         if self.dtype is not None:
             arr = convert_dtype(arr, self.dtype)
         resized = resize_array(

@@ -56,3 +56,30 @@ def test_pipeline_numpy_input_without_a_card_raises(no_card):
     out = pipe(frame, device="cpu")
     assert out.device.type == "cpu"
     assert torch.equal(out.img, pipe(torch.from_numpy(frame)).img)
+
+
+def test_resize_numpy_input_without_a_card_raises(no_card):
+    """``Resize`` sent numpy input to the CPU; it now goes to the card."""
+    frame = np.zeros((8, 10), np.float32)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        dt.Resize(shape=(4, 5))(frame)
+    assert dt.Resize(shape=(4, 5))(torch.from_numpy(frame)).device.type == "cpu"
+
+
+def test_colour_to_mass_numpy_input_without_a_card_raises(no_card):
+    path = dt.ColorPath(colors=[np.zeros(3), np.ones(3)])
+    colors = np.full((4, 5, 3), 0.5, np.float32)
+    signal = np.full((4, 5), 0.5, np.float32)
+    labels = torch.zeros((4, 5), dtype=torch.int64)
+    calls = [
+        lambda: path.fit(colors, dt.ColorMode.ABSOLUTE),
+        lambda: dt.ColorPathInterpolation(path, dt.ColorMode.ABSOLUTE)(colors),
+        lambda: dt.PWTransformation([0, 1], [0, 2])(signal),
+        lambda: dt.ClipModel(0.0, 1.0)(signal),
+        lambda: dt.HeterogeneousModel(dt.ClipModel(0.0, 1.0), labels)(signal),
+        lambda: dt.get_mean_color(colors),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    assert dt.HeterogeneousModel(dt.ClipModel(0.0, 1.0), labels)(torch.from_numpy(signal)).device.type == "cpu"

@@ -545,3 +545,85 @@ def test_geometry_integrates_numpy_and_fits_its_weights_on_the_card(monkeypatch)
     mg.restrict_parameters()
     assert isinstance(mg.mass_coeff, np.ndarray)
     assert mg(half.img, half.img).is_cuda
+
+
+def _colour_to_mass_chain(device, H=96, W=128, seed=21):
+    """(chain, image, geometry) of a 3-label scene on ``device``: seeded
+    4-segment relative colour paths, a plume painted along each, noise."""
+    import darsia_tpu_torch as dt
+
+    rng = np.random.default_rng(seed)
+    labels = (np.arange(H)[:, None] * 3 // H + np.zeros((1, W), int)).astype(np.int64)
+    base = (0.3 + 0.4 * rng.random((H, W, 3))).astype(np.float32)
+    img = base.copy()
+    meta = {"width": 1.28, "height": 0.96}
+    interps, functions = {}, {}
+    for label in range(3):
+        steps = rng.uniform(0.02, 0.08, (4, 3)) * np.array([1.0, -0.5, 0.3])
+        path = dt.ColorPath(relative_colors=list(np.cumsum(np.vstack([np.zeros(3), steps]), axis=0)), base_color=np.zeros(3))
+        interps[label] = dt.ColorPathInterpolation(path, dt.ColorMode.RELATIVE, values=path.equidistant_distances)
+        functions[label] = dt.PWTransformation([0.0, 0.4 + 0.1 * label, 1.0], [0.0, 0.3, 1.0])
+        rows = labels[:, 0] == label
+        params = rng.uniform(0.05, 0.95, (int(rows.sum()), W // 2))
+        img[rows, : W // 2] += path.interpret(params, dt.ColorMode.RELATIVE, mode="equidistant").astype(np.float32)
+    img += (rng.standard_normal(img.shape) * 0.01).astype(np.float32)
+    baseline = dt.OpticalImage(torch.from_numpy(base).to(device), **meta)
+    geometry = dt.ExtrudedPorousGeometry(np.full((H, W), 0.44), np.full((H, W), 0.019), **baseline.shape_metadata())
+    chain = dt.HeterogeneousColorToMassAnalysis(
+        baseline,
+        dt.Image(torch.from_numpy(labels).to(device), scalar=True, **meta),
+        dt.ColorMode.RELATIVE,
+        interps,
+        functions,
+        dt.SimpleFlash(0.05, 0.5, 0.5, 1.0),
+        dt.CO2MassAnalysis(baseline, 1.01, 23.0),
+        geometry,
+        expert_knowledge_adapter=dt.ExpertKnowledgeAdapter(
+            saturation_g_rois={"gas": np.array([[0.1, 0.9], [0.6, 0.4]])}
+        ),
+    )
+    return chain, dt.OpticalImage(torch.from_numpy(img).to(device), **meta), geometry
+
+
+def test_colour_to_mass_chain_on_the_card_matches_the_cpu(monkeypatch):
+    """The chain on the card against the same chain on CPU tensors: every
+    output within 1e-5 (mass maps relative to their largest value) but where
+    ``fit`` ties (two segments within 1e-6 of equally close with different
+    parameters); after the first call nothing full-size leaves the card and
+    nothing is copied to it."""
+    (card, image, geometry), (cpu, cpu_image, cpu_geometry) = (
+        _colour_to_mass_chain(device) for device in ("cuda", "cpu")
+    )
+    geometry.integrate(card(image).mass)  # uploads the constants once
+    made = []
+    for name in ("cpu", "numpy", "item", "to"):
+        original = getattr(torch.Tensor, name)
+
+        def record(self, *args, _original=original, _name=name, **kwargs):
+            out = _original(self, *args, **kwargs)
+            moved = isinstance(out, torch.Tensor) and out.device != self.device
+            made.append((_name, self.dim(), moved))
+            return out
+
+        monkeypatch.setattr(torch.Tensor, name, record)
+    result = card(image)
+    mass = geometry.integrate(result.mass)
+    monkeypatch.undo()
+    assert [m for m in made if m[0] in ("cpu", "numpy") or m[2] or (m[0] == "item" and m[1])] == []
+    want = cpu(cpu_image)
+    ties = torch.zeros(image.img.shape[:2], dtype=torch.bool)
+    labels = card.labels.img.cpu()
+    diff = (image.img - card.color_analysis.base.img).cpu()
+    for label, interp in card.color_path_interpretation.items():
+        params, l1 = interp.color_path.fit_terms(diff, interp.color_mode, "equidistant")
+        near = l1 <= l1.min(dim=-1, keepdim=True).values + 1e-6
+        spread = torch.where(near, params, -torch.inf).amax(-1) - torch.where(near, params, torch.inf).amin(-1)
+        ties |= (labels == label) & (spread > 1e-6)
+    assert int(ties.sum()) <= 2
+    keep = ~ties
+    for key in ("saturation_g", "concentration_aq", "mass", "mass_g", "mass_aq"):
+        got, ref = getattr(result, key).img.cpu(), getattr(want, key).img
+        scale = 1.0 if key in ("saturation_g", "concentration_aq") else float(ref.abs().max())
+        assert float((got - ref)[keep].abs().max()) <= 1e-5 * scale, key
+    assert torch.isfinite(result.mass.img).all() and mass > 0
+    assert abs(mass - cpu_geometry.integrate(want.mass)) <= 1e-5 * mass

@@ -2,9 +2,11 @@
 
 A subprocess blocks ``jax`` and ``cv2`` (``sys.modules[name] = None`` makes
 any import of them fail), imports ``darsia_tpu_torch`` and runs the small
-correct -> register -> concentrate pipeline on a numpy-made frame.  A second
-subprocess also blocks ``darsia_tpu`` and reads the image and every
-correction file that the JAX package wrote beforehand in this process.
+correct -> register -> concentrate pipeline on a numpy-made frame.  It also
+imports every module of the package and runs the heterogeneous
+colour-to-mass chain.  A second subprocess also blocks ``darsia_tpu`` and
+reads the image, every correction file and a colour-to-mass calibration
+folder that the JAX package wrote beforehand in this process.
 """
 
 import subprocess
@@ -199,6 +201,45 @@ with tempfile.TemporaryDirectory() as tmp:
     assert back.space_dim == 3 and torch.equal(back.img, volume.img)
     volume.to_csv(Path(tmp) / "volume.csv")
     volume.write(Path(tmp) / "volume.npy")
+
+# Every module of the package imports.
+import importlib
+import pkgutil
+
+for info in pkgutil.walk_packages(dt.__path__, "darsia_tpu_torch."):
+    importlib.import_module(info.name)
+
+# The heterogeneous colour-to-mass chain: per-label colour paths, signal
+# functions, flash, expert knowledge, CO2 mass, saved and read back.
+labels = np.zeros((40, 48), np.int64); labels[:, 24:] = 1
+base = np.full((40, 48, 3), 0.5, np.float32)
+probe_c = base.copy(); probe_c[5:20, 4:20] += [0.2, -0.1, 0.0]; probe_c[5:20, 28:44] += [0.1, 0.0, -0.1]
+meta = {"width": 0.48, "height": 0.4}
+baseline = dt.OpticalImage(torch.from_numpy(base), **meta)
+labels_img = dt.Image(torch.from_numpy(labels), scalar=True, **meta)
+paths = {k: dt.ColorPath(relative_colors=[np.zeros(3), np.array(v)], base_color=np.full(3, 0.5))
+         for k, v in ((0, [0.2, -0.1, 0.0]), (1, [0.1, 0.0, -0.1]))}
+interps = {k: dt.ColorPathInterpolation(p, dt.ColorMode.RELATIVE, values=[0, 1]) for k, p in paths.items()}
+functions = {k: dt.PWTransformation(supports=[0, 0.5, 1], values=[0, 0.4, 1]) for k in paths}
+geometry = dt.ExtrudedPorousGeometry(np.full((40, 48), 0.44), np.full((40, 48), 0.02), **baseline.shape_metadata())
+adapter = dt.ExpertKnowledgeAdapter(saturation_g_rois={"gas": np.array([[0.0, 0.4], [0.24, 0.0]])})
+c2m = dt.HeterogeneousColorToMassAnalysis(
+    baseline, labels_img, dt.ColorMode.RELATIVE, interps, functions, dt.SimpleFlash(0.05, 0.5, 0.5, 1.0),
+    dt.CO2MassAnalysis(baseline, 1.01, 23.0), geometry, expert_knowledge_adapter=adapter,
+)
+result = c2m(dt.OpticalImage(torch.from_numpy(probe_c), **meta))
+mass = geometry.integrate(result.mass)
+assert mass > 0 and result.saturation_g.img[:, 24:].abs().max() == 0
+with tempfile.TemporaryDirectory() as tmp:
+    c2m.save(Path(tmp) / "c2m")
+    again = dt.HeterogeneousColorToMassAnalysis.from_folder(
+        Path(tmp) / "c2m", baseline, labels_img, c2m.co2_mass_analysis, geometry,
+        expert_knowledge_adapter=adapter,
+    )
+    assert geometry.integrate(again(dt.OpticalImage(torch.from_numpy(probe_c), **meta)).mass) == mass
+tracker = dt.SimpleRunAnalysis(geometry)
+tracker.append(result)
+assert tracker.data.mass == [mass]
 print("ok", tuple(out.img.shape))
 """
 
@@ -265,8 +306,21 @@ except ValueError as err:
     assert "coordinate systems" in str(err)
 else:
     raise AssertionError("read_correction read an AffineCorrection file")
+# The JAX package's colour-to-mass calibration folder, read and applied.
+arrays = np.load(folder / "c2m_arrays.npz")
+meta = {"width": 2.0, "height": 1.0}
+baseline = dt.Image(torch.from_numpy(arrays["base"]), **meta)
+labels = dt.Image(torch.from_numpy(arrays["labels"]), scalar=True, **meta)
+geometry = dt.ExtrudedPorousGeometry(
+    np.full(arrays["labels"].shape, 0.44), np.full(arrays["labels"].shape, 0.02), **baseline.shape_metadata()
+)
+chain = dt.HeterogeneousColorToMassAnalysis.from_folder(
+    folder / "c2m", baseline, labels, dt.CO2MassAnalysis(baseline, 1.01, 22.0), geometry
+)
+mass = geometry.integrate(chain(dt.Image(torch.from_numpy(arrays["img"]), **meta)).mass)
+assert abs(mass - float(arrays["mass"])) <= 1e-6 * abs(float(arrays["mass"])), (mass, arrays["mass"])
 loaded = [m for m, module in sys.modules.items() if module is not None]
-assert not any(m.split(".")[0] in ("jax", "jaxlib", "darsia_tpu") for m in loaded)
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "darsia_tpu", "pandas", "matplotlib") for m in loaded)
 print("ok", len(names))
 """
 
@@ -330,6 +384,14 @@ def test_port_reads_jax_files_without_the_jax_package(tmp_path):
     da.AffineCorrection(cs, cs, da.make_coordinate(src), da.make_coordinate(1.01 * src)).save(
         tmp_path / "affine"
     )
+    # A colour-to-mass calibration folder, written as the JAX package
+    # writes it (its CSV through pandas), with the scene and its mass.
+    from test_torch_color_to_mass import _arrays, _perturbed
+
+    chain, img, geom = _perturbed(da)
+    chain.save(tmp_path / "c2m")
+    scene = _arrays()
+    np.savez(tmp_path / "c2m_arrays.npz", mass=geom.integrate(chain(img).mass), **scene)
     # The image file does pickle a class of the JAX package.
     import zipfile
 
