@@ -195,10 +195,34 @@ E. The heterogeneous colour-to-mass analysis behind the rig's reading path
    photograph at 12 and 40 labels (median of 5 after a warm-up; device busy,
    idle share, peak GiB), reading plus chain, save and ``from_folder``.
 
+F. Optimal transport (after phase D), through ``wasserstein_distance`` and the
+   Beckmann solvers on the card.  F1: the bench's weighted block problem at
+   512 x 512 (``bench.py:344-362``: blocks of unit mass, weight 2 + sin cos in
+   [1, 3]), Newton with AA(5) and the bench's options: one warm-up call of
+   ``wasserstein_distance`` (return_info; CG iterations of every pressure
+   solve counted), then ``solve_beckmann_problem`` timed; converged, distance
+   within 1e-3 relative of the JAX package's 0.697882, the facade's distance
+   and raw gap equal to the solver's, 0 <= certified gap (polish 2000 per
+   chunk, target 1e-3, at most 6000; the bench's 30000 took 85 s) <= raw
+   gap; peak GiB.  F2: the smooth
+   two-Gaussian problem at 256 x 256 (``bench.py:444-478``): distance within
+   1e-3 of 0.467866, certified gap <= 2e-3.  F3: the split-square anchor
+   refined to 160 x 160 with ``np.repeat`` (the example's options): within
+   0.02 of 0.379543951823.  F4: Bregman and G-prox on F1's problem at 256 x
+   256, 300 iterations each (tolerances 0), options as the JAX package's tests
+   set them: finite, certified gap >= -1e-4; distance against Newton's on the
+   same problem (not gated).  F5: F1's problem at 64 x 64 on the card and as
+   CPU tensors: distances within 1e-5 relative.  F6: two cubes at 64^3 (the
+   JAX tests' 12^3 case scaled): seconds, iterations, distance, peak GiB.  No
+   K1 launch (counted).  With ``--profile``: tensor ops per solve, per Newton
+   and per CG iteration, a profile of a short solve (busy, idle share, the
+   coarsest multigrid level's share), and one V-cycle timed with its
+   coarsest level as a matrix and as sweeps, in turns.
+
 Every launch count is set to 0 just before each path of phases 3, 5-7,
-8-11, 14-20, B and E and read just after it; the ``kernels`` line's K1
-launches are their sum, 586 before phase E and 28 in it (checked exactly).
-Each of phases 8-12, 14-20, A-D and E prints its seconds.  The
+8-11, 14-20, B, E and F and read just after it; the ``kernels`` line's K1
+launches are their sum, 586 before phase E, 28 in it and none in F (checked
+exactly).  Each of phases 8-12, 14-20, A-F prints its seconds.  The
 second-to-last line is a JSON object of per-kernel results; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
@@ -2516,6 +2540,402 @@ def phase_colour_to_mass(dt, w2p, rig, device, card: str, profile) -> dict:
     }
 
 
+# Phase F: optimal transport.  The bench's W1 rows (bench.py:334-482): the
+# weighted block problem at 512^2 with its options, the smooth two-Gaussian
+# problem at 256^2, the split-square anchor refined to 160^2
+# (examples/wasserstein_split_square.py), the splitting solvers on the block
+# problem at 256^2, card against CPU tensor at 64^2, and two cubes at 64^3.
+F_NEWTON = {"num_iter": 500, "L": 1e9, "tol_increment": 1e-4, "tol_distance": 1e-4, "aa_depth": 5}
+F1_DISTANCE = 0.697882  # the JAX package's result for F1 (BENCH_r05.json): a result, not a time
+F2_DISTANCE = 0.467866  # and for F2
+F3_DISTANCE = 0.379543951823  # the split-square anchor (BASELINE.md)
+# The bench's polish (2000 per chunk, target 1e-3) capped at 6000 steps, not
+# its 30000: at ~2 ms of host time per step on the H100 the cap alone took
+# 85 s, and the gap stays above the target either way.
+F1_POLISH = {"polish_iters": 2000, "polish_target": 1e-3, "polish_max_iters": 6000}
+F2_POLISH = {"polish_iters": 2000, "polish_target": 5e-4, "polish_max_iters": 20000}
+F_BUDGET = 300  # fixed iterations of Bregman and G-prox (tolerances 0: never met)
+# Sizes: F1, F2, F3's refinement of the 10x10 anchor, F4, F5, F6 (cubes).
+F_SIZES = {"F1": 512, "F2": 256, "F3": 16, "F4": 256, "F5": 64, "F6": 64}
+
+
+def ot_blocks(n: int) -> tuple:
+    """(src, dst, weight) of bench.py:344-362: blocks of unit mass, weight
+    2 + sin(4 pi x) cos(2 pi y) in [1, 3]."""
+    src = np.zeros((n, n))
+    dst = np.zeros((n, n))
+    q = n // 10
+    src[2 * q : 5 * q, 2 * q : 5 * q] = 1.0
+    dst[1 * q : 3 * q, 1 * q : 2 * q] = 1.0
+    dst[4 * q : 7 * q, 7 * q : 9 * q] = 1.0
+    src = (src / (src.sum() / n**2)).astype(np.float32)
+    dst = (dst / (dst.sum() / n**2)).astype(np.float32)
+    yy, xx = np.meshgrid(np.linspace(0, 1, n), np.linspace(0, 1, n), indexing="ij")
+    weight = (2.0 + np.sin(4 * np.pi * xx) * np.cos(2 * np.pi * yy)).astype(np.float32)
+    return src, dst, weight
+
+
+def ot_gaussians(n: int) -> tuple:
+    """(src, dst) of bench.py:444-453: two Gaussians of unit mean."""
+    yy, xx = np.meshgrid(np.linspace(0, 1, n), np.linspace(0, 1, n), indexing="ij")
+    src = np.exp(-((xx - 0.3) ** 2 + (yy - 0.35) ** 2) / 0.02)
+    dst = np.exp(-((xx - 0.7) ** 2 + (yy - 0.6) ** 2) / 0.03)
+    return (src / src.mean()).astype(np.float32), (dst / dst.mean()).astype(np.float32)
+
+
+def pcg_counter(bk):
+    """Count the iterations of every pressure solve's CG loop: wraps the
+    ``iterate_while`` that ``beckmann_kernels`` calls; returns (counts, undo)."""
+    counts, original = [], bk.iterate_while
+
+    def counting(cond, body, state, maxiter, start=0):
+        out, it = original(cond, body, state, maxiter, start)
+        counts.append(it)
+        return out, it
+
+    bk.iterate_while = counting
+
+    def undo():
+        bk.iterate_while = original
+
+    return counts, undo
+
+
+class OpCounter:
+    """Counts the tensor operations that launch work (views excluded) while
+    it is entered: a TorchDispatchMode."""
+
+    VIEWS = ("slice", "view", "expand", "permute", "select", "as_strided", "unsqueeze", "alias",
+             "transpose", "aten.t.", "unbind", "split", "narrow", "detach", "real", "imag",
+             "squeeze", "_local_scalar_dense", "lift_fresh")
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                name = str(func)
+                if not any(v in name for v in OpCounter.VIEWS):
+                    counter.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self.n = 0
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+
+
+def ot_images(dt, src, dst, **meta):
+    """Scalar images of ``src``/``dst`` (numpy: on the card)."""
+    meta = {"width": 1, "height": 1, "scalar": True, **meta}
+    return dt.Image(src, **meta), dt.Image(dst, **meta)
+
+
+def phase_transport(dt, device, card: str, profile) -> dict:
+    """Phase F: the Beckmann W1 solvers behind ``wasserstein_distance``."""
+    from darsia_tpu_torch.measure import beckmann_kernels as bk
+
+    tic = time.perf_counter()
+    out = {}
+
+    # F1: the bench's weighted block problem at 512^2, Newton with AA(5).
+    n = F_SIZES["F1"]
+    src, dst, weight = ot_blocks(n)
+    src_img, dst_img = ot_images(dt, src, dst)
+    weight_img = dt.ScalarImage(weight, width=1, height=1)
+    if src_img.device.type != "cuda" or weight_img.device.type != "cuda":
+        raise AssertionError("F1: images built from numpy are not on the card")
+    counts, undo = pcg_counter(bk)
+    ops = OpCounter() if profile is not None else contextlib.nullcontext()
+    t0 = time.perf_counter()
+    try:
+        with ops:
+            d_facade, info_f = dt.wasserstein_distance(
+                src_img, dst_img, method="newton", weight=weight_img,
+                options={**F_NEWTON, "return_info": True},
+            )
+    finally:
+        undo()
+    facade_s = time.perf_counter() - t0
+    if info_f["flux"].device.type != "cuda" or info_f["pressure"].device.type != "cuda":
+        raise AssertionError("F1: the solve's fields are not on the card")
+    solver = dt.BeckmannNewtonSolver(dt.generate_grid(dst_img), weight_img, F_NEWTON)
+    mass_diff = dst_img.img - src_img.img
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    distance, fluxes, pressure, info = solver.solve_beckmann_problem(mass_diff)
+    torch.cuda.synchronize()
+    f1_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    iterations = info["number_iterations"] + 1
+    gap_raw = solver.duality_gap(fluxes, pressure, mass_diff, polish_iters=0)
+    t0 = time.perf_counter()
+    gap = solver.duality_gap(fluxes, pressure, mass_diff, **F1_POLISH)
+    polish_s = time.perf_counter() - t0
+    rel = abs(distance - F1_DISTANCE) / F1_DISTANCE
+    if not info["converged"] or not rel <= 1e-3:
+        raise AssertionError(f"F1: converged {info['converged']}, distance {distance} vs {F1_DISTANCE}: {rel}")
+    if not 0.0 <= gap <= gap_raw:
+        raise AssertionError(f"F1: gap {gap} outside [0, gap_raw {gap_raw}]")
+    if abs(d_facade - distance) > 1e-6 * distance or abs(info_f["duality_gap"] - gap_raw) > 1e-6:
+        raise AssertionError(
+            f"F1: wasserstein_distance {d_facade} (gap {info_f['duality_gap']}) vs the solver "
+            f"{distance} (gap {gap_raw})"
+        )
+    pcg = np.array(counts[1:])  # the Darcy initialization's solve first
+    out["F1"] = {"s": f1_s, "iterations": iterations, "distance": distance, "pcg_mean": float(pcg.mean())}
+    print(
+        f"F1. W1 Newton AA(5), weighted blocks {n}x{n} on {card}: {f1_s:.3f} s per solve "
+        f"(warm-up through wasserstein_distance {facade_s:.3f} s, return_info included), "
+        f"{iterations} Newton iterations (the JAX package: 68), distance {distance:.6f} "
+        f"(JAX package {F1_DISTANCE}, rel {rel:.2e}), converged; pressure solves {len(counts)}: "
+        f"CG iterations per solve mean {pcg.mean():.1f}, median {np.median(pcg):.0f}, max "
+        f"{pcg.max()} (cap {solver._mg_maxiter}), total {int(np.sum(counts))}; gap_raw "
+        f"{gap_raw:.6f}, gap {gap:.6f} (polish {polish_s:.2f} s, {F1_POLISH}); peak {peak:.3f} GiB"
+    )
+    if profile is not None:
+        per_solve = ops.n
+        print(
+            f"F1 ops: {per_solve} tensor ops per solve (warm-up call, views excluded), "
+            f"{per_solve / iterations:.0f} per Newton iteration, "
+            f"{per_solve / max(int(np.sum(counts)), 1):.0f} per CG iteration"
+        )
+        profile_transport(dt, bk, solver, mass_diff, fluxes, profile)
+
+    # F2: the smooth two-Gaussian problem at 256^2.
+    n = F_SIZES["F2"]
+    g_src, g_dst = ot_gaussians(n)
+    s_img, d_img = ot_images(dt, g_src, g_dst)
+    opts = {**F_NEWTON, "tol_increment": 1e-5, "tol_distance": 1e-5}
+    smooth = dt.BeckmannNewtonSolver(dt.generate_grid(d_img), None, opts)
+    md = d_img.img - s_img.img
+    t0 = time.perf_counter()
+    d2, fl2, p2, info2 = smooth.solve_beckmann_problem(md)
+    torch.cuda.synchronize()
+    f2_s = time.perf_counter() - t0
+    gap2 = smooth.duality_gap(fl2, p2, md, **F2_POLISH)
+    rel2 = abs(d2 - F2_DISTANCE) / F2_DISTANCE
+    if not rel2 <= 1e-3 or not -1e-4 <= gap2 <= 2e-3:
+        raise AssertionError(f"F2: distance {d2} vs {F2_DISTANCE} ({rel2}), gap {gap2}")
+    out["F2"] = {"s": f2_s, "iterations": info2["number_iterations"] + 1, "distance": d2, "gap": gap2}
+    print(
+        f"F2. smooth Gaussians {n}x{n}: {f2_s:.3f} s, {info2['number_iterations'] + 1} "
+        f"iterations, distance {d2:.6f} (JAX package {F2_DISTANCE}, rel {rel2:.2e}), certified "
+        f"gap {gap2:.6f} (JAX package 0.001039; bound 2e-3)"
+    )
+
+    # F3: the split-square anchor refined 16x (np.repeat: the nearest resize).
+    coarse = np.zeros((10, 10))
+    coarse[2:5, 2:5] = 1
+    coarse_dst = np.zeros((10, 10))
+    coarse_dst[1:3, 1:2] = 1
+    coarse_dst[4:7, 7:9] = 1
+    k = F_SIZES["F3"]
+    fine = [np.repeat(np.repeat(a / (a.sum() / 100), k, 0), k, 1) for a in (coarse, coarse_dst)]
+    a_img, b_img = ot_images(dt, *fine, space_dim=2)
+    opts3 = {"num_iter": 200, "tol_residual": 1e-3, "tol_increment": 1e-3, "tol_distance": 1e-3,
+             "L": 1e9, "return_info": True}
+    t0 = time.perf_counter()
+    d3, info3 = dt.wasserstein_distance(a_img, b_img, method="newton", options=opts3)
+    torch.cuda.synchronize()
+    f3_s = time.perf_counter() - t0
+    if not abs(d3 - F3_DISTANCE) < 0.02:
+        raise AssertionError(f"F3: distance {d3} vs the anchor {F3_DISTANCE}")
+    out["F3"] = {"s": f3_s, "iterations": info3["number_iterations"] + 1, "distance": d3}
+    print(
+        f"F3. split square at {10 * k}x{10 * k}: distance {d3:.6f} (anchor {F3_DISTANCE}, |diff| "
+        f"{abs(d3 - F3_DISTANCE):.4f} < 0.02), {info3['number_iterations'] + 1} iterations, "
+        f"{f3_s:.3f} s (return_info included)"
+    )
+
+    # F4: Bregman and G-prox on F1's problem at 256^2, fixed budgets.
+    n = F_SIZES["F4"]
+    src, dst, weight = ot_blocks(n)
+    src_img, dst_img = ot_images(dt, src, dst)
+    weight_img = dt.ScalarImage(weight, width=1, height=1)
+    d_newton = dt.wasserstein_distance(src_img, dst_img, method="newton", weight=weight_img,
+                                       options=F_NEWTON)
+    fixed = {"num_iter": F_BUDGET, "tol_residual": 0.0, "tol_increment": 0.0, "tol_distance": 0.0,
+             "return_info": True}
+    splitting = {
+        "bregman": {**fixed, "l1_mode": "constant_cell_projection", "mobility_mode": "face_based",
+                    "L": 1.0},
+        "gprox": {**fixed, "l1_mode": "raviart_thomas"},
+    }
+    out["F4"] = {}
+    for method, options in splitting.items():
+        t0 = time.perf_counter()
+        d4, info4 = dt.wasserstein_distance(src_img, dst_img, method=method, weight=weight_img,
+                                            options=options)
+        torch.cuda.synchronize()
+        f4_s = time.perf_counter() - t0
+        gap4 = info4["duality_gap"]
+        if not (np.isfinite(d4) and np.isfinite(gap4)) or not gap4 >= -1e-4:
+            raise AssertionError(f"F4 {method}: distance {d4}, certified gap {gap4} (dual > primal)")
+        out["F4"][method] = {"s": f4_s, "distance": d4, "rel_newton": abs(d4 - d_newton) / d_newton}
+        print(
+            f"F4. {method} on the weighted blocks {n}x{n}: distance {d4:.6f} vs Newton "
+            f"{d_newton:.6f} (rel {abs(d4 - d_newton) / d_newton:.2e}; not gated), "
+            f"{info4['number_iterations'] + 1} iterations, {f4_s:.3f} s, certified gap {gap4:.4f}"
+        )
+
+    # F5: card against CPU tensor, F1's problem at 64^2.
+    n = F_SIZES["F5"]
+    src, dst, weight = ot_blocks(n)
+    runs = {}
+    for name, where in (("card", device), ("cpu", "cpu")):
+        a, b = ot_images(dt, src, dst, device=where)
+        t0 = time.perf_counter()
+        d5, info5 = dt.wasserstein_distance(a, b, method="newton", weight=weight,
+                                            options={**F_NEWTON, "return_info": True})
+        runs[name] = (d5, info5["number_iterations"] + 1, time.perf_counter() - t0,
+                      info5["pressure"].device.type)
+    rel5 = abs(runs["card"][0] - runs["cpu"][0]) / runs["cpu"][0]
+    if runs["card"][3] != "cuda" or runs["cpu"][3] != "cpu" or not rel5 <= 1e-5:
+        raise AssertionError(f"F5: card {runs['card']} vs CPU {runs['cpu']}: rel {rel5}")
+    out["F5"] = {"rel": rel5}
+    print(
+        f"F5. card vs CPU tensor at {n}x{n}: distances {runs['card'][0]:.8f} / "
+        f"{runs['cpu'][0]:.8f} (rel {rel5:.2e}, bound 1e-5), iterations {runs['card'][1]} / "
+        f"{runs['cpu'][1]}, {runs['card'][2]:.2f} / {runs['cpu'][2]:.2f} s"
+    )
+
+    # F6: two cubes at 64^3 (tests/unit/test_wasserstein.py's 12^3 case scaled).
+    n = F_SIZES["F6"]
+    s = n // 12
+    cubes = np.zeros((2, n, n, n), np.float32)
+    cubes[0, 2 * s : 5 * s, 2 * s : 5 * s, 2 * s : 5 * s] = 1.0
+    cubes[1, 6 * s : 9 * s, 6 * s : 9 * s, 6 * s : 9 * s] = 1.0
+    c_src, c_dst = (dt.Image(c, dimensions=[1.0, 1.0, 1.0], scalar=True, dim=3) for c in cubes)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    d6 = dt.wasserstein_distance_3d(c_src, c_dst, method="newton",
+                                    options={"num_iter": 60, "tol_residual": 1e-5,
+                                             "return_info": True})
+    d6, info6 = d6
+    torch.cuda.synchronize()
+    f6_s = time.perf_counter() - t0
+    peak6 = torch.cuda.max_memory_allocated(device) / 2**30
+    mass = (3 * s) ** 3 / n**3
+    expected = np.sqrt(3) * 4 * s / n * mass
+    if not np.isfinite(d6):
+        raise AssertionError(f"F6: distance {d6}")
+    out["F6"] = {"s": f6_s, "distance": d6}
+    print(
+        f"F6. two cubes {n}^3: distance {d6:.6f} (straight-line {expected:.6f}, rel "
+        f"{abs(d6 - expected) / expected:.3f}), {info6['number_iterations'] + 1} iterations, "
+        f"{f6_s:.3f} s (return_info included), peak {peak6:.3f} GiB"
+    )
+    out["phase_s"] = time.perf_counter() - tic
+    print(f"transport on {card}: phase {out['phase_s']:.2f} s")
+    return out
+
+
+def profile_transport(dt, bk, solver, mass_diff, fluxes, out_dir: Path) -> None:
+    """Phase F's profile: torch.profiler over a short Newton solve on F1's
+    problem (the Darcy solve and one iteration), the coarsest multigrid
+    level in a named range; then one V-cycle timed alone, with the coarsest
+    level as its matrix and as its 42 sweeps, in turns."""
+    from torch.profiler import ProfilerActivity, record_function
+    from torch.profiler import profile as torch_profile
+
+    coarsest = bk._tpfa_coarsest
+
+    def marked(*args):
+        with record_function("mg_coarsest_level"):
+            return coarsest(*args)
+
+    short = dt.BeckmannNewtonSolver(solver.grid, solver.weight, {**F_NEWTON, "num_iter": 1})
+    short.solve_beckmann_problem(mass_diff)  # its constants on the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    short.solve_beckmann_problem(mass_diff)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bk._tpfa_coarsest = marked
+    try:
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            short.solve_beckmann_problem(mass_diff)
+            torch.cuda.synchronize()
+    finally:
+        bk._tpfa_coarsest = coarsest
+    averages = prof.key_averages()
+    table = averages.table(sort_by="cuda_time_total", row_limit=20)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "profile_w1_newton.txt").write_text(
+        table + "\n" + averages.table(sort_by="self_cpu_time_total", row_limit=20)
+    )
+    print(table)
+    trace = out_dir / "profile_w1_newton.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    if trace.stat().st_size > 8e6:
+        trace.unlink()  # ~10^4-10^5 ops: the tables are kept, the trace is not
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    if not device:
+        print("profile F1: the trace holds no device events")
+        return
+    busy_ms = busy_us(device) / 1e3
+    # The coarsest level's kernels: launched inside its named host ranges.
+    ranges = sorted(
+        (e["ts"], e["ts"] + e["dur"])
+        for e in events
+        if e.get("name") == "mg_coarsest_level" and e.get("cat") == "user_annotation"
+    )
+    starts = np.array([r[0] for r in ranges])
+    ends = np.array([r[1] for r in ranges])
+    inside = set()
+    for e in events:
+        if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {}):
+            k = np.searchsorted(starts, e["ts"], side="right") - 1
+            if k >= 0 and e["ts"] <= ends[k]:
+                inside.add(e["args"]["correlation"])
+    coarse_us = sum(e["dur"] for e in device if e.get("args", {}).get("correlation") in inside)
+    print(
+        f"profile F1 (Darcy solve + 1 Newton iteration; unprofiled {plain_ms:.1f} ms): "
+        f"{len(device)} device ops, device busy {busy_ms:.2f} ms, idle share "
+        f"{1 - busy_ms / plain_ms:.3f}; coarsest MG level: {coarse_us / 1e3:.2f} ms of "
+        f"device time ({coarse_us / 1e3 / busy_ms:.3f} of busy), "
+        f"{float((ends - starts).sum()) / 1e3:.1f} ms in its host ranges (profiled)"
+    )
+    # One V-cycle alone at the converged mobility: the coarsest level as its
+    # matrix (the port) and as 42 sweeps (the JAX package's form), in turns.
+    trans = solver.transmissibilities(solver._cell_based_face_weights(fluxes))
+    levels = solver._mg_levels
+    hierarchy = bk.tpfa_mg_hierarchy(trans, 2, levels)
+    swept = hierarchy._replace(coarse=None)
+    r = mass_diff - mass_diff.mean()
+    times = {"matrix": [], "sweeps": []}
+    for name in ("matrix", "sweeps", "sweeps", "matrix"):
+        h = hierarchy if name == "matrix" else swept
+        times[name].append(cuda_ms(lambda: bk._tpfa_vcycle(r, h, 2, 2, 40), 20))
+    ops = {}
+    for name, h in (("matrix", hierarchy), ("sweeps", swept)):
+        with OpCounter() as counter:
+            bk._tpfa_vcycle(r, h, 2, 2, 40)
+        ops[name] = counter.n
+    rc = torch.ones(tuple(hierarchy.steps[-1].shape), device=mass_diff.device)
+    coarse_ms = {
+        name: cuda_ms(lambda: coarsest(rc, h, 2, 2, 40), 20)
+        for name, h in (("matrix", hierarchy), ("sweeps", swept))
+    }
+    build_ms = cuda_ms(lambda: bk.tpfa_mg_hierarchy(trans, 2, levels), 5)
+    print(
+        f"V-cycle ({levels} levels, coarsest {tuple(rc.shape)}), ms per cycle back to back, in "
+        f"turns: coarsest as its matrix {times['matrix']} ({ops['matrix']} tensor ops), as 42 "
+        f"sweeps {times['sweeps']} ({ops['sweeps']} tensor ops); the coarsest level alone "
+        f"{coarse_ms['matrix']:.3f} / {coarse_ms['sweeps']:.3f} ms; hierarchy with the matrix "
+        f"built {build_ms:.3f} ms per pressure solve"
+    )
+
 def profile_frame(fn, ms_per_call: float, out_dir: Path, name: str, frames: int = 3):
     """torch.profiler over a few calls of ``fn`` (a frame, or a call of a
     path): kernel tables (by device time, and by the host's own time) and
@@ -2546,6 +2966,11 @@ def profile_frame(fn, ms_per_call: float, out_dir: Path, name: str, frames: int 
         trace.unlink()  # ~10^4 ops per call: the tables are kept, the trace is not
     busy = busy_us(events)
     busy_ms = busy / 1e3 / frames
+    if not events:
+        # CUPTI delivered no device activity for this window (seen once on a
+        # 2-op call): nothing to report, and no share to divide by.
+        print(f"profile {name}: the trace holds no device events")
+        return
     k1 = [e["dur"] for e in events if "warp_rows_t_kernel" in e.get("name", "")]
     print(
         f"profile {name}: {len(events) / frames:.0f} device ops per call, device busy "
@@ -2641,6 +3066,9 @@ def main() -> int:
     phase_solvers(dt, device, card, args.profile)
     restoration = phase_restoration_lane(dt, w2p, lanes, device, card, args.profile)
     phase_filters(dt, restoration.pop("conc"), device, card)
+    reset_counts(w2p)
+    phase_transport(dt, device, card, args.profile)
+    check_counts(read_counts(w2p), {}, "F: transport")
     phase_volume(dt, device, card)
     phase_kernel_fields(w2p, lanes, device)
 

@@ -627,3 +627,32 @@ def test_colour_to_mass_chain_on_the_card_matches_the_cpu(monkeypatch):
         assert float((got - ref)[keep].abs().max()) <= 1e-5 * scale, key
     assert torch.isfinite(result.mass.img).all() and mass > 0
     assert abs(mass - cpu_geometry.integrate(want.mass)) <= 1e-5 * mass
+
+
+def test_newton_w1_on_the_card_matches_the_cpu():
+    """The weighted block problem of bench.py's W1 row at 32 x 32, Newton with
+    AA(5): the solve on the card (images and weight built from numpy) against
+    the same solve on CPU tensors."""
+    import darsia_tpu_torch as dt
+
+    n, q = 32, 3
+    src = np.zeros((n, n), np.float32)
+    dst = np.zeros((n, n), np.float32)
+    src[2 * q : 5 * q, 2 * q : 5 * q] = 1.0
+    dst[q : 3 * q, q : 2 * q] = 1.0
+    dst[4 * q : 7 * q, 7 * q : 9 * q] = 1.0
+    src /= src.sum() / n**2
+    dst /= dst.sum() / n**2
+    yy, xx = np.meshgrid(np.linspace(0, 1, n), np.linspace(0, 1, n), indexing="ij")
+    weight = (2.0 + np.sin(4 * np.pi * xx) * np.cos(2 * np.pi * yy)).astype(np.float32)
+    options = {"num_iter": 500, "L": 1e9, "tol_increment": 1e-4, "tol_distance": 1e-4,
+               "aa_depth": 5, "return_info": True}
+    meta = {"width": 1, "height": 1, "scalar": True}
+    out = {}
+    for device in (None, "cpu"):
+        a, b = dt.Image(src, device=device, **meta), dt.Image(dst, device=device, **meta)
+        out[device] = dt.wasserstein_distance(a, b, method="newton", weight=weight, options=options)
+    (d_card, info_card), (d_cpu, info_cpu) = out[None], out["cpu"]
+    assert info_card["pressure"].device.type == "cuda"
+    assert info_card["converged"] and info_cpu["converged"]
+    assert abs(d_card - d_cpu) <= 1e-5 * d_cpu

@@ -4,7 +4,7 @@ A subprocess blocks ``jax`` and ``cv2`` (``sys.modules[name] = None`` makes
 any import of them fail), imports ``darsia_tpu_torch`` and runs the small
 correct -> register -> concentrate pipeline on a numpy-made frame.  It also
 imports every module of the package and runs the heterogeneous
-colour-to-mass chain.  A second subprocess also blocks ``darsia_tpu`` and
+colour-to-mass chain and a W1 solve.  A second subprocess also blocks ``darsia_tpu`` and
 reads the image, every correction file and a colour-to-mass calibration
 folder that the JAX package wrote beforehand in this process.
 """
@@ -240,6 +240,16 @@ with tempfile.TemporaryDirectory() as tmp:
 tracker = dt.SimpleRunAnalysis(geometry)
 tracker.append(result)
 assert tracker.data.mass == [mass]
+
+# Optimal transport: the split-square anchor through wasserstein_distance.
+square, squares = np.zeros((10, 10), np.float32), np.zeros((10, 10), np.float32)
+square[2:5, 2:5] = 100 / 9
+squares[1:3, 1:2], squares[4:7, 7:9] = 12.5, 12.5
+w1 = dt.wasserstein_distance(
+    *(dt.Image(torch.from_numpy(a), scalar=True, width=1, height=1) for a in (square, squares)),
+    method="newton", options={"L": 1e9, "tol_increment": 1e-3, "tol_distance": 1e-3},
+)
+assert abs(w1 - 0.379543951823) < 0.01, w1
 print("ok", tuple(out.img.shape))
 """
 
