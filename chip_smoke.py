@@ -219,10 +219,28 @@ F. Optimal transport (after phase D), through ``wasserstein_distance`` and the
    coarsest multigrid level's share), and one V-cycle timed with its
    coarsest level as a matrix and as sweeps, in turns.
 
+G. Batched W1 and the cross-run comparison (after phase F).  The bench's
+   batch row (``bench.py:485-521``) uncut: 8 pairs at 256 x 256 (the blocks
+   plus 0.02 U(0, 1) noise from ``default_rng(0)``, normalised per pair;
+   voxel size 1/256; num_iter 100, tol_distance 1e-4) through
+   ``parallel.batched_wasserstein``, one warm-up call, then a timed one
+   (``w1_batch8_256_pairs_per_s``, the largest Newton iteration count, CG
+   iterations run by the batch against each pair's): every pair converged;
+   pairs 0 and 7 solved alone by the single Newton device path within 1e-4
+   relative of the batch.  B = 1, 8 and 32 of the same problem: seconds per
+   batch, pairs/s, launches per CG iteration (equal for every B, checked;
+   beside one problem without a batch axis) and peak GiB.  Then the
+   comparison's compute and assemble steps in a temporary folder: 4 runs x 2
+   times of seeded 256 x 256 mass maps saved with ``Image.save``, each run
+   with a CSV imaging protocol: 12 pairs in one batched solve, 12 result
+   files, a 12-row CSV, two distances within 1e-4 of their single solves.
+   No K1 launch (counted).  With ``--profile``: the idle share of a short
+   batched solve at B = 1, 8 and 32.
+
 Every launch count is set to 0 just before each path of phases 3, 5-7,
-8-11, 14-20, B, E and F and read just after it; the ``kernels`` line's K1
-launches are their sum, 586 before phase E, 28 in it and none in F (checked
-exactly).  Each of phases 8-12, 14-20, A-F prints its seconds.  The
+8-11, 14-20, B, E, F and G and read just after it; the ``kernels`` line's K1
+launches are their sum, 586 before phase E, 28 in it and none in F or G
+(checked exactly).  Each of phases 8-12, 14-20, A-G prints its seconds.  The
 second-to-last line is a JSON object of per-kernel results; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
@@ -235,7 +253,9 @@ import json
 import subprocess
 import sys
 import time
+from datetime import datetime, timedelta
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -2839,6 +2859,292 @@ def phase_transport(dt, device, card: str, profile) -> dict:
     return out
 
 
+# Phase G: batched W1 and the cross-run comparison.  The bench's batch row
+# (bench.py:485-521) uncut: B = 8 pairs at 256^2, the blocks plus 0.02 U(0, 1)
+# noise from default_rng(0), normalised per pair, voxel size 1/n; then the
+# batch at B = 1, 8 and 32; then the comparison's compute and assemble steps
+# on 4 runs x 2 times of seeded 256^2 mass maps.
+G_N, G_B = 256, 8
+G_OPTIONS = {"num_iter": 100, "tol_distance": 1e-4}
+G_SIZES = (1, 8, 32)
+G_RUNS, G_TIMES = ("run_a", "run_b", "run_c", "run_d"), (0.0, 1.0)
+
+
+def ot_batch(n: int, B: int, seed: int = 0) -> tuple:
+    """(src, dst), each (B, n, n) float32: bench.py:499-511's batch."""
+    q = n // 10
+    src0 = np.zeros((n, n))
+    src0[2 * q : 5 * q, 2 * q : 5 * q] = 1
+    dst0 = np.zeros((n, n))
+    dst0[1 * q : 3 * q, 1 * q : 2 * q] = 1
+    dst0[4 * q : 7 * q, 7 * q : 9 * q] = 1
+    rng = np.random.default_rng(seed)
+    srcs, dsts = [], []
+    for _ in range(B):
+        s = src0 + 0.02 * rng.random((n, n))
+        d = dst0 + 0.02 * rng.random((n, n))
+        srcs.append(s / (s.sum() / (n * n)))
+        dsts.append(d / (d.sum() / (n * n)))
+    return np.stack(srcs).astype(np.float32), np.stack(dsts).astype(np.float32)
+
+
+def cg_launches(dt, src, dst) -> float:
+    """Launches (tensor ops, views excluded) of one CG iteration of the
+    batch's pressure solve (the solver's own: MG-PCG at 256^2) at its first
+    Newton mobility: two fixed-count solves (tol 0) of 2 and 4 iterations,
+    differenced."""
+    n = src.shape[-1]
+    counts = []
+    for maxiter in (2, 4):
+        options = {**G_OPTIONS, "linear_solver_options": {"rtol": 0.0, "maxiter": maxiter}}
+        solver = dt.BeckmannNewtonSolver(dt.Grid((n, n), 1.0 / n), None, options)
+        rhs = solver.cell_vol * (dst - src)
+        c = solver._constants(rhs.device)
+        p = solver.pressure_solve(c.base_face_weights, rhs, torch.zeros_like(rhs))
+        weights = solver._cell_based_face_weights(solver.flux_from_pressure(c.base_face_weights, p))
+        torch.cuda.synchronize()
+        with OpCounter() as counter:
+            solver.pressure_solve(weights, rhs, torch.zeros_like(rhs))
+            torch.cuda.synchronize()
+        counts.append(counter.n)
+    return (counts[1] - counts[0]) / 2
+
+
+def batch_cg_counter(bk):
+    """Record each batched CG solve's per-pair iteration counts: wraps the
+    ``iterate_while_batched`` that ``beckmann_kernels`` calls."""
+    counts, original = [], bk.iterate_while_batched
+
+    def counting(*args, **kwargs):
+        out = original(*args, **kwargs)
+        counts.append(out[1])
+        return out
+
+    bk.iterate_while_batched = counting
+
+    def undo():
+        bk.iterate_while_batched = original
+
+    return counts, undo
+
+
+def comparison_maps(dt, root: Path, n: int) -> SimpleNamespace:
+    """4 runs x 2 times of seeded n x n mass maps (the batch's blocks moved
+    per run, plus noise, unit mass), saved with ``Image.save`` as an analysis
+    exports them, each run with a CSV imaging protocol; the config object the
+    comparison's compute step reads (``tests/unit/test_comparison_wasserstein.py``'s
+    kind, with each run's data, protocol and mass folder)."""
+    start = datetime(2024, 3, 1, 9)
+    src, _ = ot_batch(n, 1)
+    runs = {}
+    for r, run in enumerate(G_RUNS):
+        folder = root / run
+        (folder / "mass" / "npz").mkdir(parents=True)
+        lines = ["image_id,datetime"]
+        for i, _ in enumerate(G_TIMES):
+            rng = np.random.default_rng(100 + 10 * r + i)
+            arr = np.roll(src[0], (3 * r + i, 5 * r), axis=(0, 1)) + 0.02 * rng.random((n, n))
+            arr = (arr / (arr.sum() / (n * n))).astype(np.float32)
+            image = dt.Image(torch.from_numpy(arr).cuda(), width=1, height=1, scalar=True)
+            image.save(folder / "mass" / "npz" / f"mass_{i:05d}.npz")
+            lines.append(f"{i},{(start + timedelta(hours=i)).isoformat(sep=' ')}")
+        (folder / "imaging.csv").write_text("\n".join(lines) + "\n")
+        runs[run] = SimpleNamespace(
+            analysis=SimpleNamespace(mass=SimpleNamespace(folder=folder)),
+            data=SimpleNamespace(data=[], pad=5),
+            protocol=SimpleNamespace(imaging=folder / "imaging.csv", injection=None,
+                                     pressure_temperature=None, blacklist=None),
+        )
+    wasserstein = SimpleNamespace(results=root / "results", runs=list(G_RUNS), resize_factor=None,
+                                  relative_tol=0.5, times=[(t, 0.1) for t in G_TIMES])
+    return SimpleNamespace(runs=SimpleNamespace(config=runs), wasserstein=wasserstein)
+
+
+def phase_batched(dt, device, card: str, profile) -> dict:
+    """Phase G: ``batched_wasserstein`` on the bench's batch row, then the
+    comparison's compute and assemble steps."""
+    import importlib
+    import tempfile
+
+    from darsia_tpu_torch.measure import beckmann_kernels as bk
+    from darsia_tpu_torch.parallel import batched_wasserstein
+
+    tic = time.perf_counter()
+    out = {}
+    n = G_N
+    src_np, dst_np = ot_batch(n, max(G_SIZES))
+    src_all = torch.from_numpy(src_np).to(device)
+    dst_all = torch.from_numpy(dst_np).to(device)
+    solve = batched_wasserstein((n, n), voxel_size=1.0 / n, options=G_OPTIONS)
+
+    # The bench row: B = 8, one warm-up call, then the timed one.
+    src, dst = src_all[:G_B], dst_all[:G_B]
+    t0 = time.perf_counter()
+    solve(src, dst)
+    warm_s = time.perf_counter() - t0
+    counts, undo = batch_cg_counter(bk)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        distances, iterations, statuses = solve(src, dst)
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+    finally:
+        undo()
+    if distances.shape != (G_B,) or not np.all(np.isfinite(distances)) or not np.all(statuses == 1):
+        raise AssertionError(f"G: distances {distances}, statuses {statuses}: not all converged")
+    trips = np.array([int(c.max()) for c in counts])
+    per_pair = np.sum(counts, axis=0)
+    out["batch8"] = {"s": batch_s, "pairs_per_s": G_B / batch_s, "iterations": int(iterations.max())}
+    print(
+        f"G1. batched W1, B = {G_B} at {n}x{n} on {card}: {batch_s:.3f} s per batch "
+        f"(warm-up {warm_s:.3f} s), "
+        f"w1_batch8_256_pairs_per_s {G_B / batch_s:.3f}, Newton iterations per pair "
+        f"{iterations.tolist()} (w1_batch8_256_iterations {int(iterations.max())}), all "
+        f"converged; distances {np.round(distances, 6).tolist()}; CG: {int(trips.sum())} "
+        f"iterations run by the batch over {len(counts)} pressure solves, per pair "
+        f"{per_pair.min()}-{per_pair.max()} (mean {per_pair.mean():.0f}: the batch ran "
+        f"{trips.sum() / per_pair.mean():.2f}x a mean pair's)"
+    )
+
+    # Pairs 0 and 7 alone, through the single Newton device path.
+    singles = {}
+    for i in (0, G_B - 1):
+        solver = dt.BeckmannNewtonSolver(dt.Grid((n, n), 1.0 / n), None, dict(G_OPTIONS))
+        t0 = time.perf_counter()
+        d_i, _, _, info = solver.solve_beckmann_problem(dst[i] - src[i])
+        s_i = time.perf_counter() - t0
+        rel = abs(d_i - distances[i]) / d_i
+        if not info["converged"] or not rel <= 1e-4:
+            raise AssertionError(f"G: pair {i} alone {d_i} vs in the batch {distances[i]}: {rel}")
+        singles[i] = (d_i, info["number_iterations"] + 1, s_i, rel)
+    print(
+        f"G2 (at {time.perf_counter() - tic:.1f} s). pairs alone (single Newton device path): "
+        + "; ".join(
+            f"pair {i} {d:.6f} ({k} iterations, {s:.3f} s; rel to the batch {r:.2e})"
+            for i, (d, k, s, r) in singles.items()
+        )
+    )
+
+    # B = 1, 8, 32: seconds per batch, pairs/s, launches per CG iteration, peak.
+    single_launches = cg_launches(dt, src_all[0], dst_all[0])
+    sizes = {}
+    for B in G_SIZES:
+        s_b, d_b = src_all[:B], dst_all[:B]
+        launches = cg_launches(dt, s_b, d_b)
+        if B == G_B:
+            seconds, k_b, st_b = batch_s, iterations, statuses
+            peak = torch.cuda.max_memory_allocated(device) / 2**30
+        else:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            _, k_b, st_b = solve(s_b, d_b)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(device) / 2**30
+        if not np.all(st_b == 1):
+            raise AssertionError(f"G: B = {B}: statuses {st_b}")
+        sizes[B] = {"s": seconds, "pairs_per_s": B / seconds, "launches_per_cg": launches,
+                    "peak_gib": peak, "iterations": (int(k_b.min()), int(k_b.max()))}
+        print(
+            f"G3 (at {time.perf_counter() - tic:.1f} s). B = {B}: {seconds:.3f} s per batch, "
+            f"{B / seconds:.3f} pairs/s, Newton "
+            f"iterations {int(k_b.min())}-{int(k_b.max())}, {launches:.0f} launches per CG "
+            f"iteration (one problem without a batch axis: {single_launches:.0f}), peak "
+            f"{peak:.3f} GiB"
+        )
+    if len({v["launches_per_cg"] for v in sizes.values()}) != 1:
+        raise AssertionError(f"G: launches per CG iteration differ with B: {sizes}")
+    out["sizes"] = sizes
+
+    # The comparison's compute and assemble steps on saved maps.
+    cw = importlib.import_module(
+        "darsia_tpu_torch.presets.workflows.comparison.comparison_wasserstein"
+    )
+    with tempfile.TemporaryDirectory() as tmp:
+        config = comparison_maps(dt, Path(tmp), n)
+        t0 = time.perf_counter()
+        results = cw._compute(None, config, skip_existing=False)
+        compute_s = time.perf_counter() - t0
+        files = sorted(config.wasserstein.results.glob("wasserstein_*.json"))
+        rows = cw._assemble(config)
+        lines = (config.wasserstein.results / "wasserstein_distances.csv").read_text().splitlines()
+        if len(results) != 12 or len(files) != 12 or len(rows) != 12 or len(lines) != 13:
+            raise AssertionError(
+                f"G: {len(results)} results, {len(files)} files, {len(rows)} rows, "
+                f"{len(lines)} CSV lines; want 12, 12, 12, 13"
+            )
+        checked = []
+        for result in (results[0], results[-1]):
+            i = G_TIMES.index(result.time)
+            a, b = (
+                dt.imread(Path(tmp) / run / "mass" / "npz" / f"mass_{i:05d}.npz")
+                for run in (result.run_a, result.run_b)
+            )
+            alone = dt.wasserstein_distance(a, b, method="newton")
+            rel = abs(alone - result.distance) / alone
+            if not np.isfinite(result.distance) or not rel <= 1e-4:
+                raise AssertionError(f"G: {result} vs alone {alone}: {rel}")
+            checked.append(f"{result.run_a}/{result.run_b} t={result.time} rel {rel:.2e}")
+    out["compare_s"] = compute_s
+    print(
+        f"G4 (at {time.perf_counter() - tic:.1f} s). comparison compute step: 4 runs x 2 times at {n}x{n}, 12 pairs in one group "
+        f"(one batched solve without options, as the JAX package's: the default tolerances "
+        f"stop each pair at its third iteration), {compute_s:.3f} s "
+        f"({12 / compute_s:.3f} pairs/s, map loading included); 12 result files, a 12-row "
+        f"CSV; against single solves: {'; '.join(checked)}"
+    )
+    if profile is not None:
+        for B in G_SIZES:
+            profile_batch(dt, src_all[:B], dst_all[:B], profile, f"w1_batch{B}")
+    out["phase_s"] = time.perf_counter() - tic
+    print(f"batched W1 and comparison on {card}: phase {out['phase_s']:.2f} s")
+    return out
+
+
+def profile_batch(dt, src, dst, out_dir: Path, name: str) -> None:
+    """torch.profiler over a short batched solve (the Darcy solve and one
+    Newton iteration): device busy against the unprofiled time."""
+    from darsia_tpu_torch.parallel import batched_wasserstein
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    n = src.shape[-1]
+    short = batched_wasserstein((n, n), 1.0 / n, options={**G_OPTIONS, "num_iter": 1})
+    short(src, dst)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    short(src, dst)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        short(src, dst)
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / f"profile_{name}.txt").write_text(averages.table(sort_by="cuda_time_total", row_limit=20))
+    trace = out_dir / f"profile_{name}.json"
+    prof.export_chrome_trace(str(trace))
+    events = [
+        e
+        for e in json.loads(trace.read_text())["traceEvents"]
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e
+    ]
+    if trace.stat().st_size > 8e6:
+        trace.unlink()
+    if not events:
+        print(f"profile {name}: the trace holds no device events")
+        return
+    busy_ms = busy_us(events) / 1e3
+    print(
+        f"profile {name} (B = {src.shape[0]}, Darcy solve + 1 Newton iteration; unprofiled "
+        f"{plain_ms:.1f} ms): {len(events)} device ops, device busy {busy_ms:.2f} ms, idle "
+        f"share {1 - busy_ms / plain_ms:.3f}"
+    )
+
+
 def profile_transport(dt, bk, solver, mass_diff, fluxes, out_dir: Path) -> None:
     """Phase F's profile: torch.profiler over a short Newton solve on F1's
     problem (the Darcy solve and one iteration), the coarsest multigrid
@@ -3069,6 +3375,9 @@ def main() -> int:
     reset_counts(w2p)
     phase_transport(dt, device, card, args.profile)
     check_counts(read_counts(w2p), {}, "F: transport")
+    reset_counts(w2p)
+    phase_batched(dt, device, card, args.profile)
+    check_counts(read_counts(w2p), {}, "G: batched W1 and comparison")
     phase_volume(dt, device, card)
     phase_kernel_fields(w2p, lanes, device)
 

@@ -73,6 +73,23 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _device_of(state) -> torch.device:
+    """The device of the first tensor in a (nested) state."""
+    while isinstance(state, (tuple, list)):
+        state = next(x for x in state if x is not None)
+    return state.device
+
+
+def _select(keep: torch.Tensor, new, old):
+    """Per problem of a batch, ``new`` where ``keep`` (``(B,)`` bool), else
+    ``old``, through nested tuples of tensors with the batch leading."""
+    if isinstance(new, (tuple, list)):
+        return type(new)(_select(keep, a, b) for a, b in zip(new, old))
+    if new is None:
+        return None
+    return torch.where(keep.reshape(keep.shape + (1,) * (new.dim() - 1)), new, old)
+
+
 class L1Mode(str, Enum):
     """Quadrature mode for the L1 dissipation."""
 
@@ -365,8 +382,15 @@ class BeckmannProblem:
             fluxes, c.qp, c.qw, c.w if weighted else 1.0, self.shape, self.dim
         )
 
+    def _cell_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the grid axes: 0-d, or one per problem of a leading batch
+        axis (``batched_wasserstein``)."""
+        if x.dim() == self.dim:
+            return torch.sum(x)
+        return torch.sum(x, dim=tuple(range(-self.dim, 0)))
+
     def _l1(self, fluxes: tuple) -> torch.Tensor:
-        return self.cell_vol * torch.sum(self.transport_density(fluxes))
+        return self.cell_vol * self._cell_sum(self.transport_density(fluxes))
 
     def flux_from_pressure(self, face_weights: tuple, p: torch.Tensor) -> tuple:
         grad = bk.pressure_gradient_faces(p, self.face_vol, self.dim)
@@ -378,19 +402,26 @@ class BeckmannProblem:
     def _cell_based_face_weights(self, fluxes: tuple) -> tuple:
         c = self._constants(fluxes[0].device)
         rho = bk.transport_density_cells(fluxes, c.qp, c.qw, c.w, self.shape, self.dim)
-        floor = torch.clamp(1e-6 * torch.max(rho), min=self.regularization)
+        peak = (
+            torch.max(rho)
+            if rho.dim() == self.dim
+            else torch.amax(rho, dim=tuple(range(-self.dim, 0)), keepdim=True)
+        )
+        floor = torch.clamp(1e-6 * peak, min=self.regularization)
         rho = torch.maximum(rho, floor)
         inv = bk.harmonic_face_average(self._cell_inverse_mobility(rho, c), self.dim)
         return tuple(1.0 / torch.clamp(f, min=1e-30) for f in inv)
 
     def _residual(self, fluxes, p, fw, mass_rhs, distance) -> torch.Tensor:
         div = bk.face_divergence(fluxes, self.face_vol, self.dim)
-        div_res_sq = torch.sum((div - mass_rhs) ** 2)
+        div_res_sq = self._cell_sum((div - mass_rhs) ** 2)
         grad = bk.pressure_gradient_faces(p, self.face_vol, self.dim)
+        if isinstance(distance, torch.Tensor):
+            distance = bk.per_pair(distance, self.dim)
         flux_res_sq = 0.0
         for d in range(self.dim):
             res = (self.cell_vol * fw[d] * fluxes[d] - grad[d]) / distance
-            flux_res_sq = flux_res_sq + torch.sum(res**2)
+            flux_res_sq = flux_res_sq + self._cell_sum(res**2)
         return torch.sqrt(flux_res_sq + div_res_sq)
 
     # ---------------------------------------------------- dual certificate
@@ -409,9 +440,13 @@ class BeckmannProblem:
         )
 
     def _ratio(self, cell_vectors: torch.Tensor, c) -> torch.Tensor:
-        """max over points and cells of |vector| / w."""
+        """max over points and cells of |vector| / w (per problem of a batch:
+        ``cell_vectors`` is ``(nq, *lead, *shape, dim)``)."""
         norms = torch.linalg.vector_norm(cell_vectors, dim=-1)
-        return torch.max(norms if isinstance(c.w, float) else norms / c.w)
+        ratios = norms if isinstance(c.w, float) else norms / c.w
+        if ratios.dim() == self.dim + 1:
+            return torch.max(ratios)
+        return torch.amax(ratios, dim=(0,) + tuple(range(-self.dim, 0)))
 
     def _dual_value(self, p: torch.Tensor, mass_rhs: torch.Tensor) -> torch.Tensor:
         """Certified dual (Kantorovich) value from a potential iterate.
@@ -428,7 +463,7 @@ class BeckmannProblem:
         c = self._constants(p.device)
         gq = bk.face_to_cell_pt(self._ghat(p, c), c.qp, self.shape, self.dim)
         ratio = self._ratio(gq, c)
-        return torch.abs(torch.sum(p * mass_rhs)) / torch.clamp(ratio, min=1e-30)
+        return torch.abs(self._cell_sum(p * mass_rhs)) / torch.clamp(ratio, min=1e-30)
 
     def _mirror_blur(self, p: torch.Tensor, sigma: float) -> torch.Tensor:
         """Gaussian blur of width ``sigma`` cells via mirror-extended FFT (the
@@ -981,7 +1016,9 @@ class BeckmannProblem:
             if isinstance(row, dict):
                 row.update(phases)
 
-    def pressure_solve(self, face_weights: tuple, rhs_cells, p0) -> torch.Tensor:
+    def pressure_solve(self, face_weights: tuple, rhs_cells, p0, active=None) -> torch.Tensor:
+        """The pressure Schur solve; a batch of right-hand sides (leading
+        axis) solves each on its own, ``active`` masking it."""
         trans = self.transmissibilities(face_weights)
         if self._use_mg:
             return bk.tpfa_mg_pcg(
@@ -992,9 +1029,16 @@ class BeckmannProblem:
                 tol=self.cg_tol,
                 maxiter=self._mg_maxiter,
                 levels=self._mg_levels,
+                active=active,
             )
         return bk.tpfa_cg(
-            trans, rhs_cells, p0, dim=self.dim, tol=self.cg_tol, maxiter=self.cg_maxiter
+            trans,
+            rhs_cells,
+            p0,
+            dim=self.dim,
+            tol=self.cg_tol,
+            maxiter=self.cg_maxiter,
+            active=active,
         )
 
     def residual_norms(self, fluxes, p, face_weights, mass_rhs) -> float:
@@ -1003,6 +1047,80 @@ class BeckmannProblem:
         return float(self._residual(fluxes, p, face_weights, mass_rhs, distance))
 
     # ------------------------------------------------------- the outer loop
+
+    def _device_loop(self, step, state, distance, res_norm, history=None):
+        """The JAX package's whole-solve device loop (``_build_fused_outer``)
+        for one problem, or for a batch of problems along a leading axis as
+        ``jax.vmap`` runs it (``batched_wasserstein``).
+
+        ``step(state, k, running) -> (state, metrics)`` with the metrics
+        ``[distance, increment^2, norm^2, residual, gap]``, ``(5,)`` or
+        ``(B, 5)``; ``running`` is None for one problem, else a ``(B,)`` bool
+        tensor of the problems still iterating.  The metrics are read once
+        per iteration and judged in the solve's dtype; per problem: a
+        non-finite iterate keeps the previous state and distance (status 2),
+        convergence counts from the third iteration (status 1), the
+        iteration cap leaves status 0; a problem that has stopped keeps its
+        state.  ``res_norm`` > 0 normalizes the residual criterion, else each
+        problem's first residual does.  ``history`` (one problem) records
+        every iteration.
+
+        Returns ``(state, distances, statuses, steps)``, the last three
+        ``(B,)`` numpy arrays (``B = 1`` for one problem).
+        """
+        cc = self.convergence_criteria
+        real = np.float64 if self.dtype == torch.float64 else np.float32
+        f32_max = float(np.finfo(np.float32).max)
+        tol_inc = real(min(cc.tol_increment, f32_max))
+        tol_dist = real(min(cc.tol_distance, f32_max))
+        tol_res = real(min(cc.tol_residual, f32_max))
+        tiny = real(1e-30)
+        dist = np.atleast_1d(np.asarray(distance, dtype=real))
+        single = np.ndim(distance) == 0
+        res0 = np.full(dist.shape, res_norm, dtype=real)
+        status = np.zeros(dist.shape, np.int32)
+        steps = np.zeros(dist.shape, np.int64)
+        for k in range(int(cc.num_iter)):
+            running = status == 0
+            if not running.any():
+                break
+            tic = time.perf_counter()
+            mask = None if single else torch.from_numpy(running).to(_device_of(state))
+            new_state, metrics = step(state, k, mask)
+            m = metrics.cpu().numpy().astype(real).reshape(-1, 5)
+            seconds = time.perf_counter() - tic
+            steps[running] = k + 1
+            d_k = m[:, 0]
+            flux_inc = np.sqrt(m[:, 1])
+            rel_inc = flux_inc / np.maximum(np.sqrt(m[:, 2]), tiny)
+            residual = m[:, 3]
+            dist_inc = np.abs(d_k - dist)
+            rel_dist = dist_inc / np.maximum(d_k, tiny)
+            if k == 0:
+                res0 = np.where(res0 <= 0, residual, res0)
+            rel_res = residual / np.maximum(res0, tiny)
+            if history is not None:
+                history.append(
+                    distance=float(d_k[0]),
+                    distance_increment=float(dist_inc[0]),
+                    residual=float(residual[0]),
+                    increment=float(flux_inc[0]),
+                    duality_gap=float(m[0, 4]),
+                    timings={"total": seconds},
+                    total_run_time=seconds,
+                )
+            finite = np.isfinite(d_k) & np.isfinite(rel_inc) & np.isfinite(rel_res)
+            converged = (rel_inc < tol_inc) & (rel_dist < tol_dist) & (rel_res < tol_res) & (k > 1)
+            accept = running & finite
+            status[running & ~finite] = 2
+            status[accept & converged] = 1
+            if accept.all():
+                state = new_state
+            elif accept.any():
+                keep = torch.from_numpy(accept).to(_device_of(state))
+                state = _select(keep, new_state, state)
+            dist = np.where(accept, d_k, dist)
+        return state, dist, status, steps
 
     def _iterate(
         self,
@@ -1033,48 +1151,15 @@ class BeckmannProblem:
         status = ConvergenceStatus.IN_PROGRESS
         start = time.perf_counter()
         if device_path:
-            real = np.float64 if self.dtype == torch.float64 else np.float32
-            f32_max = float(np.finfo(np.float32).max)
-            tol_inc = real(min(cc.tol_increment, f32_max))
-            tol_dist = real(min(cc.tol_distance, f32_max))
-            tol_res = real(min(cc.tol_residual, f32_max))
-            tiny = real(1e-30)
-            dist = real(distance)
-            res0 = real(res_norm)
-            steps = 0
-            status = ConvergenceStatus.NOT_CONVERGED
-            for k in range(int(cc.num_iter)):
-                tic = time.perf_counter()
-                new_state, metrics = step(state, k)
-                m = [real(v) for v in metrics.tolist()]
-                seconds = time.perf_counter() - tic
-                steps = k + 1
-                d_k = m[0]
-                flux_inc = np.sqrt(m[1])
-                rel_inc = flux_inc / max(np.sqrt(m[2]), tiny)
-                residual = m[3]
-                dist_inc = abs(d_k - dist)
-                rel_dist = dist_inc / max(d_k, tiny)
-                if k == 0 and res0 <= 0:
-                    res0 = residual
-                rel_res = residual / max(res0, tiny)
-                history.append(
-                    distance=float(d_k),
-                    distance_increment=float(dist_inc),
-                    residual=float(residual),
-                    increment=float(flux_inc),
-                    duality_gap=float(m[4]),
-                    timings={"total": seconds},
-                    total_run_time=seconds,
-                )
-                if not (np.isfinite(d_k) and np.isfinite(rel_inc) and np.isfinite(rel_res)):
-                    status = ConvergenceStatus.DIVERGED
-                    break
-                state, dist = new_state, d_k
-                if rel_inc < tol_inc and rel_dist < tol_dist and rel_res < tol_res and k > 1:
-                    status = ConvergenceStatus.CONVERGED
-                    break
-            return state, float(dist), status, max(steps - 1, 0), history, (
+            state, dist, codes, steps = self._device_loop(
+                lambda state, k, running: step(state, k), state, distance, res_norm, history
+            )
+            status = (
+                ConvergenceStatus.NOT_CONVERGED,
+                ConvergenceStatus.CONVERGED,
+                ConvergenceStatus.DIVERGED,
+            )[int(codes[0])]
+            return state, float(dist[0]), status, max(int(steps[0]) - 1, 0), history, (
                 time.perf_counter() - start
             )
 
@@ -1213,6 +1298,11 @@ class BeckmannNewtonSolver(BeckmannProblem):
             tol_residual=options.get("tol_residual", np.finfo(float).max),
         )
 
+    def _traceable_mobility(self) -> bool:
+        """Cell-based mobility: the modes the JAX package traces into its
+        device loop (and the only ones its batched solve takes)."""
+        return self.mobility_mode in _TRACEABLE_MOBILITY
+
     def compute_residual(self, fluxes, pressure, mass_rhs) -> torch.Tensor:
         """Flat (ndofs,) residual of the optimality system at the current
         iterate: flux block ``cell_vol*fw*u - grad p``, pressure block
@@ -1264,6 +1354,41 @@ class BeckmannNewtonSolver(BeckmannProblem):
             "metrics": self._time_phase(metrics, (fluxes, p, fw, mass_rhs), reps),
         }
 
+    def _newton_step(self, state, it, mass_rhs, device_path, running=None):
+        """One Newton iteration (the JAX package's ``_fused_step_fn`` and its
+        Anderson variants): face weights, the pressure solve from zero, the
+        fluxes, then the metrics ``[distance, increment^2, norm^2, residual,
+        gap]``; each per problem (metrics ``(B, 5)``) for a batch along a
+        leading axis, whose pressure solve ``running`` masks."""
+        fluxes, p, aa = state
+        face_weights = self.compute_face_weights(fluxes)
+        # Solve from zero: warm-starting lets the weakly constrained
+        # pressure in zero-flux regions drift unboundedly.
+        p_new = self.pressure_solve(face_weights, mass_rhs, torch.zeros_like(p), running)
+        fluxes_new = self.flux_from_pressure(face_weights, p_new)
+        if aa is not None:
+            gk = self._flatten_fluxes(fluxes_new)
+            fk = gk - self._flatten_fluxes(fluxes)
+            aa, mixed = anderson_mix(aa, gk, fk, restart=self.aa_restart)
+            fluxes_new = self._unflatten_fluxes(mixed)
+        elif self.anderson is not None and not device_path:
+            flat = self.flat_flux(fluxes_new).cpu().numpy()
+            flat_old = self.flat_flux(fluxes).cpu().numpy()
+            accelerated = self.anderson(flat, flat - flat_old, it)
+            fluxes_new = tuple(
+                torch.from_numpy(a).to(device=p.device, dtype=self.dtype)
+                for a in self.grid.face_arrays(accelerated)
+            )
+        distance = self._l1(fluxes_new)
+        inc_sq = sum(self._cell_sum((fluxes_new[d] - fluxes[d]) ** 2) for d in range(self.dim))
+        norm_sq = sum(self._cell_sum(fluxes_new[d] ** 2) for d in range(self.dim))
+        residual = self._residual(
+            fluxes_new, p_new, face_weights, mass_rhs, torch.clamp(distance, min=1e-30)
+        )
+        gap = self._gap(distance, p_new, mass_rhs)
+        metrics = torch.stack([distance, inc_sq, norm_sq, residual, gap], dim=-1)
+        return (fluxes_new, p_new, aa), metrics
+
     def solve_beckmann_problem(self, mass_diff):
         mass_diff = self._mass_diff(mass_diff)
         device = mass_diff.device
@@ -1292,34 +1417,7 @@ class BeckmannNewtonSolver(BeckmannProblem):
             aa_state = anderson_init(num_faces, self.aa_depth, self.dtype, device)
 
         def step(state, it):
-            fluxes, p, aa = state
-            face_weights = self.compute_face_weights(fluxes)
-            # Solve from zero: warm-starting lets the weakly constrained
-            # pressure in zero-flux regions drift unboundedly.
-            p_new = self.pressure_solve(face_weights, mass_rhs, torch.zeros_like(p))
-            fluxes_new = self.flux_from_pressure(face_weights, p_new)
-            if aa is not None:
-                gk = self._flatten_fluxes(fluxes_new)
-                fk = gk - self._flatten_fluxes(fluxes)
-                aa, mixed = anderson_mix(aa, gk, fk, restart=self.aa_restart)
-                fluxes_new = self._unflatten_fluxes(mixed)
-            elif self.anderson is not None and not device_path:
-                flat = self.flat_flux(fluxes_new).cpu().numpy()
-                flat_old = self.flat_flux(fluxes).cpu().numpy()
-                accelerated = self.anderson(flat, flat - flat_old, it)
-                fluxes_new = tuple(
-                    torch.from_numpy(a).to(device=device, dtype=self.dtype)
-                    for a in self.grid.face_arrays(accelerated)
-                )
-            distance = self._l1(fluxes_new)
-            inc_sq = sum(torch.sum((fluxes_new[d] - fluxes[d]) ** 2) for d in range(self.dim))
-            norm_sq = sum(torch.sum(fluxes_new[d] ** 2) for d in range(self.dim))
-            residual = self._residual(
-                fluxes_new, p_new, face_weights, mass_rhs, torch.clamp(distance, min=1e-30)
-            )
-            gap = self._gap(distance, p_new, mass_rhs)
-            metrics = torch.stack([distance, inc_sq, norm_sq, residual, gap])
-            return (fluxes_new, p_new, aa), metrics
+            return self._newton_step(state, it, mass_rhs, device_path)
 
         def report(it, distance, rel_dist, rel_inc, rel_res):
             if self.verbose:

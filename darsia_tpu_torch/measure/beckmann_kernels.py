@@ -10,7 +10,12 @@ The spatial axes are a tensor's last ``dim`` axes; leading axes (if any)
 are a batch that the face arrays broadcast over.  Fixed-count loops (the JAX
 package's ``lax.fori_loop``) are Python loops that read nothing on the
 host; the CG loops go through :func:`darsia_tpu_torch.ops.solvers.iterate_while`,
-which reads the device-computed stopping rule once per iteration.  The
+which reads the device-computed stopping rule once per iteration.  A CG
+solve of a batch of problems (``rhs`` of shape ``(B, *shape)``, the
+transmissibilities ``(B, *faces)`` or shared) is what ``jax.vmap`` makes of
+the JAX package's loop: each problem stops on its own rule and keeps its
+state from then on (:func:`~darsia_tpu_torch.ops.solvers.iterate_while_batched`),
+and every launch serves the whole batch.  The
 arithmetic of every stencil is the JAX package's, term for term.  The
 V-cycle computes the same preconditioner with fewer launches (a CG
 iteration at 512^2 is launch-bound: 862 launches, the card idle 90% of the
@@ -27,7 +32,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from ..ops.solvers import iterate_while
+from ..ops.solvers import iterate_while, iterate_while_batched
 
 __all__ = [
     "face_divergence",
@@ -89,14 +94,15 @@ def face_to_cell_pt(fluxes: tuple, pt: torch.Tensor, shape: tuple, dim: int):
     """RT0 evaluation of the flux at relative point ``pt`` in each cell.
 
     ``pt`` is ``(dim,)``, or ``(nq, dim)`` for ``nq`` points at once; the
-    result is ``(*shape, dim)``, or ``(nq, *shape, dim)``.
+    result is ``(*lead, *shape, dim)``, or ``(nq, *lead, *shape, dim)`` for
+    fluxes with leading batch axes ``lead``.
     """
     lead = pt.shape[:-1]
     comps = []
     for d in range(dim):
         u = fluxes[d]
         ax = _axis(u, d, dim)
-        w = pt[..., d].reshape(lead + (1,) * dim)
+        w = pt[..., d].reshape(lead + (1,) * u.dim())
         comps.append(w * _pad_axis(u, ax, 0, 1) + (1 - w) * _pad_axis(u, ax, 1, 0))
     return torch.stack(comps, dim=-1)
 
@@ -137,7 +143,7 @@ def transport_density_cells(
     elif cell_weights != 1:
         cell_flux = cell_flux * cell_weights
     norms = torch.linalg.vector_norm(cell_flux, dim=-1)
-    return (quad_weights.reshape((-1,) + (1,) * dim) * norms).sum(dim=0)
+    return (quad_weights.reshape((-1,) + (1,) * (norms.dim() - 1)) * norms).sum(dim=0)
 
 
 def harmonic_face_average(cell_qty: torch.Tensor, dim: int) -> tuple:
@@ -178,49 +184,85 @@ def _tpfa_diag(trans: tuple, dim: int) -> torch.Tensor:
     return torch.clamp(diag, min=1e-30)
 
 
-def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.dot(a.reshape(-1), b.reshape(-1))
+def _cells(x: torch.Tensor, dim: int) -> tuple:
+    """The grid axes of ``x``: its last ``dim`` axes."""
+    return tuple(range(x.dim() - dim, x.dim()))
 
 
-def _project(v: torch.Tensor) -> torch.Tensor:
-    return v - torch.mean(v)
+def per_pair(v: torch.Tensor, dim: int) -> torch.Tensor:
+    """A value per problem of a batch, ``(B,)``, shaped to broadcast against
+    ``(B, *shape)``; a 0-d value (one problem) stays as it is."""
+    return v if v.dim() == 0 else v.reshape(v.shape + (1,) * dim)
 
 
-def _pcg(A, M, rhs, x0, tol, maxiter, guard_rz_positive: bool, clamp_beta: bool):
+def _vdot(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
+    """<a, b> over the grid axes: 0-d, or ``(B,)`` for a batch (one batched
+    matrix product, one launch like ``torch.dot``)."""
+    if a.dim() == dim:
+        return torch.dot(a.reshape(-1), b.reshape(-1))
+    n = math.prod(a.shape[a.dim() - dim :])
+    lead = a.shape[: a.dim() - dim]
+    return torch.bmm(a.reshape(-1, 1, n), b.reshape(-1, n, 1)).reshape(lead)
+
+
+def _norm(v: torch.Tensor, dim: int) -> torch.Tensor:
+    if v.dim() == dim:
+        return torch.linalg.vector_norm(v)
+    return torch.linalg.vector_norm(v, dim=_cells(v, dim))
+
+
+def _project(v: torch.Tensor, dim: int) -> torch.Tensor:
+    """``v`` minus its mean over the grid (per problem of a batch)."""
+    if v.dim() == dim:
+        return v - torch.mean(v)
+    return v - torch.mean(v, dim=_cells(v, dim), keepdim=True)
+
+
+def _pcg(A, M, rhs, x0, tol, maxiter, guard_rz_positive: bool, clamp_beta: bool, dim: int,
+         active=None):
     """Nullspace-projected preconditioned CG (the JAX package's two CG loops:
     Jacobi-preconditioned with ``rz > 1e-28`` and a clamped beta; MG with
     ``|rz| > 1e-28`` and a plain beta).  Stops on convergence, the iteration
     cap, or float32 breakdown (rz non-finite or underflowing); an update
-    that makes x non-finite is rejected (the last healthy iterate stays)."""
-    b = _project(rhs)
-    x = _project(x0)
+    that makes x non-finite is rejected (the last healthy iterate stays).
+
+    A batch (``rhs`` with leading axes) runs as ``jax.vmap`` runs the loop:
+    every problem stops on its own threshold ``tol * |b|`` and health test
+    and keeps its state from then on; ``active`` (a ``(B,)`` bool tensor)
+    leaves the problems it marks False at ``x0``'s projection from the
+    start.  Launches per iteration do not grow with the batch."""
+    b = _project(rhs, dim)
+    x = _project(x0, dim)
     r = b - A(x)
     z = M(r)
-    rz = _vdot(r, z)
-    threshold = tol * torch.clamp(torch.linalg.vector_norm(b), min=1e-30)
+    rz = _vdot(r, z, dim)
+    threshold = tol * torch.clamp(_norm(b, dim), min=1e-30)
 
     def cond(state, k):
         _, r, _, rz = state
         small = rz if guard_rz_positive else torch.abs(rz)
         healthy = torch.isfinite(rz) & (small > 1e-28)
-        return (torch.linalg.vector_norm(r) > threshold) & healthy
+        return (_norm(r, dim) > threshold) & healthy
 
     def body(state, k):
         x, r, pvec, rz = state
         Ap = A(pvec)
-        alpha = rz / torch.clamp(_vdot(pvec, Ap), min=1e-30)
-        x_new = _project(x + alpha * pvec)
+        alpha = per_pair(rz / torch.clamp(_vdot(pvec, Ap, dim), min=1e-30), dim)
+        x_new = _project(x + alpha * pvec, dim)
         r_new = r - alpha * Ap
         z = M(r_new)
-        rz_new = _vdot(r_new, z)
-        beta = rz_new / (torch.clamp(rz, min=1e-30) if clamp_beta else rz)
+        rz_new = _vdot(r_new, z, dim)
+        beta = per_pair(rz_new / (torch.clamp(rz, min=1e-30) if clamp_beta else rz), dim)
         pvec_new = z + beta * pvec
-        ok = torch.isfinite(_vdot(x_new, x_new))
+        ok = per_pair(torch.isfinite(_vdot(x_new, x_new, dim)), dim)
         x_new = torch.where(ok, x_new, x)
         r_new = torch.where(ok, r_new, r)
         return (x_new, r_new, pvec_new, rz_new)
 
-    (x, *_), _ = iterate_while(cond, body, (x, r, z, rz), maxiter)
+    if rhs.dim() == dim:
+        (x, *_), _ = iterate_while(cond, body, (x, r, z, rz), maxiter)
+    else:
+        (x, *_), _ = iterate_while_batched(cond, body, (x, r, z, rz), maxiter, active)
     return x
 
 
@@ -231,12 +273,14 @@ def tpfa_cg(
     dim: int = 2,
     tol: float = 1e-6,
     maxiter: int = 500,
+    active: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Nullspace-projected, Jacobi-preconditioned CG for the TPFA system.
 
     The pure-Neumann TPFA operator has the constants as nullspace; rhs and
     iterates are orthogonalized against constants (the reference's
-    Lagrange-multiplier pressure constraint, SPD-friendly).
+    Lagrange-multiplier pressure constraint, SPD-friendly).  ``rhs`` may
+    carry a leading batch axis (see :func:`_pcg`; ``active`` masks it).
     """
     diag = torch.zeros_like(rhs)
     for d in range(dim):
@@ -245,13 +289,15 @@ def tpfa_cg(
     diag = torch.clamp(diag, min=1e-30)
     return _pcg(
         lambda p: tpfa_apply(p, trans, dim),
-        lambda r: _project(r / diag),
+        lambda r: _project(r / diag, dim),
         rhs,
         x0,
         tol,
         maxiter,
         guard_rz_positive=True,
         clamp_beta=True,
+        dim=dim,
+        active=active,
     )
 
 
@@ -320,7 +366,8 @@ COARSE_MATRIX_CELLS = 1024
 class MGHierarchy(NamedTuple):
     """Per level: face transmissibilities and the Jacobi step omega/diag;
     ``coarse``: the (n, n) float64 matrix of the coarsest level's sweeps
-    from zero (row i = the sweeps applied to unit vector i), or None."""
+    from zero (row i = the sweeps applied to unit vector i), ``(B, n, n)``
+    for transmissibilities with a batch axis, or None."""
 
     trans: list
     steps: list
@@ -353,9 +400,11 @@ def _tpfa_sweeps(x, b, trans, step, dim, nu):
 
 def _tpfa_coarsest(b, hierarchy: MGHierarchy, dim, nu, nu_coarse):
     """The coarsest level: ``nu + nu_coarse`` sweeps from zero, a linear map
-    of ``b`` (applied as its float64 matrix when there is one)."""
+    of ``b`` (applied as its float64 matrix when there is one; per problem
+    of a batch, one batched product)."""
     if hierarchy.coarse is not None:
-        flat = b.reshape(1, -1).to(torch.float64) @ hierarchy.coarse
+        lead = tuple(b.shape[: b.dim() - dim])
+        flat = torch.matmul(b.reshape(lead + (1, -1)).to(torch.float64), hierarchy.coarse)
         return flat.reshape(b.shape).to(b.dtype)
     trans, step = hierarchy.trans[-1], hierarchy.steps[-1]
     return _tpfa_sweeps(_tpfa_sweeps(None, b, trans, step, dim, nu), b, trans, step, dim, nu_coarse)
@@ -387,19 +436,28 @@ def tpfa_mg_hierarchy(
 ) -> MGHierarchy:
     """The V-cycle's levels: Galerkin-coarsened transmissibilities, Jacobi
     steps and (for a small coarsest level) the matrix of its sweeps, built in
-    float64 on the unit vectors as one batch."""
+    float64 on the unit vectors as one batch (for a batch of problems, B * n
+    unit vectors: one matrix per problem)."""
     trans_levels = [tuple(trans)]
     for _ in range(levels - 1):
         trans_levels.append(tpfa_coarsen_trans(trans_levels[-1], dim))
     steps = [omega / _tpfa_diag(t, dim) for t in trans_levels]
     coarse = None
-    shape = tuple(steps[-1].shape)
+    lead = tuple(steps[-1].shape[: steps[-1].dim() - dim])
+    shape = tuple(steps[-1].shape[steps[-1].dim() - dim :])
     n = math.prod(shape)
     if n <= COARSE_MATRIX_CELLS:
         t64 = tuple(t.to(torch.float64) for t in trans_levels[-1])
-        eye = torch.eye(n, dtype=torch.float64, device=steps[-1].device).reshape((n,) + shape)
+        eye = torch.eye(n, dtype=torch.float64, device=steps[-1].device)
+        if lead:
+            eye = eye.reshape((n,) + (1,) * len(lead) + shape).expand((n,) + lead + shape)
+            eye = eye.contiguous()
+        else:
+            eye = eye.reshape((n,) + shape)
         sweeps = _tpfa_sweeps(None, eye, t64, omega / _tpfa_diag(t64, dim), dim, nu + nu_coarse)
-        coarse = sweeps.reshape(n, n)
+        coarse = sweeps.reshape((n,) + lead + (n,))
+        if lead:
+            coarse = coarse.movedim(0, -2)
     return MGHierarchy(trans_levels, steps, coarse)
 
 
@@ -413,21 +471,26 @@ def tpfa_mg_pcg(
     levels: int = 4,
     nu: int = 2,
     nu_coarse: int = 40,
+    active: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Nullspace-projected CG preconditioned by one geometric-MG V-cycle.
 
     On heterogeneous 1/|u| mobility weights the Jacobi-preconditioned
     :func:`tpfa_cg` iteration count grows with grid size and weight
     contrast; the Galerkin V-cycle keeps it roughly grid-independent.
+    ``rhs`` may carry a leading batch axis (see :func:`_pcg`; ``active``
+    masks it), the transmissibilities too (one hierarchy per problem).
     """
     hierarchy = tpfa_mg_hierarchy(trans, dim, levels, nu, nu_coarse)
     return _pcg(
         lambda p: tpfa_apply(p, hierarchy.trans[0], dim),
-        lambda r: _project(_tpfa_vcycle(r, hierarchy, dim, nu, nu_coarse)),
+        lambda r: _project(_tpfa_vcycle(r, hierarchy, dim, nu, nu_coarse), dim),
         rhs,
         x0,
         tol,
         maxiter,
         guard_rz_positive=False,
         clamp_beta=False,
+        dim=dim,
+        active=active,
     )

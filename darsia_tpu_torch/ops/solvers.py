@@ -16,6 +16,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Optional, Union
 
+import numpy as np
 import torch
 
 from ..utils.derivatives import fv_laplace
@@ -25,6 +26,7 @@ __all__ = [
     "cg_solve",
     "clamp_depth",
     "iterate_while",
+    "iterate_while_batched",
     "jacobi_solve",
     "mg_solve",
     "neighbor_accumulation",
@@ -54,6 +56,43 @@ def iterate_while(
         state = body(state, it)
         it += 1
     return state, it
+
+
+def iterate_while_batched(
+    cond: Callable[[tuple, int], torch.Tensor],
+    body: Callable[[tuple, int], tuple],
+    state: tuple,
+    maxiter: int,
+    active: Optional[torch.Tensor] = None,
+) -> tuple:
+    """:func:`iterate_while` over a batch of independent problems, as
+    ``jax.vmap`` runs a ``lax.while_loop``: ``cond`` returns a ``(B,)`` bool
+    tensor, the body runs for the whole batch, and each problem whose test
+    has failed once keeps its state (``torch.where``) from then on.  Every
+    tensor of ``state`` has the batch as its leading axis.  ``active`` (a ``(B,)`` bool tensor) holds some problems
+    still from the start.
+
+    The host reads the ``(B,)`` flags once per iteration, as
+    :func:`iterate_while` reads its one flag: the launches per iteration do
+    not grow with the batch.
+
+    Returns the final state and the iterations each problem took, a
+    ``(B,)`` numpy array.
+    """
+    counts = np.zeros(state[0].shape[0], np.int64)
+    for it in range(maxiter):
+        test = cond(state, it)
+        active = test if active is None else active & test
+        flags = active.cpu().numpy()
+        if not flags.any():
+            break
+        counts += flags
+        new = body(state, it)
+        state = tuple(
+            torch.where(active.reshape(active.shape + (1,) * (s.dim() - 1)), n, s)
+            for n, s in zip(new, state)
+        )
+    return state, counts
 
 
 def neighbor_accumulation(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -656,3 +656,36 @@ def test_newton_w1_on_the_card_matches_the_cpu():
     assert info_card["pressure"].device.type == "cuda"
     assert info_card["converged"] and info_cpu["converged"]
     assert abs(d_card - d_cpu) <= 1e-5 * d_cpu
+
+
+def test_batched_w1_on_the_card_matches_single_solves_and_the_cpu():
+    """``batched_wasserstein`` on the card (a numpy batch goes there): each
+    pair against its single Newton solve on the card, and the batch against
+    the same batch as CPU tensors, within 1e-5 relative."""
+    import darsia_tpu_torch as dt
+    from darsia_tpu_torch.parallel import batched_wasserstein
+
+    n, B, q = 32, 3, 3
+    rng = np.random.default_rng(0)
+    src0 = np.zeros((n, n))
+    src0[2 * q : 5 * q, 2 * q : 5 * q] = 1
+    dst0 = np.zeros((n, n))
+    dst0[q : 3 * q, q : 2 * q] = 1
+    dst0[4 * q : 7 * q, 7 * q : 9 * q] = 1
+    src = np.stack([src0 + 0.02 * rng.random((n, n)) for _ in range(B)])
+    dst = np.stack([dst0 + 0.02 * rng.random((n, n)) for _ in range(B)])
+    src = (src / src.sum(axis=(1, 2), keepdims=True) * n * n).astype(np.float32)
+    dst = (dst / dst.sum(axis=(1, 2), keepdims=True) * n * n).astype(np.float32)
+    options = {"num_iter": 100, "tol_distance": 1e-4}
+    solve = batched_wasserstein((n, n), 1.0 / n, None, options)
+    card = solve(src, dst)
+    cpu = solve(torch.from_numpy(src), torch.from_numpy(dst))
+    assert np.all(card[2] == 1) and np.array_equal(card[2], cpu[2])
+    assert np.all(np.abs(card[0] - cpu[0]) <= 1e-5 * cpu[0])
+    for i in range(B):
+        solver = dt.BeckmannNewtonSolver(dt.Grid((n, n), 1.0 / n), None, options)
+        distance, _, pressure, info = solver.solve_beckmann_problem(
+            torch.from_numpy(dst[i] - src[i]).cuda()
+        )
+        assert pressure.device.type == "cuda" and info["converged"]
+        assert abs(card[0][i] - distance) <= 1e-5 * distance
