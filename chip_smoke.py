@@ -237,10 +237,49 @@ G. Batched W1 and the cross-run comparison (after phase F).  The bench's
    No K1 launch (counted).  With ``--profile``: the idle share of a short
    batched solve at B = 1, 8 and 32.
 
+H. The FluidFlower CO2 and tracer analyses and the rig (after phase G), on
+   seeded 1788x3180 uint8 photographs saved as npz: 12 wavy layers in
+   seeded colours under sensor noise with the checker painted; the probe
+   drifted by (2, 3) px with a CO2 plume and a stronger gas core painted in.
+   H1: ``FluidFlowerCO2Analysis`` from a JSON config with the rig's drift,
+   colour-checker and curvature sections, the 12 layers (through the
+   curvature correction) set as labels by a subclass, ``co2`` with a
+   per-label static threshold list and ``co2(g)`` with per-label dynamic
+   Otsu in [0.1, 0.9] (the option keys of
+   ``tests/unit/test_fluidflower_presets.py:30-58``: resize 0.5, Chambolle
+   0.05 x 30, posterior "value" 0.02).  Set-up with the cleaning filter
+   learnt from 2 baselines (28 K1 launches: the drift-corrected baseline 2,
+   the corrected baseline 6, the curvature correction's pull-back grid 8 on
+   its first call, each baseline again 6), then read from its cache (16,
+   the filter equal to the file); the photograph with its
+   segmentation written: exactly 6 K1 launches per reading call (the chain's
+   order, drift -> colour -> curvature, splits the geometric corrections
+   into two runs, a pair each, and the checker crop is one more pair), each
+   bitwise equal to plain K1; no CO2(g) pixel outside CO2; the plume and the
+   gas core found at seeded points, the background clean (CO2 on fewer than
+   0.1% of the pixels off the plume, 32 px from the border); the per-label
+   histograms of CO2(g)'s signal on the card equal ``np.histogram`` and give
+   its Otsu thresholds; on a 512x1024 crop of the corrected frames, the
+   analysis on the card against the same on the CPU: fewer than 0.1% of the
+   pixels differ, as are within 1e-6 of a threshold (counted).  Times: the
+   set-ups, ms per photograph (median of 5 after a warm-up, peak GiB), and
+   3 calls split into read / co2 / co2(g) / the host posterior and binary
+   clean-up; with ``--profile`` device busy and idle share.  H2:
+   ``FluidFlowerTracerAnalysis`` over the same labels
+   (``HeterogeneousLinearModel``): set-up, ``calibrate_balancing`` on 2
+   seeded tracer photographs (per-layer gains; 12 K1 launches), its
+   scalings against a float64 numpy reckoning (scipy's dilation, strip
+   means, lstsq) within 1e-5, ms per photograph (median of 5).  H3:
+   ``FluidFlowerRig`` on the baseline halved (894x1590: the host median of
+   the default disk takes ~4x as long at full size) with one supervised
+   marker per layer and Scharr edges: segmentation s, 12 labels, and a
+   second construction from the labels cache gives equal labels; no K1.
+   The phase checks its 198 K1 launches exactly.
+
 Every launch count is set to 0 just before each path of phases 3, 5-7,
-8-11, 14-20, B, E, F and G and read just after it; the ``kernels`` line's K1
-launches are their sum, 586 before phase E, 28 in it and none in F or G
-(checked exactly).  Each of phases 8-12, 14-20, A-G prints its seconds.  The
+8-11, 14-20, B, E, F, G and H and read just after it; the ``kernels`` line's
+K1 launches are their sum, 586 before phase E, 28 in it, none in F or G and
+198 in H (checked exactly).  Each of phases 8-12, 14-20, A-H prints its seconds.  The
 second-to-last line is a JSON object of per-kernel results; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
@@ -3104,6 +3143,559 @@ def phase_batched(dt, device, card: str, profile) -> dict:
     return out
 
 
+# Phase H: the FluidFlower CO2 and tracer analyses and the rig, through their
+# public objects, on seeded 1788x3180 uint8 photographs saved as npz: the
+# rig's 12 wavy layers in seeded colours under sensor noise, its checker, a
+# drift of the probe, a CO2 plume and a stronger gas core painted in.
+H_LAYERS = 12
+H_SHIFT = (2, 3)
+H_PLUME = ((1000, 1600), (350, 700))  # raw frame: centre (row, col), radii
+H_CORE = ((850, 1600), (120, 300))
+H_NOISE = 2.0 / 255
+# The option keys of tests/unit/test_fluidflower_presets.py:30-58.
+H_OPTIONS = {
+    "diff option": "absolute",
+    "restoration -> model": True,
+    "restoration resize": 0.5,
+    "restoration method": "chambolle",
+    "restoration weight": 0.05,
+    "restoration max_num_iter": 30,
+    "prior remove small objects size": 5,
+    "prior fill holes size": 5,
+    "prior resize": 0.5,
+    "prior method": "chambolle",
+    "prior weight": 0.05,
+    "prior max_num_iter": 30,
+    "posterior criterion": "value",
+    "posterior threshold": 0.02,
+}
+H_TRACER = {
+    "color": "gray",
+    "diff option": "absolute",
+    "restoration resize": 0.5,
+    "restoration method": "chambolle",
+    "restoration weight": 0.05,
+    "restoration max_num_iter": 30,
+}
+# K1 launches of the managers' reading calls with drift, colour and
+# curvature configured: _PIPELINE's order (drift, colour, curvature) splits
+# the geometric corrections into two runs, a K1 pair each, and the colour
+# correction warps its checker crop (one more pair).
+H_READ_K1 = 2 + 2 + 2
+# The set-up: the uncorrected baseline and the drift's own baseline (no
+# chain yet, none), the drift-corrected baseline (the drift alone: 2), the
+# baseline through the whole chain (6, and 8 more: the new curvature
+# correction's first call builds its pull-back grid by warping the
+# identity's two coordinate images through the crop and the bulge), and,
+# learning the cleaning filter, each of the 2 baselines once more (12; read
+# from the cache: none).
+H_GRID_K1 = 2 * 2 * 2
+H_SETUP_K1 = {
+    "learn": 2 + H_READ_K1 + H_GRID_K1 + 2 * H_READ_K1,
+    "cached": 2 + H_READ_K1 + H_GRID_K1,
+}
+# H1: set-up learnt and cached, the path, its K1 calls recorded against
+# plain K1, a warm-up, 5 timed calls, 3 calls split by stage; H2: set-up,
+# the balancing calibration (2 reads), the reckoning's 2 reads, a warm-up
+# and 5 timed calls; H3: no correction, none.
+K1_IN_H = (
+    H_SETUP_K1["learn"] + H_SETUP_K1["cached"] + (1 + 1 + 1 + 5 + 3) * H_READ_K1
+    + H_SETUP_K1["learn"] + (2 + 2 + 1 + 5) * H_READ_K1
+)
+
+
+def h_raw_layers(rows: int, cols: int, layers: int, seed: int = 8) -> np.ndarray:
+    """``layer_labels``'s wavy layers over a raw frame of ``rows`` rows."""
+    rng = np.random.default_rng(seed)
+    r = np.arange(rows, dtype=np.float64)[:, None]
+    c = np.arange(cols, dtype=np.float64)[None, :]
+    labels = np.zeros((rows, cols), dtype=np.int64)
+    height = rows / layers
+    for k in range(1, layers):
+        amp = rng.uniform(0.05, 0.25) * height
+        wave = rng.uniform(600.0, 2400.0) * cols / W
+        labels += r >= k * height + amp * np.sin(2 * np.pi * c / wave + rng.uniform(0, 2 * np.pi))
+    return labels
+
+
+def h_labels(dt, device) -> torch.Tensor:
+    """The painted layers in the corrected frame: the raw layer map through
+    the rig's curvature correction, rounded (the labels a segmentation of the
+    corrected baseline gives)."""
+    raw = torch.from_numpy(h_raw_layers(H, W, H_LAYERS).astype(np.float32)).to(device)
+    warped = dt.CurvatureCorrection(config=CURVATURE)(dt.Image(raw, scalar=True, **META)).img
+    return torch.round(warped).to(torch.int64)
+
+
+def h_ellipse(shape: tuple, spec: tuple, scale: float = 1.0) -> np.ndarray:
+    (r0, c0), (a, b) = spec
+    r = np.arange(shape[0])[:, None]
+    c = np.arange(shape[1])[None, :]
+    return ((r - r0) / (a * scale)) ** 2 + ((c - c0) / (b * scale)) ** 2 < 1.0
+
+
+def h_scene(rows: int, cols: int, seed: int) -> np.ndarray:
+    """The layered rig in seeded colours, float64 in [0, 1], noise-free."""
+    rng = np.random.default_rng(seed)
+    colours = rng.uniform(0.3, 0.7, (H_LAYERS, 3))
+    return colours[h_raw_layers(rows, cols, H_LAYERS)]
+
+
+def h_photo(scene: np.ndarray, seed: int) -> np.ndarray:
+    """A uint8 photograph of the scene under seeded sensor noise."""
+    rng = np.random.default_rng(seed)
+    img = scene + rng.normal(0.0, H_NOISE, scene.shape)
+    return np.round(np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
+
+
+def h_save(dt, path: Path, arr: np.ndarray) -> Path:
+    dt.OpticalImage(torch.from_numpy(arr), **META).save(path)
+    return path
+
+
+def h_layered(cls, labels):
+    """``cls`` with the rig's labels set before the manager's set-up."""
+
+    class Layered(cls):
+        def __init__(self, *args, **kwargs):
+            self.labels = labels
+            super().__init__(*args, **kwargs)
+
+    return Layered
+
+
+def h_config(root: Path, name: str, voxels, sections: dict) -> Path:
+    config = {
+        "physical_asset": {"dimensions": {"width": META["width"], "height": META["height"]}},
+        **sections,
+    }
+    if voxels is not None:
+        config.update(
+            {
+                "drift": {"roi": voxels},
+                "color": {"roi": voxels, "clip": False},
+                "curvature": CURVATURE,
+            }
+        )
+    path = root / f"{name}.json"
+    path.write_text(json.dumps(config))
+    return path
+
+
+def h_co2_sections(root: Path, tag: str, thresholds: list) -> dict:
+    return {
+        "co2": dict(
+            H_OPTIONS,
+            color="negative-key",
+            cleaning_filter=str(root / "cache" / f"{tag}_co2.npy"),
+            **{"prior threshold value": thresholds},
+        ),
+        "co2(g)": dict(
+            H_OPTIONS,
+            color="blue",
+            cleaning_filter=str(root / "cache" / f"{tag}_co2_gas.npy"),
+            **{
+                "prior threshold dynamic": True,
+                "prior threshold method": "otsu",
+                "prior threshold value min": 0.1,
+                "prior threshold value max": 0.9,
+            },
+        ),
+    }
+
+
+def counted(w2p, fn, want_k1: int, path: str):
+    """``fn()`` with every count set to 0 just before and read just after:
+    exactly ``want_k1`` K1 launches.  Returns (output, seconds, K1 count)."""
+    reset_counts(w2p)
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - tic
+    counts = read_counts(w2p)
+    check_counts(counts, {"warp_rows_t": want_k1}, path)
+    return out, seconds, counts["warp_rows_t"]
+
+
+def corrected_indicator(dt, analysis, mask: np.ndarray, device) -> torch.Tensor:
+    """A raw-frame region (of the photograph before its drift) in the
+    corrected frame: its indicator through the manager's curvature
+    correction."""
+    indicator = dt.Image(torch.from_numpy(mask.astype(np.float32)).to(device), scalar=True, **META)
+    return analysis.curvature_correction(indicator).img > 0.5
+
+
+def seeded_points(mask: torch.Tensor, count: int, seed: int) -> tuple:
+    """``count`` seeded (rows, cols) of ``mask`` (host arrays)."""
+    where = np.argwhere(mask.cpu().numpy())
+    pick = np.random.default_rng(seed).choice(len(where), count, replace=False)
+    return tuple(where[pick].T)
+
+
+def phase_fluidflower(dt, w2p, device, card: str, profile) -> dict:
+    """Phase H: FluidFlowerCO2Analysis, FluidFlowerTracerAnalysis and
+    FluidFlowerRig at the rig's size."""
+    import tempfile
+
+    from scipy import ndimage
+
+    from darsia_tpu_torch.signals.models.dynamicthresholdmodel import StandardOtsu, label_histograms
+
+    tic = time.perf_counter()
+    # The entry points' default is the card; on a CPU device, the CPU.
+    dev = None if device.type == "cuda" else device
+    root = Path(tempfile.mkdtemp(prefix="phase_h_"))
+    scene = h_scene(H, W, seed=21)
+    base_u8, _ = rig_frame(dt, h_photo(scene, 22))
+    base2_u8, _ = rig_frame(dt, h_photo(scene, 23))
+    def paint_co2(img):
+        img = np.roll(img, H_SHIFT, axis=(0, 1))
+        plume = np.roll(h_ellipse((H, W), H_PLUME), H_SHIFT, axis=(0, 1))
+        core = np.roll(h_ellipse((H, W), H_CORE), H_SHIFT, axis=(0, 1))
+        img[plume] += [-0.25, -0.1, 0.2]
+        img[core] += [-0.2, -0.15, 0.25]
+        return img
+
+    probe_u8, _ = rig_frame(dt, h_photo(scene, 24))
+    probe_u8 = np.round(np.clip(paint_co2(probe_u8 / 255.0), 0, 1) * 255).astype(np.uint8)
+    paths = {
+        name: h_save(dt, root / f"{name}.npz", arr)
+        for name, arr in (("base", base_u8), ("base2", base2_u8), ("probe", probe_u8))
+    }
+    _, voxels = dt.find_colorchecker(dt.OpticalImage(torch.from_numpy(base_u8).to(device), **META))
+    voxels = np.asarray(voxels).tolist()
+    labels = h_labels(dt, device)
+    thresholds = list(np.random.default_rng(26).uniform(0.08, 0.14, H_LAYERS))
+    config = h_config(root, "co2", voxels, h_co2_sections(root, "h1", thresholds))
+    Layered = h_layered(dt.FluidFlowerCO2Analysis, labels)
+    baselines = [paths["base"], paths["base2"]]
+    frames_s = time.perf_counter() - tic
+
+    # H1. Set-up: the cleaning filter learnt, then read from its cache.
+    launches = 0
+    make = lambda: Layered(baselines, config, root / "results", device=dev)  # noqa: E731
+    _, learn_s, n = counted(w2p, make, H_SETUP_K1["learn"], "H1: set-up, filter learnt")
+    launches += n
+    analysis, cached_s, n = counted(w2p, make, H_SETUP_K1["cached"], "H1: set-up, filter cached")
+    launches += n
+    for key in ("co2", "co2(g)"):
+        cached = np.load(json.loads(config.read_text())[key]["cleaning_filter"])
+        target = analysis.co2_analysis if key == "co2" else analysis.co2_gas_analysis
+        if not np.array_equal(target.threshold_cleaning_filter.cpu().numpy(), cached):
+            raise AssertionError(f"H1: the {key} cleaning filter read back differs from its cache")
+    if analysis.base.img.device.type != device.type or tuple(analysis.base.img.shape[:2]) != (OH, W):
+        raise AssertionError(f"H1: baseline {tuple(analysis.base.img.shape)} on {analysis.base.img.device}")
+
+    # The path: one photograph, its segmentation written.
+    (co2, gas), _, n = counted(
+        w2p,
+        lambda: analysis.single_image_analysis(paths["probe"], write_segmentation_to_file=True),
+        H_READ_K1,
+        "H1: photograph",
+    )
+    launches += n
+    c, g = co2.img.to(torch.bool), gas.img.to(torch.bool)
+    if tuple(c.shape) != (OH, W) or c.device.type != device.type:
+        raise AssertionError(f"H1: CO2 mask {tuple(c.shape)} on {c.device}")
+    outside = int((g & ~c).sum())
+    seg = np.load(root / "results" / "npy_segmentation" / "probe_segmentation.npy")
+    want_seg = np.where(g.cpu().numpy(), 2, c.cpu().numpy().astype(np.int64))
+    if outside != 0 or seg.dtype != np.int64 or not np.array_equal(seg, want_seg):
+        raise AssertionError(f"H1: {outside} CO2(g) pixels outside CO2, or the segmentation file differs")
+
+    # Each of the reading call's K1 launches against plain K1, bitwise.
+    calls, _, n = counted(
+        w2p,
+        lambda: frame_k1_calls(w2p, lambda: analysis.load_and_process_image(paths["probe"])),
+        H_READ_K1,
+        "H1: reading call, recorded",
+    )
+    launches += n
+    for name, (data, cols, max_disp) in zip(("drift", "drift", "checker crop", "checker crop", "curvature", "curvature"), calls):
+        if not torch.equal(w2p.warp_rows_t(data, cols, max_disp), w2p.warp_rows_t(data, cols, max_disp, "plain")):
+            raise AssertionError("H1: a reading call's K1 launch differs from plain K1")
+        C, R, W_in = data.shape
+        k1_ms = cuda_ms(lambda: w2p.warp_rows_t(data, cols, max_disp), 20)
+        paced = cuda_ms(lambda: w2p.warp_rows_t(data, cols, max_disp), 20, device_paced=True)
+        plain = cuda_ms(lambda: w2p.warp_rows_t_reference(data, cols, max_disp), 5)
+        _, bound_ms, bound_by = k1_bound(C, R, W_in, cols.shape[1])
+        print(
+            f"H1. K1 {name} {(C, R, W_in)} -> {(C, cols.shape[1], R)} D={max_disp}: bitwise, {k1_ms} ms "
+            f"(device-paced {paced}), bound {bound_ms:.5f} ms ({bound_by}), {100 * bound_ms / k1_ms:.1f}% "
+            f"of bound; plain {plain} ms"
+        )
+
+    # The plume at seeded points, the background clean, the gas core found.
+    plume_c = corrected_indicator(dt, analysis, h_ellipse((H, W), H_PLUME, 0.85), device)
+    core_c = corrected_indicator(dt, analysis, h_ellipse((H, W), H_CORE, 0.7), device)
+    near_plume = corrected_indicator(dt, analysis, h_ellipse((H, W), H_PLUME, 1.15), device)
+    # Off the plume, away from the border strips the drift leaves uncovered.
+    off_plume = ~near_plume
+    off_plume[:32], off_plume[-32:], off_plume[:, :32], off_plume[:, -32:] = False, False, False, False
+    stray = float(c[off_plume].float().mean())
+    pr, pc = seeded_points(plume_c, 20, 27)
+    br, bc = seeded_points(off_plume, 20, 28)
+    cr, cc = seeded_points(core_c, 10, 29)
+    c_h, g_h = c.cpu().numpy(), g.cpu().numpy()
+    if not (c_h[pr, pc].all() and not c_h[br, bc].any() and g_h[cr, cc].all() and stray < 1e-3):
+        raise AssertionError(
+            f"H1: plume {c_h[pr, pc].mean()}, background {c_h[br, bc].mean()}, core "
+            f"{g_h[cr, cc].mean()}, CO2 share off the plume {stray}"
+        )
+
+    # The per-label histograms of CO2(g)'s dynamic thresholds, card vs numpy.
+    ga = analysis.co2_gas_analysis
+    diff = ga._subtract_background(analysis.img)
+    signal = ga._restore_signal(ga._balance_signal(ga._clean_signal(ga._reduce_signal(diff))))
+    dynamic = ga.model.models[0].model
+    index = dynamic._label_index.on(signal.device)
+    counts, edges, sizes = label_histograms(signal, index, H_LAYERS)
+    host, host_index = signal.cpu().numpy().astype(np.float64), index.cpu().numpy()
+    for k in range(H_LAYERS):
+        ref_counts, ref_edges = np.histogram(host[host_index == k], bins=256)
+        if not (np.array_equal(counts[k], ref_counts) and np.array_equal(edges[k], ref_edges)):
+            raise AssertionError(f"H1: label {k}'s histogram differs from np.histogram")
+        t = float(np.clip(StandardOtsu().from_histogram(ref_counts, ref_edges), 0.1, 0.9))
+        if t != dynamic._threshold_lower[k]:
+            raise AssertionError(f"H1: label {k}'s Otsu threshold {dynamic._threshold_lower[k]} != {t}")
+
+    # The card against the CPU on a 512x1024 crop of the corrected frames.
+    crop_paths = {}
+    for name, img in (("base", analysis.base), ("probe", analysis.img)):
+        crop = img.img[E_CROP].cpu().contiguous()
+        dt.OpticalImage(crop, width=crop.shape[1] / W * META["width"], height=crop.shape[0] / OH * META["height"]).save(
+            root / f"crop_{name}.npz"
+        )
+        crop_paths[name] = root / f"crop_{name}.npz"
+    crops = {}
+    for name, where in (("card", dev), ("cpu", "cpu")):
+        crop_labels = labels[E_CROP].to(device if where is None else where).contiguous()
+        # The per-label thresholds of the labels the crop holds.
+        present = [thresholds[k] for k in torch.unique(crop_labels).tolist()]
+        crop_config = h_config(root, f"crop_{name}", None, h_co2_sections(root, f"crop_{name}", present))
+        crop_analysis = h_layered(dt.FluidFlowerCO2Analysis, crop_labels)(
+            crop_paths["base"], crop_config, root / f"results_{name}", device=where
+        )
+        (cc2, gc2), _, n = counted(
+            w2p, lambda: crop_analysis.single_image_analysis(crop_paths["probe"]), 0, f"H1: crop on {name}"
+        )
+        crops[name] = (crop_analysis, cc2.img.to(torch.bool).cpu(), gc2.img.to(torch.bool).cpu())
+    crop_pixels = crops["cpu"][1].numel()
+    mismatch = int((crops["card"][1] != crops["cpu"][1]).sum() + (crops["card"][2] != crops["cpu"][2]).sum())
+    near = 0
+    crop_analysis = crops["card"][0]
+    for sub in (crop_analysis.co2_analysis, crop_analysis.co2_gas_analysis):
+        d = sub._subtract_background(crop_analysis.img)
+        s = sub._restore_signal(sub._balance_signal(sub._clean_signal(sub._reduce_signal(d))))
+        lower, _ = sub.model.models[0].model._bounds(s.device)
+        near += int(((s - lower).abs() <= 1e-6).sum())
+    if not (mismatch < 1e-3 * crop_pixels and near < 1e-3 * crop_pixels and (mismatch == 0 or near > 0)):
+        raise AssertionError(f"H1: crop card vs CPU: {mismatch} pixels differ, {near} within 1e-6 of a threshold")
+
+    # Times: a warm-up, then the median of 5; then 3 calls split by stage.
+    _, warm_s, n = counted(w2p, lambda: analysis.single_image_analysis(paths["probe"]), H_READ_K1, "H1: warm-up")
+    launches += n
+    torch.cuda.reset_peak_memory_stats(device)
+    _, ms, each, counts5 = median_call_ms(
+        w2p, lambda: analysis.single_image_analysis(paths["probe"]), 5, H_READ_K1, "H1: photograph, timed"
+    )
+    launches += counts5["warp_rows_t"]
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    host_s = []
+
+    def host_timed(fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            host_s.append(time.perf_counter() - t0)
+            return out
+
+        return timed
+
+    hooked = []
+    for sub, cleaning in (
+        (analysis.co2_analysis, analysis.co2_binary_cleaning),
+        (analysis.co2_gas_analysis, analysis.co2_gas_binary_cleaning),
+    ):
+        hooked.append((sub, "posterior_model", sub.posterior_model))
+        sub.posterior_model = host_timed(sub.posterior_model)
+        for chain in (sub.model.models[1], cleaning):
+            for k in (0, 1):
+                hooked.append((chain.models, k, chain.models[k]))
+                chain.models[k] = host_timed(chain.models[k])
+    split = {"read": [], "co2": [], "co2(g)": [], "host": []}
+    reset_counts(w2p)
+    for _ in range(3):
+        host_s.clear()
+        t0 = time.perf_counter()
+        analysis.load_and_process_image(paths["probe"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        co2_s = analysis.determine_co2_mask()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        analysis.determine_co2_gas_mask(co2_s)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, value in zip(split, (t1 - t0, t2 - t1, t3 - t2, sum(host_s))):
+            split[key].append(value * 1e3)
+    split_counts = read_counts(w2p)
+    check_counts(split_counts, {"warp_rows_t": 3 * H_READ_K1}, "H1: split calls")
+    launches += split_counts["warp_rows_t"]
+    for owner, key, original in hooked:
+        if isinstance(owner, list):
+            owner[key] = original
+        else:
+            setattr(owner, key, original)
+    split_ms = {k: float(np.median(v)) for k, v in split.items()}
+    h1_s = time.perf_counter() - tic
+    print(
+        f"H1. FluidFlowerCO2Analysis at {H}x{W} -> {OH}x{W} ({H_LAYERS} layers; drift, colour "
+        f"checker and curvature sections; co2: per-label static thresholds, co2(g): per-label Otsu "
+        f"in [0.1, 0.9]; restoration and prior resize 0.5, Chambolle 0.05 x 30, posterior value "
+        f"0.02): {H_READ_K1} K1 launches per reading call (each == plain K1), 0 CO2(g) pixels "
+        f"outside CO2, plume/background/core at seeded points, CO2 share off the plume {stray:.2e}; "
+        f"{H_LAYERS} per-label histograms == np.histogram, Otsu thresholds "
+        f"{np.round(dynamic._threshold_lower, 4).tolist()}; crop card vs CPU: {mismatch} of "
+        f"{crop_pixels} pixels differ, {near} within 1e-6 of a threshold; frames made in "
+        f"{frames_s:.2f} s"
+    )
+    print(
+        f"H1. on {card}: set-up {learn_s:.2f} s (cleaning filter learnt from 2 baselines), "
+        f"{cached_s:.2f} s (read from its cache); {ms:.1f} ms per photograph (median of 5 after a "
+        f"{warm_s * 1e3:.0f} ms warm-up: {[round(e, 1) for e in each]}; peak {peak:.2f} GiB), split "
+        f"(median of 3, each stage closed by a synchronize): read {split_ms['read']:.1f} ms, co2 "
+        f"{split_ms['co2']:.1f} ms, co2(g) {split_ms['co2(g)']:.1f} ms, of which host posterior and "
+        f"binary cleaning {split_ms['host']:.1f} ms; phase so far {h1_s:.2f} s"
+    )
+    result = {"ms": ms, "split_ms": split_ms, "learn_s": learn_s, "cached_s": cached_s, "mismatch": mismatch}
+    if profile is not None:
+        busy = device_busy_ms(lambda: analysis.single_image_analysis(paths["probe"]), calls=2)
+        print(f"H1. device busy {busy:.2f} ms per photograph, idle share {1 - busy / ms:.3f}, peak {peak:.2f} GiB")
+        profile_frame(lambda: analysis.single_image_analysis(paths["probe"]), ms, profile, "fluidflower_co2", frames=2)
+        result["busy_ms"] = busy
+
+    # H2. The tracer: per-label balancing over the 12 layers.
+    t_h2 = time.perf_counter()
+    gains = np.random.default_rng(30).uniform(0.6, 1.4, H_LAYERS)
+    raw_gain = gains[h_raw_layers(H, W, H_LAYERS)][..., None]
+    tracer_paths = []
+    for k, width in enumerate((0.38, 0.63)):
+        def paint_tracer(img, width=width):
+            img = np.roll(img, H_SHIFT, axis=(0, 1))
+            region = np.zeros((H, W), dtype=bool)
+            region[:, int(0.16 * W) : int((0.16 + width) * W)] = True
+            img[region] += 0.25 * np.roll(raw_gain, H_SHIFT, axis=(0, 1))[region]
+            return img
+
+        photo, _ = rig_frame(dt, h_photo(scene, 31 + k))
+        photo = np.round(np.clip(paint_tracer(photo / 255.0), 0, 1) * 255).astype(np.uint8)
+        tracer_paths.append(h_save(dt, root / f"tracer_{k}.npz", photo))
+    tracer_config = h_config(
+        root, "tracer", voxels, {"tracer": dict(H_TRACER, cleaning_filter=str(root / "cache" / "tracer.npy"))}
+    )
+    Tracer = h_layered(dt.FluidFlowerTracerAnalysis, labels)
+    tracer, tracer_setup_s, n = counted(
+        w2p, lambda: Tracer(baselines, tracer_config, root / "tracer_results", device=dev),
+        H_SETUP_K1["learn"], "H2: set-up",
+    )
+    launches += n
+    options = {"labels": labels, "balancing_dofs": ["scaling"]}
+    _, balance_s, n = counted(
+        w2p, lambda: tracer.calibrate_balancing(tracer_paths, options), 2 * H_READ_K1, "H2: calibrate_balancing"
+    )
+    launches += n
+    scalings = np.asarray(tracer.tracer_analysis.balancing._scaling, dtype=float)
+    # The float64 numpy reckoning: scipy's dilation, strip means, lstsq.
+    ta = tracer.tracer_analysis
+    images, _, n = counted(w2p, lambda: [tracer._read(p) for p in tracer_paths], 2 * H_READ_K1, "H2: reckoning reads")
+    launches += n
+    signals = [ta._reduce_signal(ta._subtract_background(img)).cpu().numpy().astype(np.float64) for img in images]
+    t0 = time.perf_counter()
+    labels_h = labels.cpu().numpy()
+    masks = [labels_h == k for k in range(H_LAYERS)]
+    dilated = [ndimage.binary_dilation(m, iterations=3) for m in masks]
+    rows, rhs = [], []
+    for s in signals:
+        for a in range(H_LAYERS):
+            for b in range(a + 1, H_LAYERS):
+                if not (dilated[a] & masks[b]).any():
+                    continue
+                mean_a, mean_b = s[dilated[b] & masks[a]].mean(), s[dilated[a] & masks[b]].mean()
+                if mean_a > 1e-12 and mean_b > 1e-12:
+                    row = np.zeros(H_LAYERS)
+                    row[a], row[b] = 1.0, -1.0
+                    rows.append(row)
+                    rhs.append(np.log(mean_b) - np.log(mean_a))
+    rows.append(np.eye(H_LAYERS)[0])
+    rhs.append(0.0)
+    want = np.exp(np.linalg.lstsq(np.stack(rows), np.asarray(rhs), rcond=None)[0])
+    reckon_s = time.perf_counter() - t0
+    scaling_err = float(np.abs(scalings / want - 1).max())
+    if not scaling_err <= 1e-5:
+        raise AssertionError(f"H2: scalings {scalings} vs float64 reckoning {want}: {scaling_err}")
+    conc, _, n = counted(w2p, lambda: tracer.single_image_analysis(tracer_paths[1]), H_READ_K1, "H2: warm-up")
+    launches += n
+    if tuple(conc.img.shape) != (OH, W) or not bool(torch.isfinite(conc.img).all()) or float(conc.img.max()) <= 0:
+        raise AssertionError(f"H2: concentration {tuple(conc.img.shape)}, finite and positive expected")
+    _, tracer_ms, tracer_each, counts5 = median_call_ms(
+        w2p, lambda: tracer.single_image_analysis(tracer_paths[1]), 5, H_READ_K1, "H2: photograph, timed"
+    )
+    launches += counts5["warp_rows_t"]
+    print(
+        f"H2. on {card}: FluidFlowerTracerAnalysis at {H}x{W}, HeterogeneousLinearModel over "
+        f"{H_LAYERS} labels: set-up {tracer_setup_s:.2f} s; calibrate_balancing on 2 photographs "
+        f"{balance_s:.2f} s ({2 * H_READ_K1} K1 launches), scalings {np.round(scalings, 5).tolist()} "
+        f"against the float64 numpy reckoning (scipy dilation, {reckon_s:.2f} s on the host) within "
+        f"{scaling_err:.2e} (bound 1e-5), seeded layer gains undone within "
+        f"{float(np.abs(scalings * gains / gains[0] - 1).max()):.3f}; {tracer_ms:.1f} ms per "
+        f"photograph (median of 5: {[round(e, 1) for e in tracer_each]}); {time.perf_counter() - t_h2:.2f} s"
+    )
+
+    # H3. The rig: watershed segmentation of the baseline halved.
+    t_h3 = time.perf_counter()
+    half = (H // 2, W // 2)
+    rig_layers = h_raw_layers(*half, H_LAYERS)
+    rig_u8 = h_photo(h_scene(*half, seed=21), 40)
+    rig_path = h_save(dt, root / "rig.npz", rig_u8)
+    centre_col = half[1] // 2
+    marker_rows = [int(np.flatnonzero(rig_layers[:, centre_col] == k).mean()) for k in range(H_LAYERS)]
+    rig_config = h_config(
+        root,
+        "rig",
+        None,
+        {
+            "segmentation": {
+                "labels_path": str(root / "cache" / "labels.npy"),
+                "marker_points": [[r, centre_col] for r in marker_rows],
+            }
+        },
+    )
+    rig, segment_s, _ = counted(w2p, lambda: dt.FluidFlowerRig(rig_path, rig_config, device=dev), 0, "H3: segmentation")
+    again, cached_rig_s, _ = counted(w2p, lambda: dt.FluidFlowerRig(rig_path, rig_config, device=dev), 0, "H3: cached")
+    agree = float((rig.labels == rig_layers).mean())
+    if not (np.array_equal(again.labels, rig.labels) and np.array_equal(np.load(root / "cache" / "labels.npy"), rig.labels)):
+        raise AssertionError("H3: the labels read from the cache differ")
+    if len(np.unique(rig.labels)) != H_LAYERS:
+        raise AssertionError(f"H3: {len(np.unique(rig.labels))} labels, one per marker expected")
+    print(
+        f"H3. on {card}: FluidFlowerRig, supervised markers (one per layer) and Scharr edges on the "
+        f"baseline halved ({half[0]}x{half[1]}; the host median of the default disk, radius 15, "
+        f"scales with the pixels): segmentation {segment_s:.2f} s, {agree:.4f} of the pixels on "
+        f"their seeded layer; a second construction from the labels cache {cached_rig_s:.2f} s, "
+        f"equal labels; {time.perf_counter() - t_h3:.2f} s"
+    )
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    if launches != K1_IN_H:
+        raise AssertionError(f"H: {launches} K1 launches, want {K1_IN_H}")
+    print(f"H. phase {time.perf_counter() - tic:.2f} s, {launches} K1 launches")
+    return {"launches": launches, "ms": ms, "tracer_ms": tracer_ms, "segment_s": segment_s, **result}
+
+
 def profile_batch(dt, src, dst, out_dir: Path, name: str) -> None:
     """torch.profiler over a short batched solve (the Darcy solve and one
     Newton iteration): device busy against the unprofiled time."""
@@ -3378,6 +3970,7 @@ def main() -> int:
     reset_counts(w2p)
     phase_batched(dt, device, card, args.profile)
     check_counts(read_counts(w2p), {}, "G: batched W1 and comparison")
+    fluidflower = phase_fluidflower(dt, w2p, device, card, args.profile)
     phase_volume(dt, device, card)
     phase_kernel_fields(w2p, lanes, device)
 
@@ -3390,12 +3983,13 @@ def main() -> int:
         + sum(p["launches"] for p in (rig_read, drift_lane, drifting))
         + sum(p["launches"] for p in (piecewise, colour, saved, restoration))
     )
-    if earlier != K1_BEFORE_E or colour_to_mass["launches"] != K1_IN_E:
+    if (earlier, colour_to_mass["launches"], fluidflower["launches"]) != (K1_BEFORE_E, K1_IN_E, K1_IN_H):
         raise AssertionError(
             f"K1 launches: {earlier} before phase E (want {K1_BEFORE_E}), "
-            f"{colour_to_mass['launches']} in it (want {K1_IN_E})"
+            f"{colour_to_mass['launches']} in it (want {K1_IN_E}), "
+            f"{fluidflower['launches']} in phase H (want {K1_IN_H})"
         )
-    k1_launches = earlier + colour_to_mass["launches"]
+    k1_launches = earlier + colour_to_mass["launches"] + fluidflower["launches"]
     results = {
         "warp_rows_t": {
             "launches": k1_launches,

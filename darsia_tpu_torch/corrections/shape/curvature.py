@@ -34,7 +34,11 @@ from ...utils.point import make_voxel
 from ..base import BaseCorrection
 from .quad import extract_quadrilateral_ROI
 
-__all__ = ["CurvatureCorrection", "load_curvature_correction_config_from_dict"]
+__all__ = [
+    "CurvatureCorrection",
+    "load_curvature_correction_config_from_dict",
+    "load_curvature_correction_config_from_toml",
+]
 
 _BULGE_KEYS = {
     "horizontal_bulge": 0.0,
@@ -71,14 +75,24 @@ def load_curvature_correction_config_from_dict(sec: dict) -> dict:
     return config
 
 
+def load_curvature_correction_config_from_toml(path) -> dict:
+    """The curvature config of the ``[curvature]`` section of a toml file
+    (empty, with a warning, where the file has none)."""
+    import tomllib
+
+    path = Path(path)
+    data = tomllib.loads(path.read_text())
+    if "curvature" not in data:
+        warn(f"No 'curvature' section found in {path}.")
+        return {}
+    return load_curvature_correction_config_from_dict(data["curvature"])
+
+
 def _read_config_file(path: Path) -> dict:
     if path.suffix == ".json":
         return load_curvature_correction_config_from_dict(json.loads(path.read_text()))
     if path.suffix == ".toml":
-        import tomllib
-
-        data = tomllib.loads(path.read_text())
-        return load_curvature_correction_config_from_dict(data.get("curvature", {}))
+        return load_curvature_correction_config_from_toml(path)
     raise ValueError(f"Unsupported config file {path}.")
 
 

@@ -32,6 +32,8 @@ class Resize:
             "inter_nearest".
         dtype: optional dtype conversion before resizing.
         key: kwargs prefix (e.g. "restoration ") for config-driven setup.
+        device: where an input that is not an Image goes (default: a tensor
+            stays where it is, a numpy array goes to the CUDA card).
 
     """
 
@@ -44,8 +46,10 @@ class Resize:
         interpolation: Optional[str] = None,
         dtype=None,
         key: str = "",
+        device=None,
         **kwargs,
     ) -> None:
+        self.device = device
         self.shape = kwargs.get(key + "resize shape") if shape is None else shape
         general_f = kwargs.get(key + "resize")
         self.fx = kwargs.get(key + "resize x", general_f) if fx is None else fx
@@ -84,7 +88,7 @@ class Resize:
     def __call__(self, img, overwrite: bool = False):
         """Resize a tensor or an Image (returning the same kind)."""
         is_image = hasattr(img, "img")
-        arr = img.img if is_image else as_tensor(img)
+        arr = img.img if is_image else as_tensor(img, self.device)
         if self.dtype is not None:
             arr = convert_dtype(arr, self.dtype)
         resized = resize_array(

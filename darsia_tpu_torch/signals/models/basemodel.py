@@ -8,11 +8,53 @@ from __future__ import annotations
 
 import copy
 
+import numpy as np
 import torch
 
 from ...image.image import as_tensor
 
-__all__ = ["HeterogeneousModel", "Model"]
+__all__ = ["HeterogeneousModel", "LabelIndex", "Model"]
+
+
+class LabelIndex:
+    """The sorted distinct values of a label map and each pixel's position
+    among them, kept on the device the labels were given on and copied once
+    to each other device asked for.
+
+    A per-label table of values becomes a field by one gather
+    (:meth:`gather`), where the JAX package fills a host array label by
+    label on every call.
+    """
+
+    def __init__(self, labels) -> None:
+        labels = labels.img if hasattr(labels, "img") else labels
+        if isinstance(labels, torch.Tensor):
+            unique, index = torch.unique(labels, return_inverse=True)
+            self.unique = unique.cpu().numpy()
+        else:
+            labels = np.asarray(labels)
+            unique, index = np.unique(labels, return_inverse=True)
+            index = torch.from_numpy(index.reshape(labels.shape))
+            self.unique = unique
+        self.shape = tuple(index.shape)
+        self._on = {index.device: index}
+
+    def __len__(self) -> int:
+        return len(self.unique)
+
+    def on(self, device) -> torch.Tensor:
+        """Each pixel's position among the sorted labels, on ``device``."""
+        device = torch.device(device)
+        held = self._on.get(device)
+        if held is None:
+            held = self._on[device] = next(iter(self._on.values())).to(device)
+        return held
+
+    def gather(self, values, device) -> torch.Tensor:
+        """The float32 field that holds ``values[i]`` on the pixels of the
+        i-th label, on ``device``."""
+        table = torch.as_tensor(np.asarray(values, dtype=np.float64), dtype=torch.float32)
+        return table.to(device)[self.on(device)]
 
 
 class Model:

@@ -23,6 +23,8 @@ from typing import Literal
 import numpy as np
 import torch
 
+from ..image.image import as_tensor
+
 __all__ = [
     "illumination_interpolation",
     "interpolate_measurements_2d",
@@ -106,14 +108,15 @@ def _grid_values(values, coordinate_system) -> np.ndarray:
     return np.asarray(values).reshape(coordinate_system.shape, order="F")
 
 
-def interpolate_measurements_2d(measurements, coordinate_system, device) -> torch.Tensor:
+def interpolate_measurements_2d(measurements, coordinate_system, device=None) -> torch.Tensor:
     """TPS-interpolate (x, y, values) measurements onto a voxel grid; the
-    spline is evaluated on ``device`` (the image's, for an image's grid)."""
+    spline is evaluated on ``device`` (the image's, for an image's grid; by
+    default the CUDA card)."""
     if len(measurements) != 3:
         raise ValueError("measurements are (x, y, values)")
     points = np.stack([measurements[0], measurements[1]], axis=1)
-    coords = torch.from_numpy(np.asarray(coordinate_system.coordinates, dtype=float))
-    out = rbf_interpolate(points, measurements[2], coords.to(device))
+    coords = as_tensor(np.asarray(coordinate_system.coordinates, dtype=float), device)
+    out = rbf_interpolate(points, measurements[2], coords)
     # Column-major voxel order: the transposed grid, read row-major.
     return out.reshape(tuple(coordinate_system.shape)[::-1]).T
 

@@ -317,9 +317,13 @@ def test_interpolate_measurements_2d_against_jax():
     t_out = interpolation.interpolate_measurements_2d(data, t_img.coordinatesystem, "cpu")
     assert t_out.dtype == torch.float32 and t_out.shape == j_out.shape
     assert np.abs(t_out.numpy() - j_out).max() <= SCALING_REL_TOL * np.abs(j_out).max()
-    # The evaluation device is the caller's to give: there is no default.
-    with pytest.raises(TypeError):
-        interpolation.interpolate_measurements_2d(data, t_img.coordinatesystem)
+    # Without a device the spline is evaluated on the card (JAX's two
+    # arguments); with no card that raises instead of falling back.
+    if torch.cuda.is_available():
+        assert interpolation.interpolate_measurements_2d(data, t_img.coordinatesystem).is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            interpolation.interpolate_measurements_2d(data, t_img.coordinatesystem)
 
 
 def test_interpolation_helpers_against_jax(tmp_path):

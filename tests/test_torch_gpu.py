@@ -689,3 +689,62 @@ def test_batched_w1_on_the_card_matches_single_solves_and_the_cpu():
         )
         assert pressure.device.type == "cuda" and info["converged"]
         assert abs(card[0][i] - distance) <= 1e-5 * distance
+
+
+def test_label_histograms_on_the_card_equal_numpy():
+    """Per-label histograms of values on the bin edges, on the card, against
+    ``np.histogram`` of each label's values."""
+    from darsia_tpu_torch.signals.models.dynamicthresholdmodel import label_histograms
+
+    rng = np.random.default_rng(0)
+    edges = np.linspace(0.1, 0.9, 257)
+    values = np.concatenate(
+        [edges[rng.integers(0, 257, 20000)], rng.uniform(0.1, 0.9, 20000)]
+    ).astype(np.float32)
+    groups = rng.integers(-1, 5, values.shape)
+    counts, got_edges, sizes = label_histograms(
+        torch.from_numpy(values).cuda(), torch.from_numpy(groups).cuda(), 5
+    )
+    for g in range(5):
+        ref_counts, ref_edges = np.histogram(values[groups == g].astype(np.float64), bins=256)
+        np.testing.assert_array_equal(counts[g], ref_counts)
+        np.testing.assert_array_equal(got_edges[g], ref_edges)
+        assert sizes[g] == (groups == g).sum()
+
+
+def test_threshold_models_on_the_card_match_the_cpu():
+    """Static per-label thresholds (the gathered bounds), dynamic Otsu per
+    label, and the per-label linear model: card == CPU, bitwise."""
+    import darsia_tpu_torch as dt
+
+    rng = np.random.default_rng(1)
+    labels = np.sort(rng.integers(0, 6, (300, 400)), axis=0)
+    signal = rng.uniform(0, 1, (300, 400)).astype(np.float32)
+    static = dt.StaticThresholdModel(list(np.linspace(0.2, 0.7, 6)), [0.9] * 6, labels=labels)
+    dynamic = dt.ThresholdModel(labels, key="x ", **{"x threshold dynamic": True})
+    linear = dt.HeterogeneousLinearModel(labels, scaling=list(np.linspace(0.5, 2.0, 6)), offset=0.1)
+    for model in (static, dynamic, linear):
+        card = model(torch.from_numpy(signal).cuda()).cpu()
+        cpu = model(torch.from_numpy(signal))
+        assert torch.equal(card, cpu)
+
+
+def test_analysis_base_reads_onto_the_card(tmp_path):
+    """A manager given no device reads the baseline and each photograph onto
+    the card."""
+    import json
+
+    import darsia_tpu_torch as dt
+
+    rng = np.random.default_rng(2)
+    dt.OpticalImage(rng.random((40, 60, 3)).astype(np.float32), width=2.0, height=1.0).save(
+        tmp_path / "base.npz"
+    )
+    config = {
+        "physical_asset": {"dimensions": {"width": 2.0, "height": 1.0}},
+        "curvature": {"bulge": {"vertical_bulge": -1e-6}},
+    }
+    (tmp_path / "config.json").write_text(json.dumps(config))
+    analysis = dt.AnalysisBase(tmp_path / "base.npz", tmp_path / "config.json")
+    assert analysis.base.img.is_cuda
+    assert analysis.load_and_process_image(tmp_path / "base.npz").img.is_cuda

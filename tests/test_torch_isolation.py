@@ -4,9 +4,12 @@ A subprocess blocks ``jax`` and ``cv2`` (``sys.modules[name] = None`` makes
 any import of them fail), imports ``darsia_tpu_torch`` and runs the small
 correct -> register -> concentrate pipeline on a numpy-made frame.  It also
 imports every module of the package and runs the heterogeneous
-colour-to-mass chain and a W1 solve.  A second subprocess also blocks ``darsia_tpu`` and
-reads the image, every correction file and a colour-to-mass calibration
-folder that the JAX package wrote beforehand in this process.
+colour-to-mass chain, a W1 solve, and the FluidFlower CO2 analysis and rig
+from a numpy-made JSON config and npz frames.  A second subprocess also
+blocks ``darsia_tpu`` and reads the image, every correction file, a
+colour-to-mass calibration folder, and the cleaning filters and labels cache
+of a FluidFlower CO2 analysis and rig that the JAX package wrote beforehand
+in this process.
 """
 
 import subprocess
@@ -250,6 +253,52 @@ w1 = dt.wasserstein_distance(
     method="newton", options={"L": 1e9, "tol_increment": 1e-3, "tol_distance": 1e-3},
 )
 assert abs(w1 - 0.379543951823) < 0.01, w1
+
+# The FluidFlower CO2 analysis from a JSON config and npz frames (per-label
+# static CO2 thresholds, per-label Otsu for CO2(g)), and a rig segmented
+# and cached.
+import json
+
+with tempfile.TemporaryDirectory() as tmp:
+    tmp = Path(tmp)
+    ff_base = (0.55 + rng.normal(0, 0.005, (30, 50, 3))).astype(np.float32)
+    ff_img = ff_base.copy()
+    ff_img[8:24, 10:35] += [-0.25, -0.1, 0.2]
+    ff_img[12:20, 18:28] += [-0.2, -0.15, 0.25]
+    for name, arr in (("base", ff_base), ("img", np.clip(ff_img, 0, 1))):
+        dt.OpticalImage(torch.from_numpy(arr), width=2.0, height=1.0).save(tmp / f"{name}.npz")
+    common = {"diff option": "absolute", "restoration -> model": True, "restoration resize": 0.5,
+              "restoration max_num_iter": 10, "prior remove small objects size": 3,
+              "prior fill holes size": 3, "prior resize": 0.5, "prior max_num_iter": 10,
+              "posterior criterion": "value", "posterior threshold": 0.02}
+    config = {
+        "physical_asset": {"dimensions": {"width": 2.0, "height": 1.0}},
+        "co2": dict(common, color="negative-key", cleaning_filter=str(tmp / "c1.npy"),
+                    **{"prior threshold value": [0.15, 0.12]}),
+        "co2(g)": dict(common, color="blue", cleaning_filter=str(tmp / "c2.npy"),
+                       **{"prior threshold dynamic": True, "prior threshold value min": 0.1,
+                          "prior threshold value max": 0.9}),
+    }
+    (tmp / "config.json").write_text(json.dumps(config))
+
+    class Layered(dt.FluidFlowerCO2Analysis):
+        def __init__(self, *args, **kwargs):
+            self.labels = np.repeat([[0], [1]], [15, 15], axis=0).repeat(50, axis=1)
+            super().__init__(*args, **kwargs)
+
+    ff = Layered(tmp / "base.npz", tmp / "config.json", tmp / "results", device="cpu")
+    co2, gas = ff.single_image_analysis(tmp / "img.npz", write_segmentation_to_file=True)
+    assert co2.img[16, 22] and not co2.img[2, 2] and not (gas.img & ~co2.img).any()
+    assert (tmp / "c1.npy").exists() and (tmp / "results" / "npy_segmentation" / "img_segmentation.npy").exists()
+    rig_arr = np.full((24, 40, 3), 0.3, np.float32)
+    rig_arr[12:] = 0.7
+    dt.OpticalImage(torch.from_numpy(rig_arr), width=2.0, height=1.0).save(tmp / "rig.npz")
+    (tmp / "rig.json").write_text(json.dumps({
+        "physical_asset": {"dimensions": {"width": 2.0, "height": 1.0}},
+        "segmentation": {"labels_path": str(tmp / "labels.npy"), "marker_points": [[5, 20], [18, 20]]},
+    }))
+    fluidflower_rig = dt.FluidFlowerRig(tmp / "rig.npz", tmp / "rig.json", device="cpu")
+    assert len(np.unique(fluidflower_rig.labels)) == 2 and (tmp / "labels.npy").exists()
 print("ok", tuple(out.img.shape))
 """
 
@@ -329,6 +378,24 @@ chain = dt.HeterogeneousColorToMassAnalysis.from_folder(
 )
 mass = geometry.integrate(chain(dt.Image(torch.from_numpy(arrays["img"]), **meta)).mass)
 assert abs(mass - float(arrays["mass"])) <= 1e-6 * abs(float(arrays["mass"])), (mass, arrays["mass"])
+# The cleaning filters and labels cache of the JAX package's FluidFlower CO2
+# analysis and rig: read, not learnt again, and the same masks.
+import json
+import os
+
+ff = folder / "ff"
+config = json.loads((ff / "config.json").read_text())
+caches = [Path(config[k]["cleaning_filter"]) for k in ("co2", "co2(g)")] + [ff / "labels.npy"]
+stamps = [os.stat(p).st_mtime_ns for p in caches]
+analysis = dt.FluidFlowerCO2Analysis([ff / "base.npz", ff / "base2.npz"], ff / "config.json", ff / "results", device="cpu")
+assert np.array_equal(analysis.co2_analysis.threshold_cleaning_filter.numpy(), np.load(caches[0]))
+assert np.load(caches[0]).max() > 0
+co2, gas = analysis.single_image_analysis(ff / "img.npz")
+assert np.array_equal(co2.img.numpy(), np.load(ff / "co2.npy"))
+assert np.array_equal(gas.img.numpy(), np.load(ff / "gas.npy"))
+rig = dt.FluidFlowerRig(ff / "rig.npz", ff / "rig.json", device="cpu")
+assert np.array_equal(rig.labels, np.load(ff / "labels.npy"))
+assert [os.stat(p).st_mtime_ns for p in caches] == stamps
 loaded = [m for m, module in sys.modules.items() if module is not None]
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "darsia_tpu", "pandas", "matplotlib") for m in loaded)
 print("ok", len(names))
@@ -402,6 +469,31 @@ def test_port_reads_jax_files_without_the_jax_package(tmp_path):
     chain.save(tmp_path / "c2m")
     scene = _arrays()
     np.savez(tmp_path / "c2m_arrays.npz", mass=geom.integrate(chain(img).mass), **scene)
+    # A FluidFlower CO2 analysis with two baselines (its cleaning filters)
+    # and a rig (its labels cache), written by the JAX package.
+    import json
+
+    from test_torch_fluidflower import scene
+
+    ff = tmp_path / "ff"
+    ff.mkdir()
+    config = json.loads(scene(ff, layered=False)["jax"].read_text())
+    (ff / "config.json").write_text(json.dumps(config))
+    noisy = np.clip(0.55 + np.random.default_rng(3).normal(0, 0.02, (60, 100, 3)), 0, 1)
+    da.Image(noisy.astype(np.float32), width=2.0, height=1.0).save(ff / "base2.npz")
+    analysis = da.FluidFlowerCO2Analysis([ff / "base.npz", ff / "base2.npz"], ff / "config.json", ff / "results")
+    co2, gas = analysis.single_image_analysis(ff / "img.npz")
+    np.save(ff / "co2.npy", np.asarray(co2.img))
+    np.save(ff / "gas.npy", np.asarray(gas.img))
+    rig_arr = np.full((40, 60, 3), 0.3, np.float32)
+    rig_arr[20:] = 0.7
+    da.Image(rig_arr, width=2.0, height=1.0).save(ff / "rig.npz")
+    (ff / "rig.json").write_text(json.dumps({
+        "physical_asset": {"dimensions": {"width": 2.0, "height": 1.0}},
+        "segmentation": {"labels_path": str(ff / "labels.npy"), "marker_points": [[10, 30], [30, 30]]},
+    }))
+    da.FluidFlowerRig(ff / "rig.npz", ff / "rig.json")
+    assert (ff / "labels.npy").exists()
     # The image file does pickle a class of the JAX package.
     import zipfile
 
