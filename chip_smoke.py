@@ -276,10 +276,43 @@ H. The FluidFlower CO2 and tracer analyses and the rig (after phase G), on
    second construction from the labels cache gives equal labels; no K1.
    The phase checks its 198 K1 launches exactly.
 
+I. The rig workflow from its TOML config (after phase H), through the public
+   functions, in a temporary folder: the baseline (phase 14's rig frame
+   with its checker) and 4 photographs drifted by 1-4 px with a painted
+   plume as uint8 npz files, a sketch of 12 seeded wavy layers in colours
+   1/16 apart, 20 seeded depth measurements, imaging, injection and
+   pressure/temperature CSV protocols; [corrections] drift and colour on
+   the checker, phase 14's CURVATURE and ILLUMINATION; [image_porosity]
+   from the image; one channel (HSV saturation), one range (a blue HSV box)
+   and one relative path embedding per label (its paths written with
+   ``LabelColorPathMap.save``).  I1: ``setup_depth_map``,
+   ``segment_colored_image`` (12 labels) and ``setup_rig`` timed, the rig's
+   "inactive" and "Porosity analysis failed" warnings as errors: exactly 18
+   K1 launches in ``setup_rig``, the image porosity float32, finite, in
+   [0, 1] and below 1 on average, the drift ROI and shape-corrected
+   baseline bitwise equal to phase 14's.  I2: ``Rig.load`` of the saved
+   folder; each photograph read by both rigs (4 K1 launches per read; 8
+   more in the loaded rig's first, its curvature grid) and equal bitwise,
+   and equal bitwise to phase 14's chain with the rig's illumination
+   correction (phase 14's own illumination samples are unmasked, the rig's
+   are masked by its boolean image porosity: that chain's difference is
+   printed); ms per photograph (median of 5 after a warm-up, peak GiB;
+   with ``--profile`` device busy and idle share).  I3: the three
+   embeddings on a read photograph (ms per call, median of 5), the path
+   embedding high on the plume and low off it, and on a 512x1024 crop the
+   card against the CPU: saturation within 1e-6, range masks equal but
+   within 1e-6 of a bound (counted), the path embedding within 1e-5 but at
+   counted fit ties.  I4: ``comparison_wasserstein(Rig, path,
+   compute=True)`` then ``assemble=True`` on phase G's maps through a
+   ``MultiFluidFlowerConfig`` file: the 12 JSON files and the CSV equal to
+   ``_compute``/``_assemble`` on phase G's config object.  The phase checks
+   its 120 K1 launches exactly.
+
 Every launch count is set to 0 just before each path of phases 3, 5-7,
-8-11, 14-20, B, E, F, G and H and read just after it; the ``kernels`` line's
-K1 launches are their sum, 586 before phase E, 28 in it, none in F or G and
-198 in H (checked exactly).  Each of phases 8-12, 14-20, A-H prints its seconds.  The
+8-11, 14-20, B, E, F, G, H and I and read just after it; the ``kernels``
+line's K1 launches are their sum, 586 before phase E, 28 in it, none in F or
+G, 198 in H and 120 in I (checked exactly).  Each of phases 8-12, 14-20, A-I
+prints its seconds.  The
 second-to-last line is a JSON object of per-kernel results; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
@@ -3696,6 +3729,463 @@ def phase_fluidflower(dt, w2p, device, card: str, profile) -> dict:
     return {"launches": launches, "ms": ms, "tracer_ms": tracer_ms, "segment_s": segment_s, **result}
 
 
+# ---------------------------------------------------------------- phase I
+I_SHIFTS = ((2, 3), (3, 1), (1, -2), (4, 2))  # photographs 1-4: their drift (rows, cols)
+I_PLUME = ((1100, 1300), (320, 640))  # raw frame: centre (row, col), radii
+I_PLUME_COLOUR = (-0.25, -0.1, 0.2)
+I_START = datetime(2024, 3, 1, 9)
+I_DEPTHS = 20
+I_PATH_SEGMENTS = 3
+I_RANGE = [[180.0, 260.0], [0.1, "none"], ["none", "none"]]
+#: The image porosity from the baseline's colours, as config/image_porosity.py
+#: reads it; a low threshold keeps enough of the noise frame in the boolean
+#: porosity that masks the illumination correction's samples.
+I_POROSITY = {"mode": "from_image", "tol": 0.2, "num_clusters": 5, "sample_width": 50}
+# K1 launches of Rig.read_image: [Resize, drift, curvature] fuse into one
+# pair, the colour checker's crop is a second (as phase 14's reading path).
+I_READ_K1 = 2 + 2
+# setup_rig: the curvature correction applied to the raw baseline (a pair,
+# and the pull-back grid its first call builds: 8), the shape-corrected
+# baseline (a pair), the labels through the curvature correction (a pair),
+# the colour correction's set-up crop (a pair) and the baseline through it
+# (a pair).
+I_SETUP_K1 = 2 + 8 + 2 + 2 + 2 + 2
+# Phase 14's shape corrections on the baseline (a pair); I2: per photograph
+# the set-up rig's read, the loaded rig's read, the emulated chain with the
+# rig's illumination and phase 14's own chain (4 x 4 reads; the loaded
+# curvature correction builds its pull-back grid in its first read: 8
+# more), a warm-up and 5 timed reads; I3: the plume's two indicators
+# through the curvature correction (a pair each).
+I_READS = 4 * 4 + 1 + 5
+K1_IN_I = I_SETUP_K1 + 2 + I_READS * I_READ_K1 + H_GRID_K1 + 2 * 2
+
+
+def toml_text(tables: dict) -> str:
+    """A TOML document of nested tables whose leaves are numbers, strings,
+    paths, booleans and lists of them (``"none"`` stands for a missing
+    bound, as the config layer reads it)."""
+
+    def value(v) -> str:
+        if isinstance(v, (bool, np.bool_)):
+            return "true" if v else "false"
+        if isinstance(v, (int, np.integer)):
+            return str(int(v))
+        if isinstance(v, (float, np.floating)):
+            return repr(float(v))
+        if isinstance(v, (str, Path)):
+            return json.dumps(str(v))
+        if isinstance(v, (list, tuple)):
+            return "[" + ", ".join(value(x) for x in v) + "]"
+        raise TypeError(f"no TOML value for {v!r}")
+
+    lines = []
+
+    def table(name: str, body: dict) -> None:
+        leaves = {k: v for k, v in body.items() if not isinstance(v, dict)}
+        if leaves:
+            lines.append(f"[{name}]")
+            lines.extend(f"{k} = {value(v)}" for k, v in leaves.items())
+            lines.append("")
+        for k, v in body.items():
+            if isinstance(v, dict):
+                table(f"{name}.{k}", v)
+
+    for name, body in tables.items():
+        table(name, body)
+    return "\n".join(lines)
+
+
+def i_assets(dt, frame: np.ndarray, root: Path) -> tuple:
+    """Phase I's files: the baseline (the rig frame) and 4 drifted
+    photographs with a painted plume as npz, a sketch of 12 seeded layers in
+    colours 1/16 apart, ~20 seeded depth measurements, the imaging,
+    injection and pressure/temperature protocols.  Returns (photograph
+    paths, plume indicator of the raw frame)."""
+    (root / "images").mkdir(parents=True)
+    h_save(dt, root / "images" / "img_00000.npz", frame)
+    plume = h_ellipse((H, W), I_PLUME)
+    photos = []
+    for k, shift in enumerate(I_SHIFTS, start=1):
+        img = frame.astype(np.float64) / 255.0
+        img[plume] += I_PLUME_COLOUR
+        img = np.round(np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
+        photos.append(h_save(dt, root / "images" / f"img_{k:05d}.npz", np.roll(img, shift, axis=(0, 1))))
+    layers = h_raw_layers(H, W, H_LAYERS)
+    palette = np.array([[(k % 4) / 4 + 0.125, (k // 4) / 3 + 0.1, 0.5] for k in range(H_LAYERS)])
+    dt.OpticalImage(torch.from_numpy(palette[layers].astype(np.float32)), **META).save(root / "sketch.npz")
+    rng = np.random.default_rng(41)
+    x, y = rng.uniform(0, META["width"], I_DEPTHS), rng.uniform(0, META["height"], I_DEPTHS)
+    depth = 0.019 + 0.003 * np.sin(2.0 * x) * np.cos(3.0 * y)
+    (root / "depth.csv").write_text(
+        "x,y,mean\n" + "".join(f"{a!r},{b!r},{c!r}\n" for a, b, c in zip(x.tolist(), y.tolist(), depth.tolist()))
+    )
+    (root / "imaging.csv").write_text(
+        "path,image_id,datetime\n"
+        + "".join(
+            f"img_{k:05d}.npz,{k},{(I_START + timedelta(hours=k)).isoformat(sep=' ')}\n"
+            for k in range(len(I_SHIFTS) + 1)
+        )
+    )
+    (root / "injection.csv").write_text(
+        "id,location_x,location_y,start,end,rate_kg/s\n"
+        f"1,1.4,0.3,{(I_START + timedelta(minutes=30)).isoformat(sep=' ')},"
+        f"{(I_START + timedelta(hours=5)).isoformat(sep=' ')},1e-6\n"
+    )
+    (root / "pressure_temperature.csv").write_text(
+        "datetime,pressure_bar,temperature_celsius\n"
+        f"{I_START.isoformat(sep=' ')},1.013,20.0\n{(I_START + timedelta(hours=6)).isoformat(sep=' ')},1.02,21.5\n"
+    )
+    return photos, plume
+
+
+def i_config(root: Path) -> Path:
+    """The rig's TOML config over phase I's files (the corrections of phase
+    14: drift and colour on the checker, CURVATURE, the illumination of
+    ILLUMINATION; the image porosity from the baseline; one channel, one
+    range and one path embedding)."""
+    config = {
+        "data": {"folder": root / "images", "baseline": "img_00000.npz", "results": root / "results"},
+        "rig": {"width": META["width"], "height": META["height"], "dim": 2, "resolution": [H, W]},
+        "depth": {"measurements": root / "depth.csv"},
+        "labeling": {"colored_image": root / "sketch.npz"},
+        "protocols": {
+            "imaging": root / "imaging.csv",
+            "injection": root / "injection.csv",
+            "pressure_temperature": root / "pressure_temperature.csv",
+        },
+        "image_porosity": I_POROSITY,
+        "corrections": {
+            "drift": {"colorchecker": "upper_right"},
+            "color": {"colorchecker": "upper_right"},
+            "curvature": {"config": CURVATURE},
+            "illumination": dict(
+                ILLUMINATION, colorspace="hsl-scalar", interpolation="illumination", outliers=0.1
+            ),
+        },
+        "color": {
+            "channel": {"saturation": {"color_space": "HSV", "channel": "s"}},
+            "range": {"blue": {"color_space": "HSV", "range": I_RANGE}},
+            "path": {
+                "co2": {
+                    "mode": "relative",
+                    "basis": "labels",
+                    "num_segments": I_PATH_SEGMENTS,
+                    "calibration_folder": root / "calibration" / "co2",
+                }
+            },
+        },
+    }
+    path = root / "config.toml"
+    path.write_text(toml_text(config))
+    return path
+
+
+def i_color_paths(dt, labels: torch.Tensor, folder: Path) -> None:
+    """Per label a seeded relative colour path towards the plume's colour
+    change, written with the port's ``LabelColorPathMap.save``."""
+    rng = np.random.default_rng(42)
+    target = np.asarray(I_PLUME_COLOUR)
+    paths = {}
+    for label in torch.unique(labels).tolist():
+        steps = [np.zeros(3)]
+        for s in range(1, I_PATH_SEGMENTS + 1):
+            steps.append(target * s / I_PATH_SEGMENTS + rng.normal(0.0, 0.01, 3))
+        paths[int(label)] = dt.ColorPath(relative_colors=steps, base_color=np.zeros(3))
+    dt.LabelColorPathMap(paths).save(folder)
+
+
+def i_comparison_configs(root: Path, config) -> Path:
+    """Phase G's comparison as TOML: per run a FluidFlowerConfig naming its
+    folder (mass maps, imaging protocol), and a MultiFluidFlowerConfig over
+    them with the [wasserstein] section of phase G's config object."""
+    for run in G_RUNS:
+        folder = root / run
+        (folder / "config.toml").write_text(
+            toml_text(
+                {
+                    "data": {"folder": folder / "mass" / "npz", "baseline": "mass_00000.npz", "results": folder},
+                    "protocols": {"imaging": folder / "imaging.csv"},
+                    "color": {"path": {"co2": {"mode": "relative"}}},
+                    "analysis": {"mass": {"color": "co2", "folder": folder}},
+                }
+            )
+        )
+    wconfig = config.wasserstein
+    multi = root / "multi.toml"
+    multi.write_text(
+        toml_text(
+            {
+                "data": {"results": root / "multi_results"},
+                "run": {run: {"config": f"{run}/config.toml"} for run in G_RUNS},
+                "wasserstein": {
+                    "runs": list(wconfig.runs),
+                    "times": [t for t, _ in wconfig.times],
+                    "tol": wconfig.times[0][1],
+                    "relative_tol": wconfig.relative_tol,
+                },
+            }
+        )
+    )
+    return multi
+
+
+def i_crop(image, where):
+    """``image``'s E_CROP on ``where`` as an image of its own."""
+    sub = image.subregion(E_CROP)
+    return type(image)(sub.img.to(where).contiguous(), **sub.metadata())
+
+
+def phase_rig_config(dt, w2p, lanes, device, card: str, profile) -> dict:
+    """Phase I: the rig workflow from its TOML config through the public
+    functions (set-up, load, reading, embeddings, the config-driven
+    comparison)."""
+    import importlib
+    import shutil
+    import tempfile
+    import warnings
+
+    from darsia_tpu_torch.experiment import ProtocolledExperiment
+    from darsia_tpu_torch.presets.workflows import setup as rig_setup
+    from darsia_tpu_torch.presets.workflows.comparison import comparison_wasserstein
+    from darsia_tpu_torch.presets.workflows.config import FluidFlowerConfig
+
+    tic = time.perf_counter()
+    dev = None if device.type == "cuda" else device
+    emulated = lanes["rig"]
+    root = Path(tempfile.mkdtemp(prefix="phase_i_"))
+    photos, plume = i_assets(dt, emulated["frame"], root)
+    config_path = i_config(root)
+    files_s = time.perf_counter() - tic
+
+    # I1. The set-up steps; the rig's "inactive" and porosity-fallback
+    # warnings are errors here.
+    launches = 0
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*inactive.*")
+        warnings.filterwarnings("error", message="Porosity analysis failed.*")
+        warnings.filterwarnings("ignore", message="Section .* not found")
+        _, depth_s, _ = counted(w2p, lambda: rig_setup.setup_depth_map(config_path, device=dev), 0, "I1: depth")
+        labels_img, labels_s, _ = counted(
+            w2p, lambda: rig_setup.segment_colored_image(config_path, device=dev), 0, "I1: labels"
+        )
+        torch.cuda.reset_peak_memory_stats(device)
+        rig, setup_s, n = counted(
+            w2p, lambda: rig_setup.setup_rig(dt.Rig, config_path, device=dev), I_SETUP_K1, "I1: setup_rig"
+        )
+        launches += n
+        setup_peak = torch.cuda.max_memory_allocated(device) / 2**30
+        config = FluidFlowerConfig(config_path)
+    n_labels = len(torch.unique(labels_img.img))
+    if n_labels != H_LAYERS:
+        raise AssertionError(f"I1: {n_labels} labels from the sketch, want {H_LAYERS}")
+    porosity = rig.image_porosity.img
+    if not (
+        porosity.dtype == torch.float32
+        and tuple(porosity.shape) == (OH, W)
+        and bool(torch.isfinite(porosity).all())
+        and float(porosity.min()) >= 0.0
+        and float(porosity.max()) <= 1.0
+        and float(porosity.mean()) < 1.0
+    ):
+        raise AssertionError(f"I1: image porosity {porosity.dtype} {tuple(porosity.shape)}, mean {float(porosity.mean())}")
+    boolean_share = float(rig.boolean_porosity.img.float().mean())
+    if [type(c).__name__ for c in rig.corrections] != [
+        "Resize", "DriftCorrection", "CurvatureCorrection", "IlluminationCorrection", "ColorCorrection"
+    ]:
+        raise AssertionError(f"I1: corrections {[type(c).__name__ for c in rig.corrections]}")
+    # The shape corrections agree with phase 14's: the same checker ROI, the
+    # same shape-corrected baseline, bitwise.
+    frame = torch.from_numpy(emulated["frame"]).to(device)
+    shape_emulated, _, n = counted(
+        w2p, lambda: dt.OpticalImage(frame, transformations=emulated["shape"], **META), 2, "I1: phase 14's shape"
+    )
+    launches += n
+    if rig.drift_correction.roi != emulated["drift"].roi or not torch.equal(
+        rig.shape_corrected_baseline.img, shape_emulated.img
+    ):
+        raise AssertionError("I1: the rig's shape corrections differ from phase 14's")
+    print(
+        f"I1. on {card}: setup_depth_map {depth_s:.2f} s ({I_DEPTHS} measurements onto {H}x{W}), "
+        f"segment_colored_image {labels_s:.2f} s ({n_labels} labels), setup_rig {setup_s:.2f} s "
+        f"({I_SETUP_K1} K1 launches, peak {setup_peak:.2f} GiB; no checker or porosity fallback); "
+        f"image porosity mean {float(porosity.mean()):.4f} (min {float(porosity.min()):.3f}, max "
+        f"{float(porosity.max()):.3f}), boolean share {boolean_share:.4f}; drift ROI and "
+        f"shape-corrected baseline == phase 14's, bitwise; files made in {files_s:.2f} s"
+    )
+
+    # I2. Rig.load, then every photograph through both rigs and the
+    # emulation.
+    t_i2 = time.perf_counter()
+    loaded, load_s, n = counted(w2p, lambda: dt.Rig.load(config.rig.path, device=dev), 0, "I2: Rig.load")
+    loaded.load_experiment(ProtocolledExperiment.init_from_config(config))
+    colour = emulated["colour"][1]
+    with_rig_illumination = emulated["shape"] + [rig.illumination_correction, colour]
+    phase14 = emulated["shape"] + emulated["colour"]
+    read_diff = []
+    for k, path in enumerate(photos):
+        a, _, n1 = counted(w2p, lambda: rig.read_image(path), I_READ_K1, "I2: set-up rig read")
+        b, _, n2 = counted(
+            w2p, lambda: loaded.read_image(path), I_READ_K1 + (H_GRID_K1 if k == 0 else 0), "I2: loaded rig read"
+        )
+        raw = dt.imread(path, device=device).img
+        c, _, n3 = counted(
+            w2p, lambda: dt.OpticalImage(raw, transformations=with_rig_illumination, **META), I_READ_K1, "I2: emulated"
+        )
+        d, _, n4 = counted(
+            w2p, lambda: dt.OpticalImage(raw, transformations=phase14, **META), I_READ_K1, "I2: phase 14's chain"
+        )
+        launches += n1 + n2 + n3 + n4
+        if tuple(a.img.shape) != (OH, W, 3) or not bool(torch.isfinite(a.img).all()):
+            raise AssertionError(f"I2: read {tuple(a.img.shape)}")
+        if not (torch.equal(a.img, b.img) and torch.equal(a.img, c.img)):
+            raise AssertionError(f"I2: {path.name}: the loaded rig's or the emulated read differs from the rig's")
+        read_diff.append(float((a.img - d.img).abs().mean()))
+    _, warm_s, n = counted(w2p, lambda: loaded.read_image(photos[0]), I_READ_K1, "I2: warm-up")
+    launches += n
+    torch.cuda.reset_peak_memory_stats(device)
+    image, ms, each, counts5 = median_call_ms(w2p, lambda: loaded.read_image(photos[0]), 5, I_READ_K1, "I2: timed")
+    launches += counts5["warp_rows_t"]
+    read_peak = torch.cuda.max_memory_allocated(device) / 2**30
+    result = {"ms": ms, "setup_s": setup_s, "load_s": load_s, "read_diff": read_diff}
+    busy_text = ""
+    if profile is not None:
+        busy = device_busy_ms(lambda: loaded.read_image(photos[0]))
+        result["busy_ms"] = busy
+        busy_text = f", device busy {busy:.3f} ms, idle share {1 - busy / ms:.3f}"
+        profile_frame(lambda: loaded.read_image(photos[0]), ms, profile, "rig_config_read", frames=2)
+    print(
+        f"I2. on {card}: Rig.load {load_s:.2f} s; Rig.read_image {ms:.1f} ms per photograph (median "
+        f"of 5 after a {warm_s * 1e3:.0f} ms warm-up: {[round(e, 1) for e in each]}; peak "
+        f"{read_peak:.2f} GiB{busy_text}), {I_READ_K1} K1 launches per read; each of "
+        f"{len(photos)} photographs: the loaded rig's read and phase 14's chain with the rig's "
+        f"illumination correction == the rig's read, bitwise; phase 14's own chain (its "
+        f"illumination samples unmasked; the rig masks them with the boolean image porosity) "
+        f"mean|diff| {[f'{v:.2e}' for v in read_diff]}; {time.perf_counter() - t_i2:.2f} s"
+    )
+
+    # I3. The three embeddings on the read photograph.
+    t_i3 = time.perf_counter()
+    i_color_paths(dt, loaded.labels.img, root / "calibration" / "co2" / "color_paths" / "from_labels")
+    runtime = dt.ColorEmbeddingRuntime(rig=loaded, device=dev)
+    embeddings = {key: config.color[key] for key in ("saturation", "blue", "co2")}
+    outputs, times = {}, {}
+    for key, embedding in embeddings.items():
+        counted(w2p, lambda: embedding.to_scalar_image(image, runtime), 0, f"I3: {key}")
+        outputs[key], times[key], _, _ = median_call_ms(
+            w2p, lambda: embedding.to_scalar_image(image, runtime), 5, 0, f"I3: {key}, timed"
+        )
+        out = outputs[key].img
+        if tuple(out.shape) != (OH, W) or out.device.type != device.type or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"I3: {key} {tuple(out.shape)} on {out.device}")
+    plume_c, _, n1 = counted(
+        w2p, lambda: corrected_indicator(dt, loaded, h_ellipse((H, W), I_PLUME, 0.8), device), 2, "I3: plume"
+    )
+    near_plume, _, n2 = counted(
+        w2p, lambda: corrected_indicator(dt, loaded, h_ellipse((H, W), I_PLUME, 1.2), device), 2, "I3: near plume"
+    )
+    launches += n1 + n2
+    far = ~near_plume
+    far[:32], far[-32:], far[:, :32], far[:, -32:] = False, False, False, False
+    co2 = outputs["co2"].img
+    inside, outside = float(co2[plume_c].mean()), float(co2[far].mean())
+    if not inside > outside + 0.5:
+        raise AssertionError(f"I3: the path embedding's mean {inside} on the plume, {outside} off it")
+    # Card against CPU on a crop: the rig's fields and the photograph cropped.
+    crop_out = {}
+    for name, where in (("card", device), ("cpu", torch.device("cpu"))):
+        labels_w = i_crop(loaded.labels, where)
+        crop_rig = SimpleNamespace(baseline=i_crop(loaded.baseline, where), labels=labels_w, facies=labels_w)
+        crop_runtime = dt.ColorEmbeddingRuntime(rig=crop_rig, device=where)
+        photo = i_crop(image, where)
+        crop_out[name] = {key: e.to_scalar_image(photo, crop_runtime).img.cpu() for key, e in embeddings.items()}
+    card_crop, cpu_crop = crop_out["card"], crop_out["cpu"]
+    sat_err = float((card_crop["saturation"] - cpu_crop["saturation"]).abs().max())
+    differ = card_crop["blue"] != cpu_crop["blue"]
+    photo = i_crop(image, device)
+    hsv, _ = dt.normalized_trichromatic(photo, "HSV", dt.ColorMode.ABSOLUTE)
+    hsv = hsv.cpu()
+    near_edge = torch.zeros(differ.shape, dtype=torch.bool)
+    for channel, bounds in enumerate(I_RANGE):
+        for bound in bounds:
+            if bound != "none":
+                near_edge |= (hsv[..., channel] - bound).abs() <= 1e-6 * max(1.0, abs(bound))
+    n_differ, n_edge = int(differ.sum()), int(near_edge.sum())
+    path_model = crop_runtime.cache["co2"].model
+    def unit(x):  # the embeddings' scaling: by 255 where the data exceed 1.5
+        x = x.to(torch.float32)
+        return x / 255.0 if float(x.max()) > 1.5 else x
+
+    relative = unit(photo.img) - unit(i_crop(loaded.baseline, device).img)
+    crop_labels = i_crop(loaded.labels, device).img
+    ties = torch.zeros(crop_labels.shape, dtype=torch.bool, device=device)
+    for label, model in path_model.models.items():
+        params, l1 = model.color_path.fit_terms(relative, model.color_mode, "equidistant")
+        near = l1 <= l1.min(dim=-1, keepdim=True).values + 1e-6
+        spread = torch.where(near, params, -torch.inf).amax(-1) - torch.where(near, params, torch.inf).amin(-1)
+        ties |= (crop_labels == label) & (spread > 1e-6)
+    ties = ties.cpu()
+    path_err = float((card_crop["co2"] - cpu_crop["co2"])[~ties].abs().max())
+    pixels = differ.numel()
+    if not (
+        sat_err <= 1e-6
+        and bool(near_edge[differ].all())
+        and path_err <= 1e-5
+        and int(ties.sum()) < 1e-3 * pixels
+    ):
+        raise AssertionError(
+            f"I3: crop card vs CPU: saturation {sat_err}, range masks differ at {n_differ} pixels "
+            f"({int((differ & ~near_edge).sum())} away from an edge), path {path_err} off "
+            f"{int(ties.sum())} ties"
+        )
+    print(
+        f"I3. on {card}: embeddings on the read photograph, ms per call (median of 5): "
+        + ", ".join(f"{k} {times[k]:.2f}" for k in embeddings)
+        + f"; the path embedding {inside:.3f} on the plume, {outside:.3f} off it; 512x1024 "
+        f"crop, card vs CPU: "
+        f"saturation within {sat_err:.1e}, range masks differ at {n_differ} of {pixels} pixels "
+        f"({n_edge} within 1e-6 of a bound), path within {path_err:.1e} off {int(ties.sum())} fit "
+        f"ties; {time.perf_counter() - t_i3:.2f} s"
+    )
+    result["embedding_ms"] = times
+
+    # I4. The config-driven comparison on phase G's maps.
+    t_i4 = time.perf_counter()
+    cw = importlib.import_module("darsia_tpu_torch.presets.workflows.comparison.comparison_wasserstein")
+    compare_root = root / "comparison"
+    reference = comparison_maps(dt, compare_root, G_N)
+    multi = i_comparison_configs(compare_root, reference)
+    cw._compute(None, reference, skip_existing=False, device=dev)
+    cw._assemble(reference)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="Section .* not found")
+        (results, compute_s, _) = counted(
+            w2p, lambda: comparison_wasserstein(dt.Rig, multi, compute=True, device=dev), 0, "I4: compute"
+        )
+        rows = comparison_wasserstein(dt.Rig, multi, assemble=True)
+    ours = compare_root / "multi_results" / "wasserstein"
+    want_files = sorted(reference.wasserstein.results.glob("wasserstein_*.json"))
+    got_files = sorted(ours.glob("wasserstein_*.json"))
+    same = [p.name for p in got_files] == [p.name for p in want_files] and all(
+        json.loads(a.read_text()) == json.loads(b.read_text()) for a, b in zip(got_files, want_files)
+    )
+    csv_same = (ours / "wasserstein_distances.csv").read_bytes() == (
+        reference.wasserstein.results / "wasserstein_distances.csv"
+    ).read_bytes()
+    if not (same and csv_same and len(results) == len(rows) == 12):
+        raise AssertionError(f"I4: {len(results)} results, JSON equal {same}, CSV equal {csv_same}")
+    print(
+        f"I4. on {card}: comparison_wasserstein(Rig, multi.toml, compute=True) {compute_s:.2f} s "
+        f"(4 runs x 2 times at {G_N}x{G_N}, 12 pairs), then assemble=True: 12 JSON files and the "
+        f"CSV equal to _compute/_assemble on phase G's config object; {time.perf_counter() - t_i4:.2f} s"
+    )
+    shutil.rmtree(root, ignore_errors=True)
+    if launches != K1_IN_I:
+        raise AssertionError(f"I: {launches} K1 launches, want {K1_IN_I}")
+    result["phase_s"] = time.perf_counter() - tic
+    print(f"I. phase {result['phase_s']:.2f} s, {launches} K1 launches")
+    return {"launches": launches, **result}
+
+
 def profile_batch(dt, src, dst, out_dir: Path, name: str) -> None:
     """torch.profiler over a short batched solve (the Darcy solve and one
     Newton iteration): device busy against the unprofiled time."""
@@ -3971,6 +4461,7 @@ def main() -> int:
     phase_batched(dt, device, card, args.profile)
     check_counts(read_counts(w2p), {}, "G: batched W1 and comparison")
     fluidflower = phase_fluidflower(dt, w2p, device, card, args.profile)
+    rig_config = phase_rig_config(dt, w2p, lanes, device, card, args.profile)
     phase_volume(dt, device, card)
     phase_kernel_fields(w2p, lanes, device)
 
@@ -3983,13 +4474,14 @@ def main() -> int:
         + sum(p["launches"] for p in (rig_read, drift_lane, drifting))
         + sum(p["launches"] for p in (piecewise, colour, saved, restoration))
     )
-    if (earlier, colour_to_mass["launches"], fluidflower["launches"]) != (K1_BEFORE_E, K1_IN_E, K1_IN_H):
+    later = (colour_to_mass["launches"], fluidflower["launches"], rig_config["launches"])
+    if (earlier, *later) != (K1_BEFORE_E, K1_IN_E, K1_IN_H, K1_IN_I):
         raise AssertionError(
             f"K1 launches: {earlier} before phase E (want {K1_BEFORE_E}), "
-            f"{colour_to_mass['launches']} in it (want {K1_IN_E}), "
-            f"{fluidflower['launches']} in phase H (want {K1_IN_H})"
+            f"{later[0]} in it (want {K1_IN_E}), {later[1]} in phase H (want {K1_IN_H}), "
+            f"{later[2]} in phase I (want {K1_IN_I})"
         )
-    k1_launches = earlier + colour_to_mass["launches"] + fluidflower["launches"]
+    k1_launches = earlier + sum(later)
     results = {
         "warp_rows_t": {
             "launches": k1_launches,

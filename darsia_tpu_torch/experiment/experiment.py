@@ -2,7 +2,10 @@
 
 Counterpart of :mod:`darsia_tpu.experiment.experiment` (reference
 ``src/darsia/experiment/experiment.py``); the protocols are this package's
-(:mod:`.protocols`, no pandas).
+(:mod:`.protocols`, no pandas).  ``data=None`` (a run's config read without
+its data folder, as the cross-run comparison reads it) is an empty list:
+the JAX package iterates it and fails (ROADMAP.md Queue 3, reference fault
+24).
 """
 
 from __future__ import annotations
@@ -74,7 +77,7 @@ class ProtocolledExperiment:
         blacklist_protocol=None,
         pad: int = 5,
     ) -> None:
-        self.data = [Path(p) for p in data]
+        self.data = [Path(p) for p in data or []]
         if isinstance(imaging_protocol, dict):
             self.imaging_protocol = None
             self.imaging_protocols = {

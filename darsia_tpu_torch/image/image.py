@@ -36,6 +36,20 @@ __all__ = [
 ]
 
 
+def card_unless(device=None, what: str = "a numpy input") -> torch.device:
+    """``device``, or the CUDA card when it is None.
+
+    Raises:
+        RuntimeError: no ``device`` and no CUDA card (naming ``what``).
+
+    """
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(f'no CUDA device for {what}: pass device="cpu" to run on the CPU')
+    return torch.device("cuda")
+
+
 def as_tensor(array, device=None) -> torch.Tensor:
     """``array`` as a tensor: a tensor stays where it is (or moves to
     ``device`` when one is given); a numpy array goes to ``device``, which is
@@ -47,14 +61,7 @@ def as_tensor(array, device=None) -> torch.Tensor:
     """
     if isinstance(array, torch.Tensor):
         return array if device is None else array.to(device)
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device for a numpy input: pass device=\"cpu\" to run on "
-                "the CPU"
-            )
-        device = "cuda"
-    return torch.from_numpy(np.ascontiguousarray(array)).to(device)
+    return torch.from_numpy(np.ascontiguousarray(array)).to(card_unless(device))
 
 
 def as_numpy(array) -> np.ndarray:

@@ -1,7 +1,7 @@
 """Comparison workflow steps (counterpart of
-:mod:`darsia_tpu.presets.workflows.comparison`; ``comparison_events`` is not
-ported: it needs the config layer, ROADMAP.md Queue 1 item 7)."""
+:mod:`darsia_tpu.presets.workflows.comparison`)."""
 
+from .comparison_events import comparison_events
 from .comparison_wasserstein import WassersteinDistanceResult, comparison_wasserstein
 
-__all__ = ["WassersteinDistanceResult", "comparison_wasserstein"]
+__all__ = ["WassersteinDistanceResult", "comparison_events", "comparison_wasserstein"]

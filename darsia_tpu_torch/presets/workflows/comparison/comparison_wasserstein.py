@@ -190,17 +190,16 @@ def comparison_wasserstein(
     compute: bool = False,
     assemble: bool = False,
     skip_existing: bool = False,
+    device=None,
 ):
-    """Compute or assemble cross-run Wasserstein distances from a config file.
+    """Compute or assemble cross-run Wasserstein distances from a
+    ``MultiFluidFlowerConfig`` file; the compute step solves on ``device``
+    (None: the card)."""
+    from ..config.multi_fluidflower_config import MultiFluidFlowerConfig
 
-    Not ported: the config layer it reads (``presets/workflows/config``:
-    ``MultiFluidFlowerConfig`` and its section modules, one of which imports
-    the unported colour embeddings) waits for ROADMAP.md, Queue 1, item 7.
-    Call ``_compute(cls, config, skip_existing)`` and ``_assemble(config)``
-    with a config object that has the sections they read.
-    """
-    raise NotImplementedError(
-        "comparison_wasserstein needs presets/workflows/config (MultiFluidFlowerConfig), "
-        "which is not ported (ROADMAP.md, Queue 1, item 7); call _compute(cls, config, "
-        "skip_existing) and _assemble(config) with a config object instead"
-    )
+    assert compute + assemble == 1, "Exactly one of compute/assemble must be True."
+    config = MultiFluidFlowerConfig(path, require_data=False, require_results=True)
+    assert config.wasserstein is not None
+    if compute:
+        return _compute(cls, config, skip_existing, device=device)
+    return _assemble(config)

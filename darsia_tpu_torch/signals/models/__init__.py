@@ -26,12 +26,15 @@ from .dynamicthresholdmodel import (
     TwoPeakHistogrammAnalysis,
     otsu_threshold,
 )
+from .kernelinterpolation import AdvancedKernelInterpolation, KernelInterpolation
 from .linearmodel import HeterogeneousLinearModel, LinearModel, ScalingModel
 from .pwtransformation import PWTransformation
 from .staticthresholdmodel import StaticThresholdModel
 from .thresholdmodel import ThresholdModel
 
 __all__ = [
+    "AdvancedKernelInterpolation",
+    "KernelInterpolation",
     "BaseCriterion",
     "BinaryDataSelector",
     "ClipModel",

@@ -8,9 +8,9 @@ values at the path's nodes (:func:`~darsia_tpu_torch.ops.interp.interp`) and
 the linear extrapolation past the end nodes.  With an ``ignore_spectrum``,
 colours of norm <= 0.1 take parameter 0 through a ``torch.where`` (the JAX
 package fits only the others: the same values, without a boolean gather).
-Only whether an ``ignore_spectrum`` is given matters to the evaluation; a
-spectrum read from a file is kept as the dict it was and written back as is
-(``ColorSpectrum`` itself is not ported yet).
+Only whether an ``ignore_spectrum`` (a
+:class:`~darsia_tpu_torch.signals.color.color_range.ColorSpectrum`) is given
+matters to the evaluation; it is saved and read back as the JAX package's.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from ...multiphase.mass_analysis import full_like
 from ...ops.interp import interp
 from ..color.color_mode import ColorMode
 from ..color.color_path import ColorPath
+from ..color.color_range import ColorSpectrum
 from .basemodel import Model
 
 __all__ = ["ColorPathFunction", "ColorPathInterpolation", "LabelColorPathInterpolation"]
@@ -85,16 +86,13 @@ class ColorPathInterpolation(ColorPathFunction):
     # ------------------------------------------------------------------- io
 
     def to_dict(self) -> dict:
-        spectrum = self.ignore_spectrum
-        if spectrum and hasattr(spectrum, "to_dict"):
-            spectrum = spectrum.to_dict()
         return {
             "color_path": self.color_path.to_dict(),
             "color_mode": str(
                 self.color_mode.value if isinstance(self.color_mode, ColorMode) else self.color_mode
             ),
             "values": self.values.tolist(),
-            "ignore_spectrum": spectrum if spectrum else None,
+            "ignore_spectrum": self.ignore_spectrum.to_dict() if self.ignore_spectrum else None,
         }
 
     @classmethod
@@ -103,7 +101,11 @@ class ColorPathInterpolation(ColorPathFunction):
             color_path=ColorPath.from_dict(data["color_path"]),
             color_mode=ColorMode(data["color_mode"]),
             values=np.asarray(data["values"]),
-            ignore_spectrum=data.get("ignore_spectrum") or None,
+            ignore_spectrum=(
+                ColorSpectrum.from_dict(data["ignore_spectrum"])
+                if data.get("ignore_spectrum")
+                else None
+            ),
         )
 
     def save(self, path: Path) -> None:

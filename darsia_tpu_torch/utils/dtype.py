@@ -14,6 +14,7 @@ __all__ = ["as_torch_dtype", "convert_dtype", "host_float32"]
 _RANGES = {torch.uint8: 255.0, torch.uint16: 65535.0}
 
 _FROM_NUMPY = {
+    np.dtype(bool): torch.bool,
     np.dtype(np.uint8): torch.uint8,
     np.dtype(np.uint16): torch.uint16,
     np.dtype(np.int32): torch.int32,

@@ -98,6 +98,23 @@ def test_exported_names_are_the_ports_own():
         "segment",
         "kmeans",
         "manager",
+        "Rig",
+        "FaciesProps",
+        "FluidFlowerConfig",
+        "MultiFluidFlowerConfig",
+        "ColorEmbeddingRuntime",
+        "ColorChannelEmbedding",
+        "ColorRangeEmbedding",
+        "ColorPathEmbedding",
+        "ColorSpectrum",
+        "DiscreteColorRange",
+        "LabelColorPathMap",
+        "PorosityAnalysis",
+        "patched_porosity_analysis",
+        "KernelInterpolation",
+        "GaussianKernel",
+        "Masks",
+        "validate_mode_syntax",
     ],
 )
 def test_named_entry_points_are_exported(name):

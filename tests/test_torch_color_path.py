@@ -143,10 +143,20 @@ def test_interp_against_jnp_interp(case):
 # ---------------------------------------------------------------- models
 
 
+def _spectra():
+    """The same relative-colour spectrum fitted by each package (JAX, port)."""
+    colors = np.random.default_rng(5).uniform(-0.3, 0.3, size=(200, 3))
+    return tuple(
+        pkg.ColorSpectrum(resolution=11).fit(colors).threshold(0.01) for pkg in (da, dt)
+    )
+
+
 @pytest.mark.parametrize("color_mode", ["absolute", "relative"])
-@pytest.mark.parametrize("spectrum", [None, {"any": "spectrum"}], ids=["plain", "ignore_spectrum"])
-def test_color_path_interpolation_against_jax(color_mode, spectrum):
+@pytest.mark.parametrize("with_spectrum", [False, True], ids=["plain", "ignore_spectrum"])
+def test_color_path_interpolation_against_jax(color_mode, with_spectrum):
     j, t = _paths()
+    spectra = _spectra() if with_spectrum else (None, None)
+    spectrum = spectra[1]
     values = [0.0, 0.4, 1.0, 1.5]
     colors = _probe(44, scale=1.2) - 0.1
     colors[:3] *= 0.01  # norms below 0.1: ignored with a spectrum
@@ -154,7 +164,7 @@ def test_color_path_interpolation_against_jax(color_mode, spectrum):
     jm = da.ColorPathInterpolation(j, da.ColorMode(color_mode), values=values)
     tm = dt.ColorPathInterpolation(t, dt.ColorMode(color_mode), values=values, ignore_spectrum=spectrum)
     # The JAX evaluation reads only whether a spectrum is there.
-    jm.ignore_spectrum = spectrum
+    jm.ignore_spectrum = spectra[0]
     want = np.asarray(jm.call_array(colors))
     got = tm(torch.from_numpy(colors))
     assert got.dtype == torch.float32 and np.abs(got.numpy() - want).max() <= ATOL
@@ -170,11 +180,18 @@ def test_color_path_interpolation_against_jax(color_mode, spectrum):
 
 def test_color_path_interpolation_io_keeps_the_spectrum(tmp_path):
     _, t = _paths()
-    spectrum = {"color_range": {"min_color": [-1, -1, -1]}, "spectrum": [[0, 1], [1, 0]]}
+    j_spectrum, spectrum = _spectra()
     model = dt.ColorPathInterpolation(t, dt.ColorMode.RELATIVE, values=[0, 0.3, 0.6, 1.0], ignore_spectrum=spectrum)
     model.save(tmp_path / "interp")
     back = dt.ColorPathInterpolation.load(tmp_path / "interp.json")
-    assert back.ignore_spectrum == spectrum and back.to_dict() == model.to_dict()
+    assert isinstance(back.ignore_spectrum, dt.ColorSpectrum)
+    assert back.ignore_spectrum.counts == spectrum.counts and back.to_dict() == model.to_dict()
+    # The JAX package reads the port's file and writes the same one.
+    j_back = da.ColorPathInterpolation.load(tmp_path / "interp.json")
+    assert j_back.ignore_spectrum.counts == spectrum.counts
+    j, _ = _paths()
+    jm = da.ColorPathInterpolation(j, da.ColorMode.RELATIVE, values=[0, 0.3, 0.6, 1.0], ignore_spectrum=j_spectrum)
+    assert jm.to_dict() == model.to_dict()
     # A file without a spectrum, written by the JAX package, reads back.
     j, _ = _paths()
     da.ColorPathInterpolation(j, da.ColorMode.ABSOLUTE, values=[0, 0.2, 0.5, 1.0]).save(tmp_path / "jax")

@@ -231,9 +231,139 @@ def test_load_mass_through_load_data_against_jax(tmp_path):
         assert abs(t.distance - j.distance) <= PARITY * j.distance
 
 
-def test_config_entry_raises_naming_the_config_layer():
-    with pytest.raises(NotImplementedError, match="presets/workflows/config"):
-        tw.comparison_wasserstein(None, "config.toml", compute=True)
+def _config_tree(root: Path, start: datetime) -> Path:
+    """Two runs as TOML configs, each with its saved 10x10 mass maps (two
+    report times), an imaging protocol and a mass table, and a
+    ``MultiFluidFlowerConfig`` file over them with [wasserstein] and
+    [events] sections."""
+    masses = {"a": (1, 2), "b": (4, 5)}
+    for run, seeds in masses.items():
+        folder = root / run
+        (folder / "images").mkdir(parents=True)
+        (folder / "results" / "mass").mkdir(parents=True)
+        lines = ["image_id,datetime"]
+        for i, seed in enumerate(seeds):
+            dt.Image(torch.from_numpy(_mass(seed)), **META).save(
+                folder / "results" / "mass" / f"mass_{i:05d}.npz"
+            )
+            lines.append(f"{i},{(start + timedelta(hours=i)).isoformat(sep=' ')}")
+        (folder / "imaging.csv").write_text("\n".join(lines) + "\n")
+        rng = np.random.default_rng(seeds[0])
+        times = np.arange(0.0, 5.0, 0.5)
+        table = ["time,box_detected_mass,box_detected_mass_g,total_exact_mass"]
+        for t, m in zip(times, np.cumsum(rng.random(len(times))) * 1e-3):
+            table.append(f"{t},{m},{0.3 * m},{2e-3}")
+        (folder / "results" / "mass" / "mass_analysis_results.csv").write_text("\n".join(table) + "\n")
+        (folder / "config.toml").write_text(
+            f'''
+[data]
+folder = "{folder / 'images'}"
+baseline = "img_00000.npz"
+results = "{folder / 'results'}"
+
+[protocols]
+imaging = "{folder / 'imaging.csv'}"
+
+[color.path.co2]
+mode = "relative"
+
+[analysis.mass]
+color = "co2"
+'''
+        )
+    (root / "results").mkdir()
+    multi = root / "multi.toml"
+    multi.write_text(
+        f'''
+[data]
+results = "{root / 'results'}"
+
+[run.a]
+config = "a/config.toml"
+
+[run.b]
+config = "b/config.toml"
+
+[wasserstein]
+runs = ["a", "b"]
+times = [0.0, 1.0]
+relative_tol = 0.5
+
+[events.early]
+mode = "mass"
+roi_name = "box"
+relative_threshold = 0.5
+
+[events.gas]
+mode = "mass_g"
+roi_name = "box"
+relative_threshold = 0.9
+'''
+    )
+    return multi
+
+
+def test_config_entry_raises_naming_the_config_layer(tmp_path):
+    """The config-driven entry reads the config layer: a file without a
+    [wasserstein] section stops, as in the JAX package, and the config's
+    check names the section; compute and assemble are exclusive."""
+    from darsia_tpu_torch.presets.workflows.config import MultiFluidFlowerConfig
+
+    multi = _config_tree(tmp_path, datetime(2024, 3, 1, 9))
+    bare = tmp_path / "bare.toml"
+    bare.write_text(multi.read_text().split("[wasserstein]")[0])
+    with pytest.warns(UserWarning), pytest.raises(ValueError, match="wasserstein"):
+        MultiFluidFlowerConfig(bare).check("wasserstein")
+    for module in (cw, tw):
+        with pytest.warns(UserWarning), pytest.raises(AssertionError):
+            module.comparison_wasserstein(None, bare, compute=True)
+        with pytest.raises(AssertionError, match="Exactly one"):
+            module.comparison_wasserstein(None, multi, compute=True, assemble=True)
     package = importlib.import_module("darsia_tpu_torch.presets.workflows.comparison")
     assert package.comparison_wasserstein is tw.comparison_wasserstein
     assert package.WassersteinDistanceResult is tw.WassersteinDistanceResult
+    assert package.comparison_events.__module__.startswith("darsia_tpu_torch")
+
+
+def test_config_driven_comparison_against_jax(tmp_path, recwarn):
+    """``comparison_wasserstein(cls, path, compute=True)`` then
+    ``assemble=True`` from a ``MultiFluidFlowerConfig`` file, against the
+    JAX package's ``_compute``/``_assemble`` on the same saved maps (its own
+    config-driven entry stops at the runs' missing data lists: reference
+    fault 24)."""
+    start = datetime(2024, 3, 1, 9)
+    multi = _config_tree(tmp_path, start)
+    port = tw.comparison_wasserstein(None, multi, compute=True, device="cpu")
+    rows = tw.comparison_wasserstein(None, multi, assemble=True)
+    with pytest.raises(TypeError):
+        cw.comparison_wasserstein(None, multi, compute=True)
+    runs = {run: _run_folder(tmp_path / "jax", run, seeds, start, n=10) for run, seeds in (("a", (1, 2)), ("b", (4, 5)))}
+    config = _Config(
+        runs=SimpleNamespace(config=runs),
+        wasserstein=_WConfig(results=tmp_path / "jax_results", runs=["a", "b"], times=[(0.0, None), (1.0, None)]),
+    )
+    jax = cw._compute(None, config, skip_existing=False)
+    cw._assemble(config)
+    assert len(port) == len(jax) == 2 and len(rows) == 2
+    for t, j in zip(port, jax):
+        assert (t.run_a, t.run_b, t.time) == (j.run_a, j.run_b, j.time)
+        assert abs(t.distance - j.distance) <= PARITY * j.distance
+    assert [r["run_a"] for r in rows] == ["a", "a"]
+    header = (tmp_path / "results" / "wasserstein" / "wasserstein_distances.csv").read_text().splitlines()[0]
+    assert header == (tmp_path / "jax_results" / "wasserstein_distances.csv").read_text().splitlines()[0]
+
+
+def test_events_table_against_jax(tmp_path, recwarn):
+    """``comparison_events(path)``: the port's CSV equals the JAX package's
+    (written with pandas) byte for byte, an event never reached included."""
+    multi = _config_tree(tmp_path, datetime(2024, 3, 1, 9))
+    events = importlib.import_module("darsia_tpu.presets.workflows.comparison.comparison_events")
+    port_events = importlib.import_module("darsia_tpu_torch.presets.workflows.comparison.comparison_events")
+    out = tmp_path / "results" / "events" / "events.csv"
+    events.comparison_events(multi)
+    want = out.read_bytes()
+    out.unlink()
+    rows = port_events.comparison_events(multi)
+    assert out.read_bytes() == want
+    assert [row["run"] for row in rows] == ["a", "b"]
+    assert b",," in want or want.rstrip().endswith(b",")  # the gas event is never reached

@@ -83,3 +83,39 @@ def test_colour_to_mass_numpy_input_without_a_card_raises(no_card):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
     assert dt.HeterogeneousModel(dt.ClipModel(0.0, 1.0), labels)(torch.from_numpy(signal)).device.type == "cpu"
+
+
+def test_rig_config_and_setup_entry_points_default_to_the_card(no_card, tmp_path):
+    """``device=None`` (the card) in every rig, setup, embedding and
+    comparison entry point; without a card each raises naming
+    ``device="cpu"`` before it reads or writes anything."""
+    import inspect
+
+    from darsia_tpu_torch.presets.workflows import setup
+    from darsia_tpu_torch.presets.workflows.comparison import comparison_wasserstein
+
+    entry_points = [
+        setup.setup_rig,
+        setup.setup_depth_map,
+        setup.segment_colored_image,
+        setup.setup_facies,
+        dt.Rig.setup,
+        dt.Rig.load,
+        dt.ColorEmbeddingRuntime,
+        comparison_wasserstein,
+    ]
+    for entry in entry_points:
+        assert inspect.signature(entry).parameters["device"].default is None, entry
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        dt.ColorEmbeddingRuntime(rig=None)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        dt.Rig.load(tmp_path / "absent")
+    config = tmp_path / "config.toml"
+    config.write_text(
+        f'[rig]\nwidth = 1.0\nheight = 1.0\ndim = 2\nresolution = [4, 6]\npath = "{tmp_path / "rig"}"\n'
+        f'[depth]\nmeasurements = "{tmp_path / "depth.csv"}"\ndepth_map = "{tmp_path / "depth.npz"}"\n'
+    )
+    (tmp_path / "depth.csv").write_text("x,y,mean\n0,0,1\n1,0,1\n0,1,1\n1,1,2\n")
+    with pytest.warns(UserWarning), pytest.raises(RuntimeError, match='device="cpu"'):
+        setup.setup_depth_map(config)
+    assert not (tmp_path / "depth.npz").exists()

@@ -4,8 +4,9 @@ A subprocess blocks ``jax`` and ``cv2`` (``sys.modules[name] = None`` makes
 any import of them fail), imports ``darsia_tpu_torch`` and runs the small
 correct -> register -> concentrate pipeline on a numpy-made frame.  It also
 imports every module of the package and runs the heterogeneous
-colour-to-mass chain, a W1 solve, and the FluidFlower CO2 analysis and rig
-from a numpy-made JSON config and npz frames.  A second subprocess also
+colour-to-mass chain, a W1 solve, the FluidFlower CO2 analysis and rig from
+a numpy-made JSON config and npz frames, and the rig workflow from a TOML
+config (set-up steps without matplotlib warn and write their .npz).  A second subprocess also
 blocks ``darsia_tpu`` and reads the image, every correction file, a
 colour-to-mass calibration folder, and the cleaning filters and labels cache
 of a FluidFlower CO2 analysis and rig that the JAX package wrote beforehand
@@ -299,6 +300,74 @@ with tempfile.TemporaryDirectory() as tmp:
     }))
     fluidflower_rig = dt.FluidFlowerRig(tmp / "rig.npz", tmp / "rig.json", device="cpu")
     assert len(np.unique(fluidflower_rig.labels)) == 2 and (tmp / "labels.npy").exists()
+
+# A rig from a TOML config: the depth map, the labels and the rig set up
+# (each set-up step warns once that matplotlib is missing and writes its
+# .npz), saved, loaded, a photograph read and embedded.
+import warnings
+
+from darsia_tpu_torch.presets.workflows import setup as rig_setup
+
+with tempfile.TemporaryDirectory() as tmp:
+    tmp = Path(tmp)
+    (tmp / "images").mkdir()
+    RH, RW = 48, 64
+    rig_base = (rng.uniform(0.1, 0.9, (RH, RW, 3)) * 255).astype(np.uint8)
+    for i in range(2):
+        dt.OpticalImage(torch.from_numpy(np.roll(rig_base, i, axis=1)), width=1.0, height=0.8).save(
+            tmp / "images" / f"img_{i:05d}.npz"
+        )
+    sketch = np.zeros((RH, RW, 3), np.float32)
+    sketch[RH // 2 :] = 1.0
+    dt.OpticalImage(torch.from_numpy(sketch), width=1.0, height=0.8).save(tmp / "sketch.npz")
+    (tmp / "depth.csv").write_text("x,y,mean\n0,0,0.02\n1,0,0.02\n0,0.8,0.03\n1,0.8,0.02\n0.5,0.4,0.025\n")
+    (tmp / "imaging.csv").write_text("image_id,datetime\n0,2024-03-01 09:00:00\n1,2024-03-01 10:00:00\n")
+    (tmp / "config.toml").write_text(f'''
+[data]
+folder = "{tmp / 'images'}"
+baseline = "img_00000.npz"
+results = "{tmp / 'results'}"
+[rig]
+width = 1.0
+height = 0.8
+dim = 2
+resolution = [{RH}, {RW}]
+[depth]
+measurements = "{tmp / 'depth.csv'}"
+[labeling]
+colored_image = "{tmp / 'sketch.npz'}"
+[protocols]
+imaging = "{tmp / 'imaging.csv'}"
+[image_porosity]
+mode = "from_image"
+tol = 0.0
+sample_width = 10
+[corrections.curvature.config.bulge]
+horizontal_bulge = 1e-6
+[color.channel.hue]
+color_space = "HSV"
+channel = "h"
+''')
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        rig_setup.setup_depth_map(tmp / "config.toml", device="cpu")
+        rig_setup.segment_colored_image(tmp / "config.toml", device="cpu")
+        rig = rig_setup.setup_rig(dt.Rig, tmp / "config.toml", device="cpu")
+    assert sum("matplotlib" in str(w.message) for w in caught) == 1
+    results = tmp / "results" / "setup"
+    assert (results / "depth_map.npz").exists() and (results / "labels.npz").exists()
+    assert not list(results.glob("*.jpg"))
+    loaded = dt.Rig.load(results / "rig", device="cpu")
+    loaded.load_experiment(rig.experiment)
+    photo = tmp / "images" / "img_00001.npz"
+    read = loaded.read_image(photo)
+    assert torch.equal(read.img, rig.read_image(photo).img) and read.img.device.type == "cpu"
+    porosity = loaded.image_porosity.img
+    assert porosity.dtype == torch.float32 and 0 <= float(porosity.min()) and float(porosity.max()) <= 1
+    config = dt.FluidFlowerConfig(tmp / "config.toml")
+    runtime = dt.ColorEmbeddingRuntime(rig=loaded, device="cpu")
+    hue = config.color["hue"].to_scalar_image(read, runtime)
+    assert hue.img.shape == (RH, RW) and 0.0 < float(hue.img.max()) < 360.0
 print("ok", tuple(out.img.shape))
 """
 
