@@ -306,13 +306,47 @@ I. The rig workflow from its TOML config (after phase H), through the public
    compute=True)`` then ``assemble=True`` on phase G's maps through a
    ``MultiFluidFlowerConfig`` file: the 12 JSON files and the CSV equal to
    ``_compute``/``_assemble`` on phase G's config object.  The phase checks
-   its 120 K1 launches exactly.
+   its 120 K1 launches exactly and hands its folder to phase J.
+
+J. The config-driven analysis run (after phase I) over phase I's rig: its 4
+   photographs and 4 more drifted by 5-8 px with the plume grown (seeded
+   1788x3180 uint8 npz) in a folder of their own, imaging and injection
+   protocols, a colour-to-mass chain over the rig's 12 labels saved where
+   ``[color.path.co2]`` names it (phase E's signal functions and flash,
+   paths towards the plume's colour), two ROIs and ``[analysis]`` formats
+   npz, ``[analysis.mass]`` (export mass and rescaled mass),
+   ``[analysis.volume]``, ``[analysis.cropping]`` npz.  Every
+   ``Rig.read_image`` of the phase is recorded: a frame the loader would
+   skip fails it.  J1: ``user_interface_analysis.main(["--config", ...,
+   "--mass", "--volume", "--cropping", "--all"])``: 8 rows in each CSV, the
+   late row's rescaled mass within rel 1e-3 of the injected mass (itself
+   the protocol's rate times the time, within 1e-9), each ROI's mass within
+   the total, 16 mass fields and 8 cropped photographs.  J2:
+   ``analysis_mass_from_context`` on a context of its own, prefetched (the
+   default workers and depth) and sequential (``iter_prefetched_images``
+   patched to depth 0 here), 4 loops each in turns into fresh folders: ms
+   per photograph, ``loader_prefetch_speedup`` (sequential / prefetched
+   median), peak GiB, the progress events; the CSV bytes and every exported
+   field equal across all loops, each photograph's mass field and total
+   bitwise equal to the chain called on ``rig.read_image``; one more
+   sequential loop split into read, chain, products, export, integrals and
+   CSV (each step closed by a synchronize).  J3: the loop with plain K1,
+   every field within mean |diff| <= 1e-5.  J4 (``--profile``): one
+   prefetched loop profiled (device ops and busy ms per photograph, idle
+   share, peak GiB).  J5: ``user_interface_setup.main(["--config", ...,
+   "--protocols", "--overwrite"])`` on a copy of the config whose protocols
+   lie in a scratch folder (the CSV lists the 8 photographs: npz carries no
+   EXIF, so the dates are the file times), and
+   ``user_interface_comparison.main([... "--wasserstein-compute",
+   "--wasserstein-assemble"])`` on phase G's runs: the 12 JSON files and
+   the CSV equal to phase I4's.  The phase checks its 432 K1 launches
+   exactly (104 in J1, 328 in J2) and deletes the folder.
 
 Every launch count is set to 0 just before each path of phases 3, 5-7,
-8-11, 14-20, B, E, F, G, H and I and read just after it; the ``kernels``
+8-11, 14-20, B, E, F, G, H, I and J and read just after it; the ``kernels``
 line's K1 launches are their sum, 586 before phase E, 28 in it, none in F or
-G, 198 in H and 120 in I (checked exactly).  Each of phases 8-12, 14-20, A-I
-prints its seconds.  The
+G, 198 in H, 120 in I and 432 in J (checked exactly).  Each of phases 8-12,
+14-20, A-J prints its seconds.  The
 second-to-last line is a JSON object of per-kernel results; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
@@ -3843,7 +3877,14 @@ def i_config(root: Path) -> Path:
     14: drift and colour on the checker, CURVATURE, the illumination of
     ILLUMINATION; the image porosity from the baseline; one channel, one
     range and one path embedding)."""
-    config = {
+    path = root / "config.toml"
+    path.write_text(toml_text(i_tables(root)))
+    return path
+
+
+def i_tables(root: Path) -> dict:
+    """Phase I's config as nested tables."""
+    return {
         "data": {"folder": root / "images", "baseline": "img_00000.npz", "results": root / "results"},
         "rig": {"width": META["width"], "height": META["height"], "dim": 2, "resolution": [H, W]},
         "depth": {"measurements": root / "depth.csv"},
@@ -3875,9 +3916,6 @@ def i_config(root: Path) -> Path:
             },
         },
     }
-    path = root / "config.toml"
-    path.write_text(toml_text(config))
-    return path
 
 
 def i_color_paths(dt, labels: torch.Tensor, folder: Path) -> None:
@@ -3935,10 +3973,11 @@ def i_crop(image, where):
     return type(image)(sub.img.to(where).contiguous(), **sub.metadata())
 
 
-def phase_rig_config(dt, w2p, lanes, device, card: str, profile) -> dict:
+def phase_rig_config(dt, w2p, lanes, device, card: str, profile, keep: bool = False) -> dict:
     """Phase I: the rig workflow from its TOML config through the public
     functions (set-up, load, reading, embeddings, the config-driven
-    comparison)."""
+    comparison).  With ``keep`` its folder stays and the result hands it on
+    (``root``, ``photos``, the loaded rig, phase G's comparison config)."""
     import importlib
     import shutil
     import tempfile
@@ -4178,11 +4217,442 @@ def phase_rig_config(dt, w2p, lanes, device, card: str, profile) -> dict:
         f"(4 runs x 2 times at {G_N}x{G_N}, 12 pairs), then assemble=True: 12 JSON files and the "
         f"CSV equal to _compute/_assemble on phase G's config object; {time.perf_counter() - t_i4:.2f} s"
     )
-    shutil.rmtree(root, ignore_errors=True)
+    if keep:
+        result["handoff"] = {"root": root, "photos": photos, "rig": loaded, "multi": multi}
+    else:
+        shutil.rmtree(root, ignore_errors=True)
     if launches != K1_IN_I:
         raise AssertionError(f"I: {launches} K1 launches, want {K1_IN_I}")
     result["phase_s"] = time.perf_counter() - tic
     print(f"I. phase {result['phase_s']:.2f} s, {launches} K1 launches")
+    return {"launches": launches, **result}
+
+
+# ---------------------------------------------------------------- phase J
+J_SHIFTS = ((5, 6), (6, -5), (7, 3), (8, -7))  # photographs 5-8: their drift (rows, cols)
+J_GROWTH = (1.1, 1.2, 1.3, 1.4)  # photographs 5-8: the plume's radii over I_PLUME's
+J_PHOTOS = len(I_SHIFTS) + len(J_SHIFTS)
+J_REPS = 4  # timed loops per mode, interleaved
+J_INJECTION = (1.3, 0.5)  # (x, y): inside the "left" ROI
+J_RATE = 1e-6  # kg/s, from I_START + 30 min to I_START + 10 h
+J_ROIS = {"left": [[0.0, 0.0], [1.4, 1.5]], "right": [[1.4, 0.0], [2.8, 1.5]]}
+J_STEPS = ("read", "chain", "products", "export", "integrals", "csv")
+# K1 launches: I_READ_K1 per Rig.read_image, and H_GRID_K1 in the first read
+# through a freshly loaded rig (its curvature grid).  J1: the CLI's mass,
+# volume and cropping steps each read every photograph through one loaded
+# rig.  J2: a context of its own, 2 x J_REPS timed loops and one
+# instrumented loop over every photograph, then every photograph read once
+# more for the direct check.  J3 takes the plain K1; J4 and J5 launch none
+# that is counted.
+J1_K1 = 3 * J_PHOTOS * I_READ_K1 + H_GRID_K1
+J2_K1 = (2 * J_REPS + 1) * J_PHOTOS * I_READ_K1 + H_GRID_K1 + J_PHOTOS * I_READ_K1
+K1_IN_J = J1_K1 + J2_K1
+
+
+def j_assets(dt, frame: np.ndarray, root: Path, photos: list) -> list:
+    """Phase J's photographs in a folder of their own: phase I's 4 and 4
+    more, drifted by 5-8 px with the plume grown; the imaging protocol of
+    the baseline and the 8, and an injection protocol.  Returns the 8 paths."""
+    folder = root / "photos"
+    folder.mkdir()
+    out = [p.rename(folder / p.name) for p in photos]
+    for k, (shift, growth) in enumerate(zip(J_SHIFTS, J_GROWTH), start=len(I_SHIFTS) + 1):
+        img = frame.astype(np.float64) / 255.0
+        img[h_ellipse((H, W), I_PLUME, growth)] += I_PLUME_COLOUR
+        img = np.round(np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
+        out.append(h_save(dt, folder / f"img_{k:05d}.npz", np.roll(img, shift, axis=(0, 1))))
+    protocols = root / "analysis"
+    protocols.mkdir()
+    (protocols / "imaging.csv").write_text(
+        "path,image_id,datetime\n"
+        + "".join(
+            f"img_{k:05d}.npz,{k},{(I_START + timedelta(hours=k)).isoformat(sep=' ')}\n"
+            for k in range(J_PHOTOS + 1)
+        )
+    )
+    (protocols / "injection.csv").write_text(
+        "id,location_x,location_y,start,end,rate_kg/s\n"
+        f"1,{J_INJECTION[0]},{J_INJECTION[1]},{(I_START + timedelta(minutes=30)).isoformat(sep=' ')},"
+        f"{(I_START + timedelta(hours=10)).isoformat(sep=' ')},{J_RATE!r}\n"
+    )
+    return out
+
+
+def j_tables(root: Path, protocols: Path) -> dict:
+    """Phase I's config over phase J's photographs, its protocols in
+    ``protocols``, two ROIs and the analysis sections (npz only: the card's
+    machine has no JPEG writer)."""
+    tables = i_tables(root)
+    tables["data"] = {
+        "folder": root / "photos",
+        "baseline": root / "images" / "img_00000.npz",
+        "results": root / "results",
+    }
+    tables["protocols"] = dict(
+        tables["protocols"], imaging=protocols / "imaging.csv", injection=protocols / "injection.csv"
+    )
+    tables["roi"] = {name: {"name": name, "corner_1": a, "corner_2": b} for name, (a, b) in J_ROIS.items()}
+    tables["analysis"] = {
+        "formats": ["npz"],
+        "mass": {"color": "co2", "roi": list(J_ROIS), "export": ["mass", "rescaled_mass"]},
+        "volume": {"roi": ["left"]},
+        "cropping": {"formats": ["npz"]},
+    }
+    return tables
+
+
+def j_chain(dt, rig, folder: Path) -> None:
+    """A colour-to-mass chain over the rig's labels, built as phase E builds
+    its chain (phase E's signal functions and flash) with each label's
+    colour path towards the plume's colour change (as phase I's path
+    embedding), saved to ``folder``."""
+    labels = sorted(int(v) for v in torch.unique(rig.labels.img).tolist())
+    _, functions = layer_models(dt, len(labels))
+    rng = np.random.default_rng(42)
+    target = np.asarray(I_PLUME_COLOUR)
+    interps = {}
+    for label in labels:
+        steps = [np.zeros(3)] + [
+            target * s / I_PATH_SEGMENTS + rng.normal(0.0, 0.01, 3) for s in range(1, I_PATH_SEGMENTS + 1)
+        ]
+        path = dt.ColorPath(relative_colors=steps, base_color=np.zeros(3), name=f"layer {label}")
+        interps[label] = dt.ColorPathInterpolation(path, dt.ColorMode.RELATIVE, values=path.equidistant_distances)
+    chain = dt.HeterogeneousColorToMassAnalysis(
+        baseline=rig.baseline,
+        labels=rig.labels,
+        color_mode=dt.ColorMode.RELATIVE,
+        color_path_interpretation=interps,
+        signal_functions={label: functions[k] for k, label in enumerate(labels)},
+        flash=dt.SimpleFlash(*E_FLASH),
+        co2_mass_analysis=dt.CO2MassAnalysis(rig.baseline, 1.01, 23.0),
+        geometry=rig.geometry,
+    )
+    chain.save(folder)
+
+
+def j_csv(path: Path) -> list:
+    """The rows of a CSV as dicts of strings."""
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def j_fields(folder: Path) -> dict:
+    """Every exported npz field under ``folder`` (mode/npz/stem.npz): its
+    array by (mode, stem)."""
+    return {
+        (p.parent.parent.name, p.stem): np.load(p, allow_pickle=True)["array"]
+        for p in sorted(folder.glob("*/npz/*.npz"))
+    }
+
+
+class JTimed:
+    """``inner`` with its call replaced by ``call`` (other attributes pass)."""
+
+    def __init__(self, inner, call):
+        self._inner, self._call = inner, call
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def __call__(self, *args, **kwargs):
+        return self._call(*args, **kwargs)
+
+
+def phase_analysis_run(dt, w2p, lanes, handoff: dict, device, card: str, profile) -> dict:
+    """Phase J: the config-driven analysis run over phase I's rig through its
+    CLIs, the prefetching loader against the sequential loop, the plain K1,
+    the set-up and comparison CLIs."""
+    import logging
+    import shutil
+    import warnings
+
+    from darsia_tpu_torch.presets.workflows import (
+        user_interface_analysis,
+        user_interface_comparison,
+        user_interface_setup,
+    )
+    from darsia_tpu_torch.presets.workflows.analysis import analysis_context, analysis_mass
+    from darsia_tpu_torch.presets.workflows.analysis.image_export_formats import ImageExportFormats
+    from darsia_tpu_torch.presets.workflows.config import FluidFlowerConfig
+    from darsia_tpu_torch.utils.csv_table import CsvTable
+    from darsia_tpu_torch.utils.prefetch import default_workers
+
+    warnings.filterwarnings("ignore", message="Section .* not found")
+    tic = time.perf_counter()
+    dev = None if device.type == "cuda" else device
+    root = handoff["root"]
+    photos = j_assets(dt, lanes["rig"]["frame"], root, handoff["photos"])
+    config_path = root / "analysis.toml"
+    config_path.write_text(toml_text(j_tables(root, root / "analysis")))
+    config = FluidFlowerConfig(config_path)
+    j_chain(dt, handoff["rig"], config.color["co2"].color_to_mass_folder)
+    files_s = time.perf_counter() - tic
+    stems = [p.stem for p in photos]
+
+    # Every read of the phase is recorded: a frame the loader would skip
+    # fails the phase.
+    failures = []
+    read_image = dt.Rig.read_image
+
+    def recording(self, path):
+        try:
+            return read_image(self, path)
+        except Exception as err:
+            failures.append(f"{Path(path).name}: {err!r}")
+            raise
+
+    dt.Rig.read_image = recording
+    try:
+        # J1. The analysis CLI: mass, volume and cropping over every photograph.
+        argv = ["--config", str(config_path), "--mass", "--volume", "--cropping", "--all"]
+        _, j1_s, launches = counted(
+            w2p, lambda: user_interface_analysis.main(argv, device=dev), J1_K1, "J1: the analysis CLI"
+        )
+        logging.getLogger().setLevel(logging.WARNING)  # main() set INFO for the CLI
+        results = root / "results"
+        mass_rows = j_csv(results / "mass" / "mass_analysis_results.csv")
+        volume_rows = j_csv(results / "volume" / "volume_analysis_results.csv")
+        if failures or len(mass_rows) != J_PHOTOS or len(volume_rows) != J_PHOTOS:
+            raise AssertionError(f"J1: {len(mass_rows)} mass rows, {len(volume_rows)} volume rows; {failures}")
+        if [r["image_stem"] for r in mass_rows] != stems or [r["image_stem"] for r in volume_rows] != stems:
+            raise AssertionError(f"J1: rows {[r['image_stem'] for r in mass_rows]}, want {stems}")
+        late = mass_rows[-1]
+        exact = J_RATE * (timedelta(hours=J_PHOTOS) - timedelta(minutes=30)).total_seconds()
+        rescaled_rel = abs(float(late["detected_mass_total_rescaled"]) / float(late["exact_mass_total"]) - 1)
+        if not (rescaled_rel <= 1e-3 and abs(float(late["exact_mass_total"]) / exact - 1) <= 1e-9):
+            raise AssertionError(f"J1: late row {late}, exact {exact}")
+        for row in mass_rows:
+            total = float(row["detected_mass_total"])
+            for name in J_ROIS:
+                if not float(row[f"{name}_detected_mass"]) <= total * (1 + 1e-6) + 1e-12:
+                    raise AssertionError(f"J1: {row['image_stem']}: {name} {row[f'{name}_detected_mass']} > {total}")
+        fields = sorted((results / "mass").glob("*/npz/*.npz"))
+        cropped = sorted((results / "cropped").glob("*.npz"))
+        if len(fields) != 2 * J_PHOTOS or [p.stem for p in cropped] != stems:
+            raise AssertionError(f"J1: {len(fields)} mass fields, {len(cropped)} cropped photographs")
+        print(
+            f"J1. on {card}: user_interface_analysis.main(--mass --volume --cropping --all) over "
+            f"{J_PHOTOS} photographs {j1_s:.2f} s ({J1_K1} K1 launches, none skipped): 8 rows in each "
+            f"CSV, late rescaled mass {float(late['detected_mass_total_rescaled']):.6g} kg against "
+            f"{float(late['exact_mass_total']):.6g} injected (rel {rescaled_rel:.2e}), ROIs within the "
+            f"total, {len(fields)} mass fields and {len(cropped)} cropped photographs (npz); files made "
+            f"in {files_s:.2f} s"
+        )
+
+        # J2. The mass loop prefetched (default depth) and sequential, in turns.
+        t_j2 = time.perf_counter()
+        ctx, context_s, _ = counted(
+            w2p,
+            lambda: analysis_context.prepare_analysis_context(
+                cls=dt.Rig, path=config_path, all=True, require_color_to_mass=True, device=dev
+            ),
+            0,
+            "J2: the context",
+        )
+        prefetched_iter = analysis_context.iter_prefetched_images
+
+        def sequential_iter(ctx_, image_paths=None, depth=None):
+            return prefetched_iter(ctx_, image_paths, depth=0)
+
+        def loop(mode: str, folder: Path, events=None):
+            ctx.config.analysis.mass.folder = folder
+            if mode == "sequential":
+                analysis_context.iter_prefetched_images = sequential_iter
+            try:
+                return analysis_mass.analysis_mass_from_context(
+                    ctx, progress_callback=None if events is None else events.append
+                )
+            finally:
+                analysis_context.iter_prefetched_images = prefetched_iter
+
+        modes = ["prefetched", "sequential", "sequential", "prefetched"] * (J_REPS // 2)
+        seconds = {"prefetched": [], "sequential": []}
+        csv_bytes, reference = set(), None
+        torch.cuda.reset_peak_memory_stats(device)
+        for k, mode in enumerate(modes):
+            folder = root / "j2" / f"{k}_{mode}"
+            events = []
+            want = J_PHOTOS * I_READ_K1 + (H_GRID_K1 if k == 0 else 0)
+            _, s, n = counted(w2p, lambda: loop(mode, folder, events), want, f"J2: {mode} loop {k}")
+            launches += n
+            seconds[mode].append(s)
+            if [e["event"] for e in events] != ["step_start"] + ["image_progress"] * J_PHOTOS + ["step_complete"]:
+                raise AssertionError(f"J2: {mode} loop {k}: events {[e['event'] for e in events]}")
+            csv_bytes.add((folder / "mass_analysis_results.csv").read_bytes())
+            got = j_fields(folder)
+            if reference is None:
+                reference = got
+            elif got.keys() != reference.keys() or not all(np.array_equal(got[key], reference[key]) for key in got):
+                raise AssertionError(f"J2: {mode} loop {k}: exported fields differ from loop 0's")
+        loop_peak = torch.cuda.max_memory_allocated(device) / 2**30
+        if len(csv_bytes) != 1 or len(reference) != 2 * J_PHOTOS:
+            raise AssertionError(f"J2: {len(csv_bytes)} distinct CSVs, {len(reference)} fields")
+        ms = {mode: [1e3 * s / J_PHOTOS for s in each] for mode, each in seconds.items()}
+        median = {mode: float(np.median(each)) for mode, each in ms.items()}
+        speedup = median["sequential"] / median["prefetched"]
+
+        # The split of one sequential loop, each step closed by a synchronize.
+        split = dict.fromkeys(J_STEPS, 0.0)
+
+        def timed(key, fn):
+            def wrapper(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                split[key] += time.perf_counter() - t0
+                return out
+
+            return wrapper
+
+        chain = ctx.color_to_mass_analysis
+        products, export, write = analysis_mass.analysis_scalar_products, ImageExportFormats.export, CsvTable.write
+        ctx.fluidflower.read_image = timed("read", ctx.fluidflower.read_image)
+        ctx.color_to_mass_analysis = JTimed(chain, timed("chain", chain))
+        analysis_mass.analysis_scalar_products = timed("products", products)
+        ImageExportFormats.export = timed("export", export)
+        CsvTable.write = timed("csv", write)
+        events = []
+        try:
+            _, split_s, n = counted(
+                w2p, lambda: loop("sequential", root / "j2" / "split", events), J_PHOTOS * I_READ_K1, "J2: split"
+            )
+        finally:
+            del ctx.fluidflower.read_image
+            ctx.color_to_mass_analysis = chain
+            analysis_mass.analysis_scalar_products, ImageExportFormats.export, CsvTable.write = (
+                products, export, write
+            )
+        launches += n
+        after_read = sum(e["image_duration_s"] for e in events if e["event"] == "image_progress")
+        split["integrals"] = after_read - split["chain"] - split["products"] - split["export"] - split["csv"]
+        split_ms = {key: 1e3 * v / J_PHOTOS for key, v in split.items()}
+        rest_ms = 1e3 * split_s / J_PHOTOS - sum(split_ms.values())
+
+        # Each photograph's mass against the chain called on the rig's read.
+        geometry = ctx.fluidflower.geometry
+        rows = j_csv(root / "j2" / "0_prefetched" / "mass_analysis_results.csv")
+
+        def direct():
+            out = []
+            for path in photos:
+                result = ctx.color_to_mass_analysis(ctx.fluidflower.read_image(path))
+                out.append((result.mass.img.cpu().numpy(), float(geometry.integrate(result.mass))))
+            return out
+
+        direct_out, _, n = counted(w2p, direct, J_PHOTOS * I_READ_K1, "J2: direct")
+        launches += n
+        for stem, row, (field, total) in zip(stems, rows, direct_out):
+            if not (np.array_equal(reference[("mass", stem)], field) and float(row["detected_mass_total"]) == total):
+                raise AssertionError(f"J2: {stem}: the loop's mass differs from the chain on the rig's read")
+        print(
+            f"J2. on {card}: the mass loop over {J_PHOTOS} photographs, ms per photograph in turns "
+            f"(prefetched: {default_workers()} workers, depth {default_workers() + 1}): prefetched "
+            f"{[round(v, 1) for v in ms['prefetched']]}, sequential {[round(v, 1) for v in ms['sequential']]}; "
+            f"medians {median['prefetched']:.1f} / {median['sequential']:.1f} ms, "
+            f"loader_prefetch_speedup {speedup:.3f}; peak {loop_peak:.2f} GiB; context {context_s:.2f} s; "
+            f"CSV bytes and every exported field equal across the {len(modes)} loops, each "
+            f"photograph's mass == the chain on rig.read_image, bitwise; {I_READ_K1} K1 launches per "
+            f"photograph (+{H_GRID_K1} in the first read)"
+        )
+        print(
+            "J2. split of a sequential loop, ms per photograph (each step closed by a synchronize): "
+            + ", ".join(f"{key} {split_ms[key]:.1f}" for key in J_STEPS)
+            + f", rest {rest_ms:.1f}; loop {1e3 * split_s / J_PHOTOS:.1f}; {time.perf_counter() - t_j2:.2f} s"
+        )
+
+        # J3. The same loop with K1 swapped for its plain version.
+        with plain_k1(w2p):
+            _, _, _ = counted(w2p, lambda: loop("prefetched", root / "j2" / "plain"), 0, "J3: plain K1")
+        plain = j_fields(root / "j2" / "plain")
+        diffs = [float(np.abs(plain[key] - reference[key]).mean()) for key in reference]
+        if plain.keys() != reference.keys() or not max(diffs) <= 1e-5:
+            raise AssertionError(f"J3: plain K1 fields mean|diff| {max(diffs) if diffs else None}")
+        print(f"J3. on {card}: the loop with plain K1: every exported field within mean|diff| {max(diffs):.2e}")
+
+        # J4. One prefetched loop profiled.
+        result = {"ms": median, "ms_each": ms, "speedup": speedup, "split_ms": split_ms, "peak_gib": loop_peak}
+        if profile is not None:
+            from torch.profiler import ProfilerActivity
+            from torch.profiler import profile as torch_profile
+
+            torch.cuda.reset_peak_memory_stats(device)
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                loop("prefetched", root / "j2" / "profiled")
+                torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(device) / 2**30
+            averages = prof.key_averages()
+            profile.mkdir(parents=True, exist_ok=True)
+            (profile / "profile_analysis_run.txt").write_text(
+                averages.table(sort_by="cuda_time_total", row_limit=30)
+                + "\n"
+                + averages.table(sort_by="self_cpu_time_total", row_limit=30)
+            )
+            trace = profile / "profile_analysis_run.json"
+            prof.export_chrome_trace(str(trace))
+            events = [
+                e
+                for e in json.loads(trace.read_text())["traceEvents"]
+                if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e
+            ]
+            if trace.stat().st_size > 8e6:
+                trace.unlink()
+            busy = busy_us(events) / 1e3 / J_PHOTOS
+            result.update(busy_ms=busy, idle=1 - busy / median["prefetched"])
+            print(
+                f"J4. profile of a prefetched loop: {len(events) / J_PHOTOS:.0f} device ops per photograph, "
+                f"device busy {busy:.2f} ms per photograph, idle share against the unprofiled "
+                f"{median['prefetched']:.1f} ms: {1 - busy / median['prefetched']:.3f}; peak {peak:.2f} GiB"
+            )
+
+        # J5. The set-up CLI's protocol, and the comparison CLI on phase G's runs.
+        t_j5 = time.perf_counter()
+        scratch = root / "j5"
+        scratch.mkdir()
+        setup_config = scratch / "config.toml"
+        setup_config.write_text(toml_text(j_tables(root, scratch)))
+        counted(
+            w2p,
+            lambda: user_interface_setup.main(["--config", str(setup_config), "--protocols", "--overwrite"], device=dev),
+            0,
+            "J5: the set-up CLI",
+        )
+        protocol = j_csv(scratch / "imaging.csv")
+        if [r["path"] for r in protocol] != [p.name for p in photos] or not (scratch / "injection.csv").exists():
+            raise AssertionError(f"J5: imaging protocol {[r['path'] for r in protocol]}")
+        multi = handoff["multi"]
+        i4 = multi.parent / "multi_results" / "wasserstein"
+        before = {p.name: p.read_bytes() for p in sorted(i4.iterdir())}
+        i4.rename(i4.with_name("wasserstein_i4"))
+        argv = ["--config", str(multi), "--wasserstein-compute", "--wasserstein-assemble"]
+        _, compare_s, _ = counted(
+            w2p, lambda: user_interface_comparison.main(argv, device=dev), 0, "J5: the comparison CLI"
+        )
+        after = {p.name: p.read_bytes() for p in sorted(i4.iterdir())}
+        same = after.keys() == before.keys() and all(
+            json.loads(after[k]) == json.loads(before[k]) if k.endswith(".json") else after[k] == before[k]
+            for k in before
+        )
+        if not (same and sum(k.endswith(".json") for k in before) == 12 and "wasserstein_distances.csv" in before):
+            raise AssertionError(f"J5: comparison CLI {sorted(after)} against phase I4's {sorted(before)}")
+        logging.getLogger().setLevel(logging.WARNING)
+        print(
+            f"J5. on {card}: user_interface_setup.main(--protocols --overwrite) wrote the imaging "
+            f"protocol of the {J_PHOTOS} photographs (file times: npz has no EXIF) and the templates; "
+            f"user_interface_comparison.main(--wasserstein-compute --wasserstein-assemble) {compare_s:.2f} s: "
+            f"12 JSON files and the CSV equal to phase I4's; {time.perf_counter() - t_j5:.2f} s"
+        )
+    finally:
+        dt.Rig.read_image = read_image
+        shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        raise AssertionError(f"J: frames that could not be read: {failures}")
+    if launches != K1_IN_J:
+        raise AssertionError(f"J: {launches} K1 launches, want {K1_IN_J}")
+    result["phase_s"] = time.perf_counter() - tic
+    print(f"J. phase {result['phase_s']:.2f} s, {launches} K1 launches")
     return {"launches": launches, **result}
 
 
@@ -4461,7 +4931,8 @@ def main() -> int:
     phase_batched(dt, device, card, args.profile)
     check_counts(read_counts(w2p), {}, "G: batched W1 and comparison")
     fluidflower = phase_fluidflower(dt, w2p, device, card, args.profile)
-    rig_config = phase_rig_config(dt, w2p, lanes, device, card, args.profile)
+    rig_config = phase_rig_config(dt, w2p, lanes, device, card, args.profile, keep=True)
+    analysis_run = phase_analysis_run(dt, w2p, lanes, rig_config.pop("handoff"), device, card, args.profile)
     phase_volume(dt, device, card)
     phase_kernel_fields(w2p, lanes, device)
 
@@ -4474,12 +4945,12 @@ def main() -> int:
         + sum(p["launches"] for p in (rig_read, drift_lane, drifting))
         + sum(p["launches"] for p in (piecewise, colour, saved, restoration))
     )
-    later = (colour_to_mass["launches"], fluidflower["launches"], rig_config["launches"])
-    if (earlier, *later) != (K1_BEFORE_E, K1_IN_E, K1_IN_H, K1_IN_I):
+    later = (colour_to_mass["launches"], fluidflower["launches"], rig_config["launches"], analysis_run["launches"])
+    if (earlier, *later) != (K1_BEFORE_E, K1_IN_E, K1_IN_H, K1_IN_I, K1_IN_J):
         raise AssertionError(
             f"K1 launches: {earlier} before phase E (want {K1_BEFORE_E}), "
             f"{later[0]} in it (want {K1_IN_E}), {later[1]} in phase H (want {K1_IN_H}), "
-            f"{later[2]} in phase I (want {K1_IN_I})"
+            f"{later[2]} in phase I (want {K1_IN_I}), {later[3]} in phase J (want {K1_IN_J})"
         )
     k1_launches = earlier + sum(later)
     results = {

@@ -23,6 +23,7 @@ each has its own translation.
 
 from __future__ import annotations
 
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -160,8 +161,11 @@ class FusedCorrectionChain(BaseCorrection):
 #: Fused chains keyed by (member identities + versions, input shape, device):
 #: a series of frames corrected with the same objects composes the field once.
 #: Entries hold the members, so their ids cannot be recycled while cached.
+#: Threads reading together (``utils/prefetch.py``) build a chain once, under
+#: ``_CHAIN_LOCK``.
 _CHAIN_CACHE: dict = {}
 _CHAIN_CACHE_MAX = 8
+_CHAIN_LOCK = threading.Lock()
 
 
 def fused_chain(members: Sequence, input_shape: tuple, device) -> FusedCorrectionChain:
@@ -173,10 +177,13 @@ def fused_chain(members: Sequence, input_shape: tuple, device) -> FusedCorrectio
     )
     chain = _CHAIN_CACHE.get(key)
     if chain is None:
-        chain = FusedCorrectionChain(members, input_shape, device)
-        if len(_CHAIN_CACHE) >= _CHAIN_CACHE_MAX:
-            _CHAIN_CACHE.pop(next(iter(_CHAIN_CACHE)))
-        _CHAIN_CACHE[key] = chain
+        with _CHAIN_LOCK:
+            chain = _CHAIN_CACHE.get(key)
+            if chain is None:
+                chain = FusedCorrectionChain(members, input_shape, device)
+                if len(_CHAIN_CACHE) >= _CHAIN_CACHE_MAX:
+                    _CHAIN_CACHE.pop(next(iter(_CHAIN_CACHE)))
+                _CHAIN_CACHE[key] = chain
     return chain
 
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import json
 import math
+import threading
 from pathlib import Path
 from typing import Optional, Union
 from warnings import warn
@@ -52,6 +53,10 @@ _STRETCH_KEYS = {
     "vertical_stretch": 0.0,
     "vertical_center_offset": 0,
 }
+
+#: Guards the lazily built pull-back grids: threads that read through one
+#: correction together (``utils/prefetch.py``) build its grid once.
+_GRID_LOCK = threading.RLock()
 
 
 def load_curvature_correction_config_from_dict(sec: dict) -> dict:
@@ -105,8 +110,10 @@ class CurvatureCorrection(BaseCorrection):
         """
         Args:
             config: dict, ``.json``/``.toml`` path, or a list of paths.
-            **kwargs: ``image`` (a tuning image: tensor or numpy array, which
-                goes to ``device``), ``width``, ``height``, ``in_meters``,
+            **kwargs: ``image`` (a tuning image: a tensor, a numpy array or
+                the path of an ``.npz``/``.npy`` file, which goes to
+                ``device``; other files raise naming their decoder, as
+                ``imread`` does), ``width``, ``height``, ``in_meters``,
                 ``resize_factor`` (rescales the config for a resized input),
                 ``interpolation_order``, ``device``.
 
@@ -115,9 +122,9 @@ class CurvatureCorrection(BaseCorrection):
         if "image" in kwargs:
             source = kwargs["image"]
             if isinstance(source, (str, Path)):
-                raise NotImplementedError(
-                    "reading an image from a path needs imread, which is not ported yet"
-                )
+                from ...image.imread import imread
+
+                source = imread(source, device=kwargs.get("device")).img
             self.reference_image = as_tensor(source, kwargs.get("device"))
             self.current_image = self.reference_image.clone()
             self.in_meters = kwargs.get("in_meters", True)
@@ -365,11 +372,20 @@ class CurvatureCorrection(BaseCorrection):
         # Invalidate fused chains built on the previous geometry.
         self._fusion_version += 1
 
-    def _grid(self, shape: tuple, device) -> torch.Tensor:
+    def _entry(self, shape: tuple, device) -> dict:
+        """The cached grid and its bound for ``shape`` on ``device``, built
+        once (under ``_GRID_LOCK``) if the cache holds another key."""
         key = (tuple(int(s) for s in shape), torch.device(device))
-        if self.cache.get("key") != key:
-            self._precompute_transformed_coordinates(key[0], key[1])
-        return self.cache["grid"]
+        entry = self.cache
+        if entry.get("key") != key:
+            with _GRID_LOCK:
+                if self.cache.get("key") != key:
+                    self._precompute_transformed_coordinates(key[0], key[1])
+                entry = self.cache
+        return entry
+
+    def _grid(self, shape: tuple, device) -> torch.Tensor:
+        return self._entry(shape, device)["grid"]
 
     # --------------------------------------------------------------- fusion
 
@@ -385,12 +401,12 @@ class CurvatureCorrection(BaseCorrection):
     # ------------------------------------------------------------ correction
 
     def correct_array(self, img: torch.Tensor) -> torch.Tensor:
-        grid = self._grid(img.shape[:2], img.device)
+        entry = self._entry(img.shape[:2], img.device)
         out = warp_backend(
             img.to(torch.float32),
-            grid,
+            entry["grid"],
             order=self.interpolation_order,
-            max_disp=self.cache["max_disp"],
+            max_disp=entry["max_disp"],
         )
         if not img.dtype.is_floating_point:
             out = torch.round(out)

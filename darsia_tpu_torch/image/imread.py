@@ -17,7 +17,9 @@ from __future__ import annotations
 
 import logging
 import time as _time
+from datetime import datetime
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -121,3 +123,27 @@ def imread_from_npz(path, transformations=None, **kwargs) -> Image:
     metadata.update(kwargs)
     klass = _CLASSES.get(cls_name, Image)
     return klass(npzdata["array"], transformations=transformations, **metadata)
+
+
+def _exif_date(path: Path) -> Optional[datetime]:
+    """Acquisition datetime from a photograph's EXIF, if present.
+
+    Best effort, as in the JAX package: None on any failure, including where
+    PIL is not installed (the card's machine), and for files without EXIF
+    such as ``.npz``; the protocol set-up then falls back to the file's
+    modification time.
+    """
+    try:
+        from PIL import Image as PILImage
+        from PIL.ExifTags import TAGS
+
+        with PILImage.open(path) as im:
+            exif = im.getexif()
+            if not exif:
+                return None
+            for tag_id, value in exif.items():
+                if TAGS.get(tag_id) in ("DateTimeOriginal", "DateTime"):
+                    return datetime.strptime(str(value), "%Y:%m:%d %H:%M:%S")
+    except Exception:  # noqa: BLE001 - EXIF is best-effort
+        return None
+    return None

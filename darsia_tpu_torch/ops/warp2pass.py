@@ -28,6 +28,7 @@ import math
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -75,9 +76,14 @@ _MAX_SMEM = 232448
 #: Kernel launches made by :func:`warp_rows_t` (K1), and by :func:`warp_rows`
 #: on the plain (K2) and the ring (K3) schedule.  Plain-version calls do not
 #: count.  Reset them to 0 before a run to see which path the run took.
+#: Worker threads launch too (``utils/prefetch.py``): each increment is made
+#: under ``_count_lock``.
 launch_count = 0
 rows_launch_count = 0
 ring_launch_count = 0
+_count_lock = threading.Lock()
+#: One build at a time: threads that first launch together wait for it.
+_build_lock = threading.Lock()
 
 #: ``{"seconds": ..., "log": ...}`` of the build in this process (None if the
 #: libraries were already built on disk).
@@ -103,11 +109,20 @@ def build_kernel() -> dict:
     """Compile (once per version of the sources and flags) and load every
     kernel in ``csrc/``; returns the C entry points by name.
 
-    One ``nvcc`` per source, all started together.
+    One ``nvcc`` per source, all started together; threads that call it
+    together wait for one build.
     """
-    global _entries, build_info
+    global _entries
     if _entries is not None:
         return _entries
+    with _build_lock:
+        if _entries is None:
+            _entries = _build_and_bind()
+    return _entries
+
+
+def _build_and_bind() -> dict:
+    global build_info
     sources = sorted(_CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
     for src in sources:
@@ -120,10 +135,7 @@ def build_kernel() -> dict:
         log = compile_sources(todo)
         build_info = {"seconds": time.perf_counter() - tic, "log": log}
     loaded = {stem: ctypes.CDLL(str(lib)) for stem, (_, lib) in libs.items()}
-    _entries = {
-        name: bind_entry(loaded[stem], name) for name, (stem, _) in _ENTRIES.items()
-    }
-    return _entries
+    return {name: bind_entry(loaded[stem], name) for name, (stem, _) in _ENTRIES.items()}
 
 
 def compile_sources(jobs: dict) -> str:
@@ -281,7 +293,8 @@ def warp_rows_t(
     out = torch.empty((C, W_out, R), dtype=torch.float32, device=data.device)
     _launch("darsia_warp_rows_t", data, cols, out, C, R, W_in, W_out, pad, rel_max)
     global launch_count
-    launch_count += 1
+    with _count_lock:
+        launch_count += 1
     return out
 
 
@@ -333,10 +346,11 @@ def warp_rows(
     name = "darsia_warp_rows_ring" if ring else "darsia_warp_rows"
     _launch(name, data, cols, out, R, W_in, W_out, pad, rel_max)
     global rows_launch_count, ring_launch_count
-    if ring:
-        ring_launch_count += 1
-    else:
-        rows_launch_count += 1
+    with _count_lock:
+        if ring:
+            ring_launch_count += 1
+        else:
+            rows_launch_count += 1
     return out
 
 

@@ -1,7 +1,8 @@
 """FluidFlower workflow layer: the rig, its TOML config and set-up steps,
-the heterogeneous colour-to-mass analysis and the cross-run comparison."""
+the heterogeneous colour-to-mass analysis, the config-driven analysis steps
+and the cross-run comparison."""
 
-from . import comparison, config, setup
+from . import analysis, comparison, config, setup
 from .analysis.expert_knowledge import ExpertKnowledgeAdapter
 from .facies_props import FaciesProps
 from .heterogeneous_color_analysis import HeterogeneousColorAnalysis
@@ -19,6 +20,7 @@ from .mode_resolution import (
     resolve_mode_image,
     validate_mode_syntax,
 )
+from .restoration import RestorationMaskFactory, build_restoration
 from .rig import Rig
 from .simple_run_analysis import SimpleMultiphaseTimeSeriesData, SimpleRunAnalysis
 
@@ -31,10 +33,13 @@ __all__ = [
     "HeterogeneousColorToMassAnalysis",
     "LEGACY_COLOR_TO_MASS_MODES",
     "MassComputation",
+    "RestorationMaskFactory",
     "Rig",
     "SCALAR_PRODUCT_MODES",
     "SimpleMultiphaseTimeSeriesData",
     "SimpleRunAnalysis",
+    "analysis",
+    "build_restoration",
     "comparison",
     "config",
     "mode_requires_color_to_mass",

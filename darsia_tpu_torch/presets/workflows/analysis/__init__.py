@@ -1,5 +1,106 @@
-"""Workflow analysis steps."""
+"""Workflow analysis steps (counterpart of
+:mod:`darsia_tpu.presets.workflows.analysis`).
 
+The context, the mass, volume and cropping steps and their helpers are
+ported.  The segmentation, finger and thresholding steps need
+``presets/workflows/segmentation_contours.py``, ``analysis/contouranalysis``,
+``analysis/skeleton_analysis`` and matplotlib, none of which is ported
+(ROADMAP.md Queue 1 item 6): their names raise ``NotImplementedError``.
+"""
+
+from .analysis_context import (
+    AnalysisContext,
+    build_restoration,
+    infer_require_color_to_mass_from_config,
+    iter_prefetched_images,
+    prepare_analysis_context,
+    select_image_paths,
+)
+from .analysis_cropping import analysis_cropping, analysis_cropping_from_context
+from .analysis_mass import analysis_mass_from_context, run_mass_analysis
+from .analysis_volume import analysis_volume, analysis_volume_from_context
 from .expert_knowledge import ExpertKnowledgeAdapter
+from .image_export_formats import ImageExportFormats
+from .progress import (
+    AnalysisProgressEvent,
+    normalize_progress_event,
+    publish_analysis_progress,
+    publish_image_progress,
+    publish_step_complete,
+    publish_step_start,
+)
+from .scalar_products import (
+    RescaledMassProducts,
+    analysis_scalar_products,
+    compute_rescaled_mass_products,
+    requires_rescaled_modes,
+)
+from .streaming import encode_low_resolution_png, publish_preview, publish_stream_images
 
-__all__ = ["ExpertKnowledgeAdapter"]
+__all__ = [
+    "AnalysisContext",
+    "AnalysisProgressEvent",
+    "ExpertKnowledgeAdapter",
+    "ImageExportFormats",
+    "RescaledMassProducts",
+    "analysis_cropping",
+    "analysis_cropping_from_context",
+    "analysis_fingers",
+    "analysis_fingers_from_context",
+    "analysis_mass_from_context",
+    "analysis_scalar_products",
+    "analysis_segmentation",
+    "analysis_segmentation_from_context",
+    "analysis_thresholding",
+    "analysis_thresholding_from_context",
+    "analysis_volume",
+    "analysis_volume_from_context",
+    "build_restoration",
+    "compute_rescaled_mass_products",
+    "encode_low_resolution_png",
+    "infer_require_color_to_mass_from_config",
+    "iter_prefetched_images",
+    "normalize_progress_event",
+    "prepare_analysis_context",
+    "publish_analysis_progress",
+    "publish_image_progress",
+    "publish_preview",
+    "publish_step_complete",
+    "publish_step_start",
+    "publish_stream_images",
+    "requires_rescaled_modes",
+    "run_mass_analysis",
+    "select_image_paths",
+]
+
+
+def _not_ported(step: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"the {step} analysis needs presets/workflows/segmentation_contours.py, "
+        "analysis/contouranalysis.py, analysis/skeleton_analysis.py and matplotlib, "
+        "which are not ported (ROADMAP.md Queue 1 item 6)"
+    )
+
+
+def analysis_segmentation_from_context(ctx, *args, **kwargs):
+    raise _not_ported("segmentation")
+
+
+def analysis_segmentation(path, *args, **kwargs):
+    raise _not_ported("segmentation")
+
+
+def analysis_fingers_from_context(ctx, *args, **kwargs):
+    raise _not_ported("fingers")
+
+
+def analysis_fingers(path, *args, **kwargs):
+    raise _not_ported("fingers")
+
+
+def analysis_thresholding_from_context(ctx, *args, **kwargs):
+    raise _not_ported("thresholding")
+
+
+def analysis_thresholding(path, *args, **kwargs):
+    raise _not_ported("thresholding")

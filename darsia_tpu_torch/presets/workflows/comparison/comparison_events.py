@@ -15,7 +15,7 @@ from pathlib import Path
 
 import numpy as np
 
-from .comparison_wasserstein import _csv_cell
+from ....utils.csv_table import csv_cell
 
 logger = logging.getLogger(__name__)
 
@@ -73,6 +73,6 @@ def comparison_events(path) -> list:
         writer = csv.writer(f, lineterminator="\n")
         writer.writerow(columns)
         for row in rows:
-            writer.writerow([_csv_cell(row[c]) for c in columns])
+            writer.writerow([csv_cell(row[c]) for c in columns])
     logger.info("Events written to %s.", out)
     return rows

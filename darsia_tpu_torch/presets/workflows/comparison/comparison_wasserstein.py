@@ -14,7 +14,6 @@ import csv
 import itertools
 import json
 import logging
-import math
 from dataclasses import asdict, dataclass, field
 from pathlib import Path
 from typing import Optional
@@ -26,6 +25,7 @@ from ....image.image import as_numpy
 from ....measure.wasserstein import wasserstein_distance
 from ....parallel.wasserstein import batched_wasserstein
 from ....restoration.resize import Resize
+from ....utils.csv_table import csv_cell
 from ..utils.mass import load_data
 
 logger = logging.getLogger(__name__)
@@ -155,16 +155,6 @@ def _compute(cls, config, skip_existing: bool, device=None) -> list:
     return results
 
 
-def _csv_cell(value) -> str:
-    """A cell as pandas' ``to_csv`` writes it: empty for None and NaN, the
-    shortest repr for a float, ``str`` otherwise."""
-    if value is None or (isinstance(value, float) and math.isnan(value)):
-        return ""
-    if isinstance(value, float):
-        return repr(value)
-    return str(value)
-
-
 def _assemble(config) -> list:
     """Read every ``wasserstein_*.json`` result (sorted by name) and write
     them as ``wasserstein_distances.csv`` beside them (the JAX package's
@@ -179,7 +169,7 @@ def _assemble(config) -> list:
         writer = csv.writer(f, lineterminator="\n")
         writer.writerow(list(rows[0]) if rows else [])
         for row in rows:
-            writer.writerow([_csv_cell(v) for v in row.values()])
+            writer.writerow([csv_cell(v) for v in row.values()])
     logger.info("Assembled %d results into %s.", len(rows), out)
     return rows
 

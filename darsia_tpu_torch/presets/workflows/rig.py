@@ -10,7 +10,7 @@ through the port's ``imread(..., transformations=self.corrections)``, so
 checker's crop in ``ColorCorrection`` is a second pair.  The label
 boundaries, the illumination samples and the averaging mask are computed on
 the host, as in the JAX package; its folder is read and written both ways.
-``read_images`` (the prefetching reader) is not ported yet.
+``read_images`` reads a series with the reads prefetched on worker threads.
 """
 
 from __future__ import annotations
@@ -599,12 +599,18 @@ class Rig:
         return klass(values_reshaped, device=self.device, **metadata)
 
     def read_images(self, paths, depth=None):
-        """The prefetching reader of a series (``utils/prefetch.py``) is not
-        ported yet."""
-        raise NotImplementedError(
-            "Rig.read_images needs utils/prefetch.py (the host loader), which is not ported "
-            "yet (ROADMAP.md Queue 1 item 7c); call read_image per path"
-        )
+        """Yield ``(path, image)`` over a series, in order, with up to
+        ``depth`` reads run ahead on worker threads (``utils/prefetch.py``;
+        None: the host's core count + 1, ``depth <= 0``: sequential).
+        Frames that cannot be read are logged and skipped, as in the JAX
+        package."""
+        from ...utils.prefetch import prefetch_map
+
+        for result in prefetch_map(self.read_image, [Path(p) for p in paths], depth=depth):
+            if result.ok:
+                yield result.item, result.value
+            else:
+                logger.error("Failed to read image '%s': %s", result.item, result.error)
 
     def read_image(self, path: Path) -> Image:
         """Read + correct an image on the rig's device; the date comes from

@@ -748,3 +748,31 @@ def test_analysis_base_reads_onto_the_card(tmp_path):
     analysis = dt.AnalysisBase(tmp_path / "base.npz", tmp_path / "config.json")
     assert analysis.base.img.is_cuda
     assert analysis.load_and_process_image(tmp_path / "base.npz").img.is_cuda
+
+
+def test_kernel_launches_from_threads_count_exactly():
+    """K1 launched from 8 threads at once (the analysis loader's workers):
+    every launch counted, every result bitwise equal to the plain version."""
+    import threading
+
+    cases = [_rows_case(3, 64, 300, 7, seed=s) for s in range(8)]
+    per_thread = 25
+    results = {}
+    barrier = threading.Barrier(len(cases))
+
+    def launch(k):
+        data, cols = cases[k]
+        barrier.wait()
+        for _ in range(per_thread):
+            results[k] = warp2pass.warp_rows_t(data, cols, 7)
+
+    before = warp2pass.launch_count
+    threads = [threading.Thread(target=launch, args=(k,)) for k in range(len(cases))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert warp2pass.launch_count == before + len(cases) * per_thread
+    for k, (data, cols) in enumerate(cases):
+        assert torch.equal(results[k], warp2pass.warp_rows_t_reference(data, cols, 7))

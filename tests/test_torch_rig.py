@@ -293,8 +293,11 @@ def test_update_and_mass_analysis_wiring(rigs):
     mass = t.co2_mass_analysis
     assert type(mass).__name__ == "CO2MassAnalysis" and mass.baseline is t.baseline
     assert mass.atmospheric_pressure == j.co2_mass_analysis.atmospheric_pressure
-    with pytest.raises(NotImplementedError, match="7c"):
-        next(iter(t.read_images([path])))
+    # The prefetching reader yields what read_image reads.
+    ((read_path, image),) = list(t.read_images([path]))
+    ((_, jax_image),) = list(j.read_images([path]))
+    assert read_path == path and torch.equal(image.img, t.read_image(path).img)
+    assert _rel(_np(image), np.asarray(jax_image.img)) <= READ_REL_TOL
 
 
 def test_import_from_csv_against_jax(rigs, tmp_path):
