@@ -340,13 +340,43 @@ J. The config-driven analysis run (after phase I) over phase I's rig: its 4
    ``user_interface_comparison.main([... "--wasserstein-compute",
    "--wasserstein-assemble"])`` on phase G's runs: the 12 JSON files and
    the CSV equal to phase I4's.  The phase checks its 432 K1 launches
-   exactly (104 in J1, 328 in J2) and deletes the folder.
+   exactly (104 in J1, 328 in J2) and hands its folder to phase K.
+
+K. The calibration workflows (after phase J) over phase J's photographs:
+   its config with a data registry (the baseline photograph, the 8
+   photographs, the last 4), a ``[color.path.calib]`` embedding with the
+   template's settings (``templates/config.toml:62-79``: resolution 51, 2
+   segments, "threshold" weighting, the expanded baseline spectrum
+   ignored) over the rig's 12 labels, ``[calibration.color]`` and
+   ``[calibration.mass]`` (mode "auto", threshold 0.3, maxiter 20, the last
+   4 photographs).  K1: ``user_interface_calibration.main([..., "--color"])``
+   then ``[..., "--mass"]``: 12 saved paths of 3 nodes, the metadata naming
+   the basis, the Nelder-Mead objective at its result no higher than at the
+   initial dofs (both printed), the chain read back with ``from_folder``
+   giving each calibration photograph's mass bitwise.  K2: each
+   photograph's per-label spectrum on the card (one pass, one
+   ``bincount``) equal to the JAX package's host loop copied here, ms per
+   photograph of both; per label the batched path fit against the plain
+   version (``_fit_path_rdp_reference``): equal nodes but at counted ties
+   (a split chosen differently where the two smoothed left - right
+   differences agree within 1e-12), occupied bins and seconds per label of
+   both.  K3: the colour step with plain K1: every path file equal.  K4:
+   ``--delete --dry-run`` lists the calibration files and keeps them;
+   ``user_interface_utils.main`` exports the calibration bundle and imports
+   it into a second results folder, byte for byte.  K5:
+   ``user_interface_helper.main([..., "--color", "--results"])`` on phase
+   J's mass fields (the histograms warn that matplotlib is missing; the
+   fields re-exported equal), ``helper_roi`` with two points,
+   ``load_images_with_cache`` twice over 2 photographs (the second pass
+   launches no K1 and is bitwise equal), ``--media`` raising and naming
+   OpenCV.  The phase checks its 84 K1 launches exactly (44 in the colour
+   step, 24 in the mass step, 16 in K5) and deletes the folder.
 
 Every launch count is set to 0 just before each path of phases 3, 5-7,
-8-11, 14-20, B, E, F, G, H, I and J and read just after it; the ``kernels``
-line's K1 launches are their sum, 586 before phase E, 28 in it, none in F or
-G, 198 in H, 120 in I and 432 in J (checked exactly).  Each of phases 8-12,
-14-20, A-J prints its seconds.  The
+8-11, 14-20, B, E, F, G, H, I, J and K and read just after it; the
+``kernels`` line's K1 launches are their sum, 586 before phase E, 28 in it,
+none in F or G, 198 in H, 120 in I, 432 in J and 84 in K (1448; checked
+exactly).  Each of phases 8-12, 14-20, A-K prints its seconds.  The
 second-to-last line is a JSON object of per-kernel results; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
@@ -4360,10 +4390,11 @@ class JTimed:
         return self._call(*args, **kwargs)
 
 
-def phase_analysis_run(dt, w2p, lanes, handoff: dict, device, card: str, profile) -> dict:
+def phase_analysis_run(dt, w2p, lanes, handoff: dict, device, card: str, profile, keep: bool = False) -> dict:
     """Phase J: the config-driven analysis run over phase I's rig through its
     CLIs, the prefetching loader against the sequential loop, the plain K1,
-    the set-up and comparison CLIs."""
+    the set-up and comparison CLIs.  With ``keep`` its folder stays and the
+    result hands it on (``root``, ``photos``: the 8 photographs)."""
     import logging
     import shutil
     import warnings
@@ -4646,7 +4677,10 @@ def phase_analysis_run(dt, w2p, lanes, handoff: dict, device, card: str, profile
         )
     finally:
         dt.Rig.read_image = read_image
-        shutil.rmtree(root, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(root, ignore_errors=True)
+    if keep:
+        result["handoff"] = {"root": root, "photos": photos}
     if failures:
         raise AssertionError(f"J: frames that could not be read: {failures}")
     if launches != K1_IN_J:
@@ -4654,6 +4688,385 @@ def phase_analysis_run(dt, w2p, lanes, handoff: dict, device, card: str, profile
     result["phase_s"] = time.perf_counter() - tic
     print(f"J. phase {result['phase_s']:.2f} s, {launches} K1 launches")
     return {"launches": launches, **result}
+
+
+# ---------------------------------------------------------------- phase K
+K_SEGMENTS = 2  # the template's [color.path.co2] (templates/config.toml:62-79)
+K_RESOLUTION = 51
+K_THRESHOLD = 0.3
+K_MAXITER = 20
+K_MASS_PHOTOS = 4  # [calibration.mass] data: the last 4 photographs (the plume grown)
+K_CACHE_PHOTOS = 2
+K_ROI_POINTS = [[200, 400], [1200, 2400]]
+# K1 launches: I_READ_K1 per Rig.read_image, H_GRID_K1 in the first read
+# through a freshly loaded rig.  K1: the colour step loads the rig and reads
+# the baseline and the 8 photographs, the mass step loads it again and reads
+# K_MASS_PHOTOS; K3 takes the plain K1; K5 reads K_CACHE_PHOTOS through a
+# rig loaded for the cache (the second pass reads the cache).
+K1_COLOR_K1 = H_GRID_K1 + (1 + J_PHOTOS) * I_READ_K1
+K1_MASS_K1 = H_GRID_K1 + K_MASS_PHOTOS * I_READ_K1
+K5_K1 = H_GRID_K1 + K_CACHE_PHOTOS * I_READ_K1
+K1_IN_K = K1_COLOR_K1 + K1_MASS_K1 + K5_K1
+
+
+def k_tables(root: Path, photos: list, results: Path, bundle: Path) -> dict:
+    """Phase J's config with a data registry (the baseline photograph, the
+    8 photographs, the last K_MASS_PHOTOS), a path embedding with the
+    template's settings calibrated into ``results``, [calibration],
+    [helper.results] over phase J's mass fields and the [utils] bundle."""
+    tables = j_tables(root, root / "analysis")
+    # Phase I's rig, set up under its results folder.
+    tables["rig"]["path"] = root / "results" / "setup" / "rig"
+    tables["data"]["results"] = results
+    tables["data"]["path"] = {
+        "baseline_imgs": {"paths": [root / "images" / "img_00000.npz"]},
+        "calibration_imgs": {"paths": list(photos)},
+        "mass_imgs": {"paths": list(photos[-K_MASS_PHOTOS:])},
+    }
+    tables["color"]["path"]["calib"] = {
+        "mode": "relative",
+        "basis": "labels",
+        "num_segments": K_SEGMENTS,
+        "resolution": K_RESOLUTION,
+        "histogram_weighting": "threshold",
+        "baseline": "baseline_imgs",
+        "data": "calibration_imgs",
+    }
+    tables["calibration"] = {
+        "data": "calibration_imgs",
+        "color": {"color": "calib"},
+        "mass": {
+            "color": "calib",
+            "mode": "auto",
+            "threshold": K_THRESHOLD,
+            "maxiter": K_MAXITER,
+            "data": "mass_imgs",
+        },
+    }
+    tables["analysis"]["mass"]["folder"] = root / "results" / "mass"
+    tables["helper"] = {"results": {"mode": "mass", "format": "npz"}}
+    tables["utils"] = {"export_calibration_bundle": bundle, "import_calibration_bundle": bundle}
+    return tables
+
+
+def k_host_counts(labels: np.ndarray, mask: np.ndarray, image: np.ndarray, baseline: np.ndarray, resolution: int):
+    """The JAX package's per-label spectrum loop on one photograph
+    (``color_path_regression.py:149-161``, quantised as its
+    ``color_to_index`` quantises into the box [-1, 1]^3): per label
+    (ascending) the occupied bin ids and their counts."""
+    relative = image.astype(float) - baseline.astype(float)
+    relative[~mask] = 0.0
+    out = []
+    for label in np.unique(labels):
+        colors = relative[labels == label].reshape(-1, 3)
+        index = np.round(np.clip((colors + 1.0) / 2.0, 0.0, 1.0) * (resolution - 1)).astype(np.int64)
+        ids = index[:, 0] * resolution * resolution + index[:, 1] * resolution + index[:, 2]
+        out.append(np.unique(ids, return_counts=True))
+    return out
+
+
+def k_rdp_agree(trace: list, trace_ref: list) -> tuple:
+    """(agree, tie) of the batched and the plain fits' sequences of splits:
+    a tie is a split where the two chose differently while their smoothed
+    left - right differences agree within 1e-12 at every candidate."""
+    for a, b in zip(trace, trace_ref):
+        if a[:2] != b[:2]:
+            return False, False
+        if a[2] != b[2]:
+            return False, bool(np.max(np.abs(a[3] - b[3])) <= 1e-12)
+    return len(trace) == len(trace_ref), False
+
+
+def phase_calibration(dt, w2p, handoff: dict, device, card: str) -> dict:
+    """Phase K: the calibration workflows over phase J's photographs through
+    the calibration CLI (the spectra gathered on the card against the JAX
+    package's host loop, the batched path fit against its plain version,
+    the calibrated chain saved and read back), the colour step with plain
+    K1, deletion and a bundle round trip through the utils CLI, the helper
+    CLI and the cached image loader on phase J's results."""
+    import io
+    import logging
+    import shutil
+    import warnings
+    from contextlib import redirect_stdout
+
+    import scipy.optimize
+
+    from darsia_tpu_torch.presets.workflows import (
+        calibration,
+        helper,
+        user_interface_calibration,
+        user_interface_helper,
+        user_interface_utils,
+        utils,
+    )
+    from darsia_tpu_torch.presets.workflows.config import FluidFlowerConfig
+
+    warnings.filterwarnings("ignore", message="Section .* not found")
+    tic = time.perf_counter()
+    dev = None if device.type == "cuda" else device
+    root, photos = handoff["root"], handoff["photos"]
+    results, bundle = root / "k", root / "k_bundle"
+    config_path = root / "calibration.toml"
+    config_path.write_text(toml_text(k_tables(root, photos, results, bundle)))
+    config = FluidFlowerConfig(config_path)
+    embedding = config.color["calib"]
+    launches = 0
+    try:
+        # K1. The calibration CLI: the colour paths, then the colour-to-mass
+        # chain; the spectra, the chain and the objective recorded.
+        spectra_calls, calibrations, objectives = [], [], []
+        get_color_spectrum = dt.LabelColorPathMapRegression.get_color_spectrum
+        automatic_calibration = dt.HeterogeneousColorToMassAnalysis.automatic_calibration
+        minimize = scipy.optimize.minimize
+
+        def recording_spectrum(self, images, baseline=None, ignore=None, threshold_zero=0.0, **kwargs):
+            out = get_color_spectrum(self, images, baseline, ignore, threshold_zero, **kwargs)
+            spectra_calls.append((self, images, baseline, ignore, threshold_zero, out))
+            return out
+
+        def recording_calibration(self, images, experiment, **kwargs):
+            calibrations.append((self, images))
+            return automatic_calibration(self, images, experiment, **kwargs)
+
+        def recording_minimize(fun, x0, **kwargs):
+            start = fun(x0)
+            out = minimize(fun, x0, **kwargs)
+            objectives.append((start, float(out.fun), int(out.nfev)))
+            return out
+
+        dt.LabelColorPathMapRegression.get_color_spectrum = recording_spectrum
+        dt.HeterogeneousColorToMassAnalysis.automatic_calibration = recording_calibration
+        scipy.optimize.minimize = recording_minimize
+        try:
+            argv = ["--config", str(config_path), "--color"]
+            _, color_s, n = counted(
+                w2p, lambda: user_interface_calibration.main(argv, device=dev), K1_COLOR_K1, "K1: the colour step"
+            )
+            launches += n
+            argv = ["--config", str(config_path), "--mass"]
+            _, mass_s, n = counted(
+                w2p, lambda: user_interface_calibration.main(argv, device=dev), K1_MASS_K1, "K1: the mass step"
+            )
+            launches += n
+        finally:
+            dt.LabelColorPathMapRegression.get_color_spectrum = get_color_spectrum
+            dt.HeterogeneousColorToMassAnalysis.automatic_calibration = automatic_calibration
+            scipy.optimize.minimize = minimize
+        logging.getLogger().setLevel(logging.WARNING)  # main() set INFO for the CLI
+        rig = dt.Rig.load(config.rig.path, config.corrections, device=dev)
+        rig.load_experiment(dt.ProtocolledExperiment.init_from_config(config))
+        labels = sorted(int(v) for v in torch.unique(rig.labels.img).tolist())
+        paths = dt.LabelColorPathMap.load(embedding.color_paths_folder)
+        nodes = {label: np.asarray(p.relative_colors) for label, p in paths.items()}
+        if sorted(paths) != labels or len(labels) != H_LAYERS or any(
+            v.shape != (K_SEGMENTS + 1, 3) for v in nodes.values()
+        ):
+            raise AssertionError(f"K1: paths {sorted(paths)} of shapes {[v.shape for v in nodes.values()]}")
+        for folder in (embedding.color_paths_folder, embedding.color_to_mass_folder):
+            metadata = calibration.read_calibration_metadata(folder) or {}
+            if metadata.get("basis") != "labels":
+                raise AssertionError(f"K1: {folder}: metadata {metadata}")
+        ((start, best, nfev),) = objectives
+        if not best <= start:
+            raise AssertionError(f"K1: objective {best} after the calibration, {start} at the initial dofs")
+        ((chain, images),) = calibrations
+        loaded = dt.HeterogeneousColorToMassAnalysis.from_folder(
+            embedding.color_to_mass_folder,
+            baseline=rig.baseline,
+            labels=rig.labels,
+            co2_mass_analysis=chain.co2_mass_analysis,
+            geometry=rig.geometry,
+            basis=embedding.basis,
+            color_mode=embedding.mode,
+        )
+        masses = []
+        for image in images:
+            want = chain(image).mass
+            if not torch.equal(want.img, loaded(image).mass.img):
+                raise AssertionError(f"K1: {image.name}: the saved chain's mass differs from the calibrated chain's")
+            masses.append(float(chain.geometry.integrate(want)))
+        print(
+            f"K1. on {card}: user_interface_calibration.main(--color) {color_s:.2f} s ({K1_COLOR_K1} K1 "
+            f"launches: the baseline and {J_PHOTOS} photographs read), --mass {mass_s:.2f} s "
+            f"({K1_MASS_K1} K1 launches, {K_MASS_PHOTOS} photographs, Nelder-Mead maxiter {K_MAXITER}: "
+            f"{nfev} objective calls, objective {start!r} at the initial dofs -> {best!r}); "
+            f"{len(paths)} paths of {K_SEGMENTS + 1} nodes, metadata basis 'labels'; the saved chain "
+            f"(from_folder) gives each calibration photograph's mass bitwise: {masses} kg"
+        )
+
+        # K2. The spectra on the card against the host loop; the batched
+        # path fit against the plain version.
+        regression, cal_images, cal_base, ignore, threshold_zero, spectra = spectra_calls[-1]
+        if len(cal_images) != J_PHOTOS or cal_base is None or ignore is None:
+            raise AssertionError(f"K2: a calibration spectrum of {len(cal_images)} photographs")
+        labels_np = regression._labels.cpu().numpy()
+        mask_np = regression._mask_on(torch.device("cpu")).numpy()
+        base_np = cal_base.img.cpu().numpy()
+        device_ms, host_ms = [], []
+        for image in cal_images:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = regression.image_counts(image, cal_base, threshold_zero)
+            device_ms.append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            want = k_host_counts(labels_np, mask_np, image.img.cpu().numpy(), base_np, K_RESOLUTION)
+            host_ms.append(1e3 * (time.perf_counter() - t0))
+            if len(got) != len(want) or not all(
+                np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]) for a, b in zip(got, want)
+            ):
+                raise AssertionError(f"K2: {image.name}: the spectrum's counts differ from the host loop's")
+        sizes, fit_s, ref_s, ties = {}, [], [], 0
+        for label in labels:
+            colors, weights = regression._fit_inputs(spectra[label], ignore[label], "threshold")
+            sizes[label] = len(colors)
+            if len(colors) <= 1:
+                continue
+            embedding_1d = regression._embed_1d(colors, weights)
+            trace, trace_ref = [], []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batched = regression._fit_path_rdp(colors, weights, embedding_1d, K_SEGMENTS, trace)
+            fit_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            plain = regression._fit_path_rdp_reference(colors, weights, embedding_1d, K_SEGMENTS, trace_ref)
+            ref_s.append(time.perf_counter() - t0)
+            agree, tie = k_rdp_agree(trace, trace_ref)
+            if tie:
+                ties += 1
+                continue
+            if not (agree and np.array_equal(batched, plain)):
+                raise AssertionError(f"K2: label {label}: the batched fit's nodes differ from the plain version's")
+            if not np.array_equal(batched, nodes[label]):
+                raise AssertionError(f"K2: label {label}: the saved path's nodes differ from the fit's")
+        if not fit_s:
+            raise AssertionError(f"K2: no label with a spectrum to fit: {sizes}")
+        print(
+            f"K2. on {card}: the calibration spectrum of each of the {J_PHOTOS} photographs (resolution "
+            f"{K_RESOLUTION}, {len(labels)} labels, {labels_np.size} pixels) on the card == the host loop's "
+            f"counts; ms per photograph: card {[round(v, 1) for v in device_ms]}, host "
+            f"{[round(v) for v in host_ms]}; occupied bins fitted per label (the baseline's expanded "
+            f"spectrum removed) {list(sizes.values())}; the batched path fit == the plain version on "
+            f"{len(fit_s)} labels ({ties} ties), s per label: batched {[round(v, 3) for v in fit_s]}, "
+            f"plain {[round(v, 3) for v in ref_s]}"
+        )
+
+        # K3. The colour step with plain K1: the same paths.
+        before = {p.name: p.read_bytes() for p in sorted(embedding.color_paths_folder.glob("label_*.json"))}
+        with plain_k1(w2p):
+            argv = ["--config", str(config_path), "--color"]
+            _, plain_s, _ = counted(w2p, lambda: user_interface_calibration.main(argv, device=dev), 0, "K3: plain K1")
+        logging.getLogger().setLevel(logging.WARNING)
+        after = {p.name: p.read_bytes() for p in sorted(embedding.color_paths_folder.glob("label_*.json"))}
+        if after != before or len(after) != H_LAYERS:
+            raise AssertionError(f"K3: the paths with plain K1 differ ({len(after)} files)")
+        print(f"K3. on {card}: the colour step with plain K1 {plain_s:.2f} s: every path file equal")
+
+        # K4. Deletion listed, then a bundle round trip through the utils CLI.
+        listing = io.StringIO()
+        with redirect_stdout(listing):
+            user_interface_calibration.main(["--config", str(config_path), "--delete", "--dry-run"], device=dev)
+        listed = listing.getvalue().split()
+        files = [str(p) for p in calibration.collect_existing_calibration_paths_to_delete(config_path)]
+        if listed != files or not files or not all(Path(p).exists() for p in listed):
+            raise AssertionError(f"K4: --delete --dry-run listed {listed}, want {files}")
+        second = root / "k_import"
+        second.mkdir()
+        second_config = root / "calibration_import.toml"
+        second_config.write_text(toml_text(k_tables(root, photos, second, bundle)))
+        with redirect_stdout(io.StringIO()):
+            user_interface_utils.main(["--config", str(config_path), "--export-calibration"], device=dev)
+            user_interface_utils.main(["--config", str(second_config), "--import-calibration"], device=dev)
+        logging.getLogger().setLevel(logging.WARNING)
+
+        def tree(folder: Path) -> dict:
+            return {p.relative_to(folder): p.read_bytes() for p in sorted(folder.rglob("*")) if p.is_file()}
+
+        source = tree(results / "calibration" / "color")
+        if not source or tree(second / "calibration" / "color") != source or tree(bundle) != source:
+            raise AssertionError("K4: the imported calibration differs from the exported one")
+        print(
+            f"K4. --delete --dry-run listed {len(listed)} files and kept them; --export-calibration, then "
+            f"--import-calibration into a second results folder: {len(source)} files, "
+            f"{sum(len(v) for v in source.values())} bytes, equal"
+        )
+
+        # K5. The helper CLI, helper_roi and the cached loader on phase J's
+        # results; the media step as without OpenCV.
+        t_k5 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            user_interface_helper.main(["--config", str(config_path), "--color", "--results"], device=dev)
+        logging.getLogger().setLevel(logging.WARNING)
+        drawn = (results / "helper" / "color_histograms.png").exists()
+        if not drawn and not any("matplotlib" in str(w.message) for w in caught):
+            raise AssertionError("K5: no histograms and no warning naming matplotlib")
+        fields = sorted((root / "results" / "mass" / "mass" / "npz").glob("*.npz"))
+        exported = sorted((results / "helper" / "mass").glob("*.npz"))
+        if [p.name for p in exported] != [p.name for p in fields] or len(fields) != J_PHOTOS:
+            raise AssertionError(f"K5: re-exported {[p.name for p in exported]}")
+        for a, b in zip(helper.load_result_frames(exported, device=dev), helper.load_result_frames(fields, device=dev)):
+            if not (torch.equal(a.image.img, b.image.img) and a.integral == b.integral):
+                raise AssertionError(f"K5: {a.source_name}: the re-exported field differs")
+        report = helper.color_report(rig.baseline)
+        with redirect_stdout(io.StringIO()):
+            roi = helper.helper_roi(config_path, points=K_ROI_POINTS, device=dev)
+        if not (roi["corner_1"][1] > roi["corner_2"][1] and roi["corner_1"][0] < roi["corner_2"][0]):
+            raise AssertionError(f"K5: helper_roi corners {roi}")
+        cache = root / "k_cache"
+        cached = photos[:K_CACHE_PHOTOS]
+        first, _, n = counted(
+            w2p,
+            lambda: utils.load_images_with_cache(rig, cached, use_cache=True, cache_dir=cache),
+            K5_K1,
+            "K5: the loader, first pass",
+        )
+        launches += n
+        again, cache_s, _ = counted(
+            w2p,
+            lambda: utils.load_images_with_cache(rig, cached, use_cache=True, cache_dir=cache),
+            0,
+            "K5: the loader, from the cache",
+        )
+        if not all(torch.equal(a.img, b.img) and a.img.device == b.img.device for a, b in zip(first, again)):
+            raise AssertionError("K5: the cached images differ from the read ones")
+        # --media as on a machine without OpenCV (cv2 blocked where it is installed).
+        import importlib
+
+        try:
+            opencv = f"OpenCV {importlib.import_module('cv2').__version__} imports here"
+        except ImportError as err:
+            opencv = f"OpenCV does not import here: {err}"
+        had, held = "cv2" in sys.modules, sys.modules.get("cv2")
+        sys.modules["cv2"] = None
+        try:
+            user_interface_utils.main(["--config", str(config_path), "--media"], device=dev)
+        except ImportError as err:
+            if "OpenCV" not in str(err):
+                raise
+            media = str(err)
+        else:
+            raise AssertionError("K5: --media ran without OpenCV")
+        finally:
+            if had:
+                sys.modules["cv2"] = held
+            else:
+                del sys.modules["cv2"]
+        print(
+            f"K5. on {card}: user_interface_helper.main(--color --results): histograms "
+            f"{'drawn' if drawn else 'not drawn, matplotlib named'}, the baseline's LAB mean "
+            f"{[round(v, 3) for v in report['LAB']['mean']]}, {len(exported)} mass fields re-exported as npz, "
+            f"equal; helper_roi at {K_ROI_POINTS}: {roi}; load_images_with_cache over {K_CACHE_PHOTOS} "
+            f"photographs: {K5_K1} K1 launches, then from the cache {cache_s:.2f} s, 0 launches, bitwise "
+            f"equal; --media with cv2 blocked ({opencv}): {media!r}; {time.perf_counter() - t_k5:.2f} s"
+        )
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if launches != K1_IN_K:
+        raise AssertionError(f"K: {launches} K1 launches, want {K1_IN_K}")
+    phase_s = time.perf_counter() - tic
+    print(f"K. phase {phase_s:.2f} s, {launches} K1 launches")
+    return {"launches": launches, "phase_s": phase_s}
 
 
 def profile_batch(dt, src, dst, out_dir: Path, name: str) -> None:
@@ -4932,7 +5345,10 @@ def main() -> int:
     check_counts(read_counts(w2p), {}, "G: batched W1 and comparison")
     fluidflower = phase_fluidflower(dt, w2p, device, card, args.profile)
     rig_config = phase_rig_config(dt, w2p, lanes, device, card, args.profile, keep=True)
-    analysis_run = phase_analysis_run(dt, w2p, lanes, rig_config.pop("handoff"), device, card, args.profile)
+    analysis_run = phase_analysis_run(
+        dt, w2p, lanes, rig_config.pop("handoff"), device, card, args.profile, keep=True
+    )
+    calibration_run = phase_calibration(dt, w2p, analysis_run.pop("handoff"), device, card)
     phase_volume(dt, device, card)
     phase_kernel_fields(w2p, lanes, device)
 
@@ -4945,12 +5361,13 @@ def main() -> int:
         + sum(p["launches"] for p in (rig_read, drift_lane, drifting))
         + sum(p["launches"] for p in (piecewise, colour, saved, restoration))
     )
-    later = (colour_to_mass["launches"], fluidflower["launches"], rig_config["launches"], analysis_run["launches"])
-    if (earlier, *later) != (K1_BEFORE_E, K1_IN_E, K1_IN_H, K1_IN_I, K1_IN_J):
+    later = tuple(p["launches"] for p in (colour_to_mass, fluidflower, rig_config, analysis_run, calibration_run))
+    if (earlier, *later) != (K1_BEFORE_E, K1_IN_E, K1_IN_H, K1_IN_I, K1_IN_J, K1_IN_K):
         raise AssertionError(
             f"K1 launches: {earlier} before phase E (want {K1_BEFORE_E}), "
             f"{later[0]} in it (want {K1_IN_E}), {later[1]} in phase H (want {K1_IN_H}), "
-            f"{later[2]} in phase I (want {K1_IN_I}), {later[3]} in phase J (want {K1_IN_J})"
+            f"{later[2]} in phase I (want {K1_IN_I}), {later[3]} in phase J (want {K1_IN_J}), "
+            f"{later[4]} in phase K (want {K1_IN_K})"
         )
     k1_launches = earlier + sum(later)
     results = {

@@ -1,10 +1,5 @@
-"""Colour paths, ranges, spectra and embeddings (counterpart of
-:mod:`darsia_tpu.signals.color`).
-
-``LabelColorPathMapRegression`` (the calibration workflows' colour-path
-regression) is not ported yet: importing it raises an ``ImportError`` that
-names ROADMAP.md Queue 1 item 7c.
-"""
+"""Colour paths, ranges, spectra, embeddings and the colour-path regression
+(counterpart of :mod:`darsia_tpu.signals.color`)."""
 
 from .color_embedding import (
     ColorChannelEmbedding,
@@ -25,6 +20,7 @@ from .color_embedding import (
 )
 from .color_mode import ColorMode
 from .color_path import ColorPath, define_color_path
+from .color_path_regression import LabelColorPathMapRegression
 from .color_range import (
     ColorRange,
     ColorSpectrum,
@@ -55,6 +51,7 @@ __all__ = [
     "DiscreteColorRange",
     "LabelColorMap",
     "LabelColorPathMap",
+    "LabelColorPathMapRegression",
     "LabelColorSpectrumMap",
     "calibration_basis_folder",
     "channel_index",
@@ -69,11 +66,3 @@ __all__ = [
     "unflatten_index",
 ]
 
-
-def __getattr__(name):
-    if name == "LabelColorPathMapRegression":
-        raise ImportError(
-            "LabelColorPathMapRegression (signals/color/color_path_regression.py) is not "
-            "ported yet: it belongs to the calibration workflows, ROADMAP.md Queue 1 item 7c"
-        )
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -4,7 +4,10 @@ Every public name of ``darsia_tpu`` that some module of ``darsia_tpu_torch``
 defines is reachable as ``darsia_tpu_torch.<name>``, and is the port's own
 object.  The names of the parts that cannot be ported to the card's machine
 (ROADMAP Queue 1, "Not portable": decoders, plots, VTK, EMD through OpenCV,
-Excel) are the only exception.  Also the two signatures that ROADMAP Queue 3
+Excel) are the only exception.  The calibration, helper and utils workflow
+modules keep every name of the JAX modules' ``__all__``; those that need
+OpenCV or matplotlib (media, contours, plots) say so in their module's
+docstring.  Also the two signatures that ROADMAP Queue 3
 fault P1 names: ``interpolate_measurements_2d`` takes JAX's two arguments
 (the device defaults to the card), and
 ``load_curvature_correction_config_from_toml`` warns on a file without a
@@ -109,6 +112,7 @@ def test_exported_names_are_the_ports_own():
         "ColorSpectrum",
         "DiscreteColorRange",
         "LabelColorPathMap",
+        "LabelColorPathMapRegression",
         "PorosityAnalysis",
         "patched_porosity_analysis",
         "KernelInterpolation",
@@ -154,3 +158,57 @@ def test_curvature_toml_loader_warns_like_jax(tmp_path):
     assert port["crop"]["width"] == ref["crop"]["width"] == 2.0
     np.testing.assert_array_equal(np.asarray(port["crop"]["pts_src"]), np.asarray(ref["crop"]["pts_src"]))
     assert port["bulge"]["horizontal_bulge"] == ref["bulge"]["horizontal_bulge"]
+
+
+#: ROADMAP Queue 1, "Not portable on the card's machine": workflow helpers
+#: that exist in the port but need a library that machine lacks.
+NEEDS_LIBRARY = {
+    "utils.utils_media.build_media": "OpenCV",
+    "utils.roi_visualization.render_active_region": "OpenCV",
+    "utils.roi_visualization.draw_active_region": "matplotlib",
+    "helper.helper_roi.helper_roi_viewer": "matplotlib",
+    "helper.helper_roi.launch_roi_helper_viewer": "matplotlib",
+    "helper.helper_roi.launch_roi_viewer": "matplotlib",
+    "helper.helper_result_reader.launch_result_reader": "matplotlib",
+}
+
+WORKFLOW_MODULES = [
+    "basis",
+    "calibration.metadata",
+    "calibration.calibration_color_paths",
+    "calibration.calibration_color_to_mass_analysis",
+    "calibration.legacy",
+    "helper.helper_color",
+    "helper.helper_result_reader",
+    "helper.helper_roi",
+    "utils.images",
+    "utils.calibration_bundle",
+    "utils.utils_download",
+    "utils.utils_media",
+    "utils.roi_visualization",
+    "user_interface_calibration",
+    "user_interface_helper",
+    "user_interface_utils",
+]
+
+
+@pytest.mark.parametrize("module", WORKFLOW_MODULES)
+def test_workflow_modules_keep_the_jax_names(module):
+    jax = importlib.import_module(f"darsia_tpu.presets.workflows.{module}")
+    port = importlib.import_module(f"darsia_tpu_torch.presets.workflows.{module}")
+    missing = [name for name in jax.__all__ if not hasattr(port, name)]
+    assert not missing, missing
+    for name in jax.__all__:
+        key = f"{module}.{name}"
+        if key in NEEDS_LIBRARY:
+            assert NEEDS_LIBRARY[key] in (port.__doc__ or ""), key
+
+
+@pytest.mark.parametrize("package", ["calibration", "helper", "utils"])
+def test_workflow_packages_export_the_jax_names(package):
+    jax = importlib.import_module(f"darsia_tpu.presets.workflows.{package}")
+    port = importlib.import_module(f"darsia_tpu_torch.presets.workflows.{package}")
+    names = [n for n in dir(jax) if not n.startswith("_") and not isinstance(getattr(jax, n), types.ModuleType)]
+    assert names and not [n for n in names if not hasattr(port, n)]
+    workflows = importlib.import_module("darsia_tpu_torch.presets.workflows")
+    assert getattr(workflows, package) is port

@@ -206,7 +206,3 @@ def test_label_maps_both_ways(tmp_path):
     back = da.LabelColorSpectrumMap.load(tmp_path / "port_spectra")
     assert {k: v.counts for k, v in back.items()} == {k: v.counts for k, v in spectra.items()}
 
-
-def test_regression_is_named_not_ported():
-    with pytest.raises(ImportError, match="7c"):
-        from darsia_tpu_torch.signals.color import LabelColorPathMapRegression  # noqa: F401

@@ -5,8 +5,10 @@ any import of them fail), imports ``darsia_tpu_torch`` and runs the small
 correct -> register -> concentrate pipeline on a numpy-made frame.  It also
 imports every module of the package and runs the heterogeneous
 colour-to-mass chain, a W1 solve, the FluidFlower CO2 analysis and rig from
-a numpy-made JSON config and npz frames, and the rig workflow from a TOML
-config (set-up steps without matplotlib warn and write their .npz).  A second subprocess also
+a numpy-made JSON config and npz frames, the rig workflow from a TOML
+config (set-up steps without matplotlib warn and write their .npz), the
+colour-path regression and the colour report (the active region's contours
+raise, naming OpenCV).  A second subprocess also
 blocks ``darsia_tpu`` and reads the image, every correction file, a
 colour-to-mass calibration folder, and the cleaning filters and labels cache
 of a FluidFlower CO2 analysis and rig that the JAX package wrote beforehand
@@ -368,6 +370,33 @@ channel = "h"
     runtime = dt.ColorEmbeddingRuntime(rig=loaded, device="cpu")
     hue = config.color["hue"].to_scalar_image(read, runtime)
     assert hue.img.shape == (RH, RW) and 0.0 < float(hue.img.max()) < 360.0
+
+# The calibration, helper and utils workflows import without OpenCV and
+# matplotlib; the colour-path regression runs, and the parts that need OpenCV
+# say so.
+from darsia_tpu_torch.presets.workflows import (
+    calibration, helper, user_interface_calibration, user_interface_helper, user_interface_utils, utils,
+)
+
+reg_labels = torch.from_numpy(np.repeat([[0], [1]], [16, 16], axis=0).repeat(24, axis=1))
+reg_base = torch.full((32, 24, 3), 0.5)
+reg_img = reg_base.clone()
+reg_img[4:12, 2:20] += torch.tensor([0.3, -0.1, 0.05])
+reg_img[20:28, 2:20] += torch.tensor([-0.1, 0.2, 0.1])
+regression = dt.LabelColorPathMapRegression(labels=reg_labels, resolution=21)
+spectra = regression.get_color_spectrum([dt.Image(reg_img, width=1.0, height=1.0)], baseline=dt.Image(reg_base, width=1.0, height=1.0))
+reg_paths = regression.find_color_path(spectra, num_segments=2)
+assert sorted(reg_paths) == [0, 1] and all(np.abs(p.relative_colors[-1]).max() > 0.1 for p in reg_paths.values())
+report = helper.color_report(dt.Image(reg_img, width=1.0, height=1.0))
+assert set(report) == {"RGB", "HSV", "LAB"}
+partial = torch.zeros(8, 8, dtype=torch.bool)
+partial[2:5, 2:5] = True
+try:
+    utils.render_active_region(torch.rand(8, 8, 3), partial)
+except ImportError as err:
+    assert "OpenCV" in str(err)
+else:
+    raise AssertionError("contours without OpenCV")
 print("ok", tuple(out.img.shape))
 """
 
