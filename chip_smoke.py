@@ -4,7 +4,8 @@
     python3 chip_smoke.py                  # the check
     python3 chip_smoke.py --profile DIR    # also profile the lanes and paths into DIR
 
-Drives ``darsia_tpu_torch`` only (no JAX, no OpenCV), from the root of a
+Drives ``darsia_tpu_torch`` only (no JAX; OpenCV only for the contours of
+phase L), from the root of a
 checkout, in phases; any failure raises and exits non-zero:
 
 1. Build the kernels K1 (``csrc/warp_rows_t.cu``), K2 and K3
@@ -372,11 +373,60 @@ K. The calibration workflows (after phase J) over phase J's photographs:
    OpenCV.  The phase checks its 84 K1 launches exactly (44 in the colour
    step, 24 in the mass step, 16 in K5) and deletes the folder.
 
+L. The segmentation, finger and thresholding steps, SimpleFluidFlower, the
+   multiphase calibration session and the numerics utilities (after phase
+   K, on phase J's rig, chain and config): 4 photographs of phase J's frame,
+   one hour apart, with a noise-free grey patch under each of two ROIs and,
+   painted on the patches in the grey plus phase J's plume colour change, a
+   plume whose front carries 6 flat-topped fingers that rise 40 px per
+   photograph (the ROI cuts its body, so within the ROI its boundary is the
+   front and the ROI's edges) and a growing dome; ``[analysis.fingers]``
+   reads phase I's "blue" colour range (threshold 0.5) over both ROIs with
+   the skeleton analysis and holes filled, and over a third, "interface"
+   (the fingered ROI again), with the gradient-based interface; a fourth
+   ROI, "unchanged", left as the baseline, is read from phase J's chain
+   (gas saturation, threshold 0.5).  L1:
+   ``user_interface_analysis.main([..., "--fingers", "--all"])``: 4 rows per
+   ROI in statistics.csv, no tip and no contour in the unchanged ROI, 6
+   tips on every photograph in the fingered ROI, 6
+   continuing fingers from the second on, the tracked tips mapped back to
+   the raw frame through the rig's curvature grid rising 40 px per
+   photograph within 1 px and at the painted columns, the advance rates
+   (px/h and mm/h), statistics.json and the interface .npy files written.
+   L1b: the step on a context of its own, sequential, split into read,
+   chain (which must have run), mask, contours, skeleton, tracking and
+   write (each closed by a synchronize): its CSVs and JSON equal to the
+   CLI's, and every count and
+   length equal to a host reckoning on the step's own masks (OpenCV
+   contours of the host copy, the card's skeleton classified on the host);
+   with ``--profile`` one more run profiled (idle share).  L2: the largest
+   mask's skeleton on the card against ``utils/morphology.py::skeletonize``:
+   bitwise equal, the number of erosions, seconds of both.  L3:
+   ``--segmentation`` and ``--thresholding`` raise naming matplotlib (or run
+   where it imports); their masks on the card (``SegmentationContours.
+   extract_mask`` per threshold, the thresholding layers) equal to the host
+   threshold of the same field but within 1e-6 of a bound (counted).  L4:
+   ``SimpleFluidFlower`` set up from phase I's baseline with the default
+   corrections and phase 14's CURVATURE: the chain type, drift, curvature,
+   colour; 4 timed reads; saved, loaded and read bitwise as before; the read
+   with plain K1 within mean |diff| <= 1e-5.  L5: ``TransformationCalibrationSession``
+   over the 4 photographs, the chain split into pre-mass (colour
+   interpretation and signal) and mass-from-pre (gas and aqueous
+   transformations, CO2 mass), Nelder-Mead maxiter 10: the error at the
+   result no higher than at the start, the log written.  L6:
+   ``FeatureDetection.find_matches`` between the 4K frame and a copy shifted
+   7 px (the shift within 0.05 px), ``detect_color`` of the painted checker's
+   first swatch (all its 3600 px), ``linalg_cg`` and ``linalg_gmres`` on a
+   256x256 TPFA operator (plus a convection term for GMRES) as a callable on
+   the card against scipy's sparse solve within 1e-6 relative.  The phase
+   checks its 126 K1 launches exactly (24 in L1, 24 in L1b, 16 in L3, 46 in
+   L4, 16 in L5) and deletes the folder.
+
 Every launch count is set to 0 just before each path of phases 3, 5-7,
-8-11, 14-20, B, E, F, G, H, I, J and K and read just after it; the
+8-11, 14-20, B, E, F, G, H, I, J, K and L and read just after it; the
 ``kernels`` line's K1 launches are their sum, 586 before phase E, 28 in it,
-none in F or G, 198 in H, 120 in I, 432 in J and 84 in K (1448; checked
-exactly).  Each of phases 8-12, 14-20, A-K prints its seconds.  The
+none in F or G, 198 in H, 120 in I, 432 in J, 84 in K and 126 in L (1574;
+checked exactly).  Each of phases 8-12, 14-20, A-L prints its seconds.  The
 second-to-last line is a JSON object of per-kernel results; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
@@ -4777,13 +4827,14 @@ def k_rdp_agree(trace: list, trace_ref: list) -> tuple:
     return len(trace) == len(trace_ref), False
 
 
-def phase_calibration(dt, w2p, handoff: dict, device, card: str) -> dict:
+def phase_calibration(dt, w2p, handoff: dict, device, card: str, keep: bool = False) -> dict:
     """Phase K: the calibration workflows over phase J's photographs through
     the calibration CLI (the spectra gathered on the card against the JAX
     package's host loop, the batched path fit against its plain version,
     the calibrated chain saved and read back), the colour step with plain
     K1, deletion and a bundle round trip through the utils CLI, the helper
-    CLI and the cached image loader on phase J's results."""
+    CLI and the cached image loader on phase J's results.  With ``keep`` the
+    folder stays and the result hands it on (``root``)."""
     import io
     import logging
     import shutil
@@ -5061,12 +5112,725 @@ def phase_calibration(dt, w2p, handoff: dict, device, card: str) -> dict:
             f"equal; --media with cv2 blocked ({opencv}): {media!r}; {time.perf_counter() - t_k5:.2f} s"
         )
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(root, ignore_errors=True)
     if launches != K1_IN_K:
         raise AssertionError(f"K: {launches} K1 launches, want {K1_IN_K}")
     phase_s = time.perf_counter() - tic
     print(f"K. phase {phase_s:.2f} s, {launches} K1 launches")
-    return {"launches": launches, "phase_s": phase_s}
+    result = {"launches": launches, "phase_s": phase_s}
+    if keep:
+        result["handoff"] = {"root": root}
+    return result
+
+
+# ---------------------------------------------------------------- phase L
+L_PHOTOS = 4
+L_GROWTH = 40  # raw-frame px the fingers rise per photograph
+L_FINGERS = 6
+L_HALF = 75  # half the width of a finger at its base (raw px)
+L_FLAT = 3  # half the width of a finger's flat top (raw px)
+L_NOTCH = (700, 600)  # raw (row, col) of the plume's left end, on the notch line
+L_RISE = 400  # the fingers' height above the notch line in photograph 1 (raw px)
+L_BODY = 1300  # raw row of the plume body's bottom, below the fingered ROI
+L_DOME = ((1300, 2300), (120, 260))  # the second ROI's plume: an ellipse, centre and radii (raw)
+# Noise-free grey patches (raw rows, cols) under each ROI, 40+ px beyond it:
+# the plumes are painted there in the grey plus phase J's plume colour.
+L_PATCHES = ((slice(60, 1350), slice(560, 1540)), (slice(950, 1570), slice(1770, 2870)))
+L_GREY = 0.5
+L_START = I_START + timedelta(hours=J_PHOTOS + 1)
+# ROIs in metres.  The fingered one cuts the plume's body: its bottom edge
+# runs ~100 px above the body's bottom and its sides ~20 px inside the
+# plume's ends, on the outer fingers' flanks, so within it the mask's
+# boundary is the fingered front (flanks of at least 5 rows per column,
+# flat tops) and the ROI's own edges; the dome's ROI holds the whole dome.
+L_ROIS = {"fingers": [[0.54, 0.47], [1.30, 1.41]], "dome": [[1.6, 0.1], [2.5, 0.65]]}
+L_INTERFACE = {"interface": {"name": "interface", "corner_1": L_ROIS["fingers"][0], "corner_2": L_ROIS["fingers"][1]}}
+# The fingers are read from phase I's "blue" colour range (absolute HSV): on
+# the grey patches it is exactly 1 on the plume and 0 off it, with a
+# boundary where the warp's mixing crosses the range's saturation bound.
+L_MODE, L_THRESHOLD = "blue", 0.5
+# The finger step's colour-to-mass branch: gas saturation from phase J's
+# chain, over a region that the photographs leave as the baseline (clear of
+# the patches and the checker), where the saturation is below its threshold
+# and the step reads no fingers.  A front read from this branch is not
+# checked on the card: on J's uniform-noise frame no painted plume keeps a
+# noise-free front through a baseline-relative mode (see above).
+L_MASS_MODE, L_MASS_THRESHOLD = "saturation_g", 0.5
+L_UNCHANGED = {"unchanged": [[1.6, 1.0], [2.2, 1.4]]}
+L_SEGMENTATION = ("mass", [0.05, 0.5])  # phase J's chain on phase L's photographs
+L_LAYERS = {"gas": ("saturation_g", 0.5, None), "dissolved": ("concentration_aq", 0.05, 0.9)}
+L_STEPS = ("read", "chain", "mask", "contours", "skeleton", "tracking", "write")
+L_MAXITER = 10
+L_SHIFT = 7  # px: L6's shifted copy
+# K1 launches: L1 the CLI and L1b the step on a context of its own (each a
+# freshly loaded rig: its grid, then every photograph read once); L3 every
+# photograph read once more through L1b's rig; L4 SimpleFluidFlower's
+# set-up (the drift applied alone to the raw baseline: a pair; the curvature
+# alone, with its pull-back grid: a pair + H_GRID_K1; the colour correction
+# on the baseline: the checker crop's pair), its 1 + 4 timed reads, the read
+# through the loaded rig (its fused chain builds the grid again: H_GRID_K1)
+# and the read with the plain K1 (none counted); L5 the session's reads
+# through L1b's rig.
+L_READS_K1 = H_GRID_K1 + L_PHOTOS * I_READ_K1
+L4_SETUP_K1 = 2 + 2 + H_GRID_K1 + 2
+L4_READS_K1 = (1 + L_PHOTOS) * I_READ_K1
+L4_LOADED_K1 = H_GRID_K1 + I_READ_K1
+K1_IN_L = 2 * L_READS_K1 + L_PHOTOS * I_READ_K1 + L4_SETUP_K1 + L4_READS_K1 + L4_LOADED_K1 + L_PHOTOS * I_READ_K1
+
+
+def l_plume(k: int) -> np.ndarray:
+    """The raw-frame region of photograph ``k`` (1-based): a plume whose
+    upper front carries L_FINGERS fingers with flat tops, L_RISE + (k - 1)
+    L_GROWTH px above the notch line, V notches between them (and at both
+    ends), over a body down to row L_BODY; and the dome of the second ROI."""
+    r0, c0 = L_NOTCH
+    rows = np.arange(H)[:, None]
+    cols = np.arange(W)[None, :]
+    t = cols - c0
+    inside = (t >= 0) & (t < 2 * L_FINGERS * L_HALF)
+    u = np.abs(np.mod(t, 2 * L_HALF) - L_HALF + 0.5)
+    rise = L_RISE + (k - 1) * L_GROWTH
+    top = r0 - rise * np.clip((L_HALF - u) / (L_HALF - L_FLAT), 0.0, 1.0)
+    fingers = inside & (rows >= top) & (rows <= L_BODY)
+    (dr, dc), (a, b) = L_DOME
+    grow = (k - 1) * L_GROWTH
+    return fingers | h_ellipse((H, W), ((dr, dc), (a + grow, b + grow)))
+
+
+def l_tips(k: int) -> np.ndarray:
+    """Raw (row, col) of each finger's top centre in photograph ``k``."""
+    r0, c0 = L_NOTCH
+    rise = L_RISE + (k - 1) * L_GROWTH
+    return np.array([[r0 - rise, c0 + (2 * f + 1) * L_HALF] for f in range(L_FINGERS)], dtype=float)
+
+
+def l_assets(dt, frame: np.ndarray, root: Path) -> list:
+    """Phase L's photographs: phase J's frame with a noise-free grey patch
+    under each ROI and the plumes painted on the patches in the grey plus
+    phase J's plume colour change, one hour apart after phase J's, no drift,
+    in a folder of their own, with their imaging protocol."""
+    folder = root / "l_photos"
+    folder.mkdir()
+    photos = []
+    for k in range(1, L_PHOTOS + 1):
+        img = frame.astype(np.float64) / 255.0
+        for patch in L_PATCHES:
+            img[patch] = L_GREY
+        img[l_plume(k)] = L_GREY + np.asarray(I_PLUME_COLOUR)
+        img = np.round(np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
+        photos.append(h_save(dt, folder / f"img_{k:05d}.npz", img))
+    (root / "l_protocols").mkdir()
+    (root / "l_protocols" / "imaging.csv").write_text(
+        "path,image_id,datetime\n"
+        + "".join(
+            f"img_{k:05d}.npz,{k},{(L_START + timedelta(hours=k - 1)).isoformat(sep=' ')}\n"
+            for k in range(1, L_PHOTOS + 1)
+        )
+    )
+    return photos
+
+
+def l_tables(root: Path, results: Path) -> dict:
+    """Phase J's config over phase L's photographs with [analysis.fingers]
+    (the fingered plume's ROI and the dome's, the skeleton analysis, holes
+    filled; an entry of its own for the gradient-based interface),
+    [analysis.segmentation] and [analysis.thresholding], all results under
+    ``results`` (phase J's rig and chain stay where phase J put them)."""
+    tables = j_tables(root, root / "analysis")
+    tables["data"]["folder"] = root / "l_photos"
+    tables["protocols"]["imaging"] = root / "l_protocols" / "imaging.csv"
+    tables["roi"].update(
+        {name: {"name": name, "corner_1": a, "corner_2": b} for name, (a, b) in {**L_ROIS, **L_UNCHANGED}.items()}
+    )
+    tables["analysis"]["fingers"] = {
+        "folder": results / "fingers",
+        "plume": {
+            "mode": L_MODE,
+            "threshold": L_THRESHOLD,
+            "roi": list(L_ROIS),
+            "fill_holes": True,
+            "include_skeleton_analysis": True,
+        },
+        "front": {
+            "mode": L_MODE,
+            "threshold": L_THRESHOLD,
+            "roi": L_INTERFACE,
+            "fill_holes": True,
+            "include_skeleton_analysis": True,
+            "include_gradient_based_analysis": True,
+            "gradient_mode": L_MODE,
+        },
+        "saturation": {
+            "mode": L_MASS_MODE,
+            "threshold": L_MASS_THRESHOLD,
+            "roi": list(L_UNCHANGED),
+            "fill_holes": True,
+            "include_skeleton_analysis": True,
+        },
+    }
+    tables["analysis"]["segmentation"] = {
+        "folder": results / "segmentation",
+        "label": "CO2",
+        "mode": L_SEGMENTATION[0],
+        "thresholds": L_SEGMENTATION[1],
+        "color": [[255, 255, 0], [0, 255, 255]],
+    }
+    tables["analysis"]["thresholding"] = {
+        "folder": results / "thresholding",
+        "layer": {
+            key: {"mode": mode, "threshold_min": lo, **({} if hi is None else {"threshold_max": hi})}
+            for key, (mode, lo, hi) in L_LAYERS.items()
+        },
+    }
+    return tables
+
+
+def l_rows(path: Path, key: str) -> list:
+    return [r for r in j_csv(path) if r["key"] == key]
+
+
+def phase_fingers(dt, w2p, lanes, handoff: dict, device, card: str, profile) -> dict:
+    """Phase L: the finger analysis through the analysis CLI on 4K
+    photographs (tips, tracking, advance rates, the skeleton on the card),
+    its split and a host reckoning of its counts, the card's skeleton
+    against the host one, the segmentation and thresholding masks, the
+    SimpleFluidFlower rig, the multiphase calibration session and the
+    numerics utilities."""
+    import logging
+    import shutil
+    import warnings
+
+    from scipy import ndimage
+
+    import importlib
+
+    from darsia_tpu_torch.presets.workflows import user_interface_analysis
+    from darsia_tpu_torch.presets.workflows.analysis import analysis_context
+    from darsia_tpu_torch.presets.workflows.analysis.analysis_thresholding import layer_mask
+    from darsia_tpu_torch.presets.workflows.mode_resolution import resolve_mode_image
+    from darsia_tpu_torch.presets.workflows.segmentation_contours import SegmentationContours
+    from darsia_tpu_torch.utils.csv_table import CsvTable
+    from darsia_tpu_torch.utils.morphology import skeletonize as host_skeletonize
+
+    # The module (the package's attribute of that name is the step's function).
+    af = importlib.import_module("darsia_tpu_torch.presets.workflows.analysis.analysis_fingers")
+    warnings.filterwarnings("ignore", message="Section .* not found")
+    tic = time.perf_counter()
+    dev = None if device.type == "cuda" else device
+    root = handoff["root"]
+    photos = l_assets(dt, lanes["rig"]["frame"], root)
+    stems = [p.stem for p in photos]
+    config_path = root / "fingers.toml"
+    config_path.write_text(toml_text(l_tables(root, root / "l_results")))
+    split_config = root / "fingers_split.toml"
+    split_config.write_text(toml_text(l_tables(root, root / "l_split")))
+    files_s = time.perf_counter() - tic
+    launches = 0
+    try:
+        # L1. The analysis CLI's finger step over the 4 photographs.
+        argv = ["--config", str(config_path), "--fingers", "--all"]
+        _, l1_s, n = counted(w2p, lambda: user_interface_analysis.main(argv, device=dev), L_READS_K1, "L1: the CLI")
+        launches += n
+        logging.getLogger().setLevel(logging.WARNING)
+        folder = root / "l_results" / "fingers"
+        stats = j_csv(folder / "statistics.csv")
+        keys = [r["key"] for r in stats]
+        if sorted(keys) != sorted(["fingers", "dome", "interface", *L_UNCHANGED] * L_PHOTOS):
+            raise AssertionError(f"L1: statistics.csv rows per ROI {keys}")
+        unchanged = l_rows(folder / "statistics.csv", *L_UNCHANGED)
+        unchanged_counts = [[int(r["number_tips"]), float(r["contour_length"])] for r in unchanged]
+        if unchanged_counts != [[0, 0.0]] * L_PHOTOS:
+            raise AssertionError(f"L1: {L_MASS_MODE} over the unchanged region: tips, length {unchanged_counts}")
+        fingers = l_rows(folder / "statistics.csv", "fingers")
+        if [r["image"] for r in fingers] != [p.name for p in photos]:
+            raise AssertionError(f"L1: rows {[r['image'] for r in fingers]}")
+        tips = [int(r["number_tips"]) for r in fingers]
+        continuing = [int(r["number_continuing_fingers"]) for r in fingers]
+        if tips != [L_FINGERS] * L_PHOTOS or continuing != [0] + [L_FINGERS] * (L_PHOTOS - 1):
+            raise AssertionError(f"L1: tips {tips}, continuing fingers {continuing}")
+        drawn = len(list(folder.rglob("*.png")))
+        print(
+            f"L1. on {card}: user_interface_analysis.main(--fingers --all) over {L_PHOTOS} 4K photographs "
+            f"{l1_s:.2f} s ({1e3 * l1_s / L_PHOTOS:.1f} ms per photograph, context included; {L_READS_K1} K1 "
+            f"launches): statistics.csv 4 rows per ROI, tips {tips}, continuing fingers {continuing}; "
+            f"{L_MASS_MODE} > {L_MASS_THRESHOLD} over the unchanged region: no tips, no contour; "
+            f"overlays drawn: {drawn}; files made in {files_s:.2f} s"
+        )
+
+        # L1b. The step on a context of its own, sequential, split; the
+        # masks and results recorded for the host reckoning.
+        t_split = time.perf_counter()
+        ctx, context_s, _ = counted(
+            w2p,
+            lambda: analysis_context.prepare_analysis_context(
+                cls=dt.Rig, path=split_config, all=True, require_color_to_mass=True, device=dev
+            ),
+            0,
+            "L1b: the context",
+        )
+        split = dict.fromkeys(L_STEPS, 0.0)
+        depth = [0]
+
+        def timed(key, fn):
+            """``fn`` timed into ``split[key]``, closed by a synchronize; a
+            timed call inside another one counts for the outer one only."""
+
+            def wrapper(*args, **kwargs):
+                if depth[0]:
+                    return fn(*args, **kwargs)
+                depth[0] = 1
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    out = fn(*args, **kwargs)
+                    torch.cuda.synchronize()
+                finally:
+                    depth[0] = 0
+                split[key] += time.perf_counter() - t0
+                return out
+
+            return wrapper
+
+        masks = []
+
+        class Segmentation(af.SimpleSegmentation):
+            extract_mask = timed("mask", af.SimpleSegmentation.extract_mask)
+
+        class Contours(af.ContourAnalysis):
+            contours = timed("contours", af.ContourAnalysis.contours)
+            local_extrema = timed("contours", af.ContourAnalysis.local_extrema)
+
+        skeleton_load = timed("skeleton", af.SkeletonAnalysis.load)
+
+        class Skeleton(af.SkeletonAnalysis):
+            def load(self, img, roi=None, fill_holes=False):
+                skeleton_load(self, img, roi, fill_holes)
+                masks.append({"mask": img, "skeleton": self.skeleton_mask, "iterations": self.iterations})
+
+            leaves_and_junctions = timed("skeleton", af.SkeletonAnalysis.leaves_and_junctions)
+
+        class Tracker(af.PathEvolutionAnalysis):
+            add = timed("tracking", af.PathEvolutionAnalysis.add)
+            find_paths = timed("tracking", af.PathEvolutionAnalysis.find_paths)
+            path_counts = timed("tracking", af.PathEvolutionAnalysis.path_counts)
+
+        originals = {
+            name: getattr(af, name)
+            for name in (
+                "SimpleSegmentation", "ContourAnalysis", "SkeletonAnalysis", "PathEvolutionAnalysis",
+                "contour_length", "extract_lower_arc", "_path_log", "_category_statistics", "json",
+            )
+        }
+        chain = ctx.color_to_mass_analysis
+        write = CsvTable.write
+        prefetched = analysis_context.iter_prefetched_images
+        timed_json = SimpleNamespace(dump=timed("write", json.dump), loads=json.loads, dumps=json.dumps)
+        af.SimpleSegmentation, af.ContourAnalysis, af.SkeletonAnalysis, af.PathEvolutionAnalysis = (
+            Segmentation, Contours, Skeleton, Tracker
+        )
+        af.contour_length = timed("contours", originals["contour_length"])
+        af.extract_lower_arc = timed("contours", originals["extract_lower_arc"])
+        af._path_log = timed("tracking", originals["_path_log"])
+        af._category_statistics = timed("tracking", originals["_category_statistics"])
+        af.json = timed_json
+        CsvTable.write = timed("write", write)
+        ctx.fluidflower.read_image = timed("read", ctx.fluidflower.read_image)
+        ctx.color_to_mass_analysis = JTimed(chain, timed("chain", chain))
+        analysis_context.iter_prefetched_images = lambda c, paths=None, depth=None: prefetched(c, paths, depth=0)
+        events = []
+        try:
+            _, split_s, n = counted(
+                w2p,
+                lambda: af.analysis_fingers_from_context(ctx, progress_callback=events.append),
+                L_READS_K1,
+                "L1b: the split step",
+            )
+        finally:
+            for name, value in originals.items():
+                setattr(af, name, value)
+            CsvTable.write = write
+            del ctx.fluidflower.read_image
+            ctx.color_to_mass_analysis = chain
+            analysis_context.iter_prefetched_images = prefetched
+        launches += n
+        if split["chain"] <= 0.0:
+            raise AssertionError("L1b: the colour-to-mass chain did not run in the finger step")
+        after_read = sum(e["image_duration_s"] for e in events if e["event"] == "image_progress")
+        split_ms = {key: 1e3 * v / L_PHOTOS for key, v in split.items()}
+        rest_ms = 1e3 * after_read / L_PHOTOS - sum(v for k, v in split_ms.items() if k != "read")
+        per_photo = 1e3 * split_s / L_PHOTOS
+        split_folder = root / "l_split" / "fingers"
+        for name in ("statistics.csv", "fingers_analysis_results.csv", "statistics.json"):
+            if (split_folder / name).read_bytes() != (folder / name).read_bytes():
+                raise AssertionError(f"L1b: {name} differs from the CLI's")
+        # The host reckoning of every count and length on the step's masks
+        # (the card's skeleton copied to the host; the plain skeleton on the
+        # largest mask in L2).
+        rows = j_csv(split_folder / "statistics.csv")
+        if len(rows) != len(masks):
+            raise AssertionError(f"L1b: {len(rows)} rows, {len(masks)} masks recorded")
+        for row, rec in zip(rows, masks):
+            host_mask = rec["mask"].cpu().numpy()
+            contours = af.ContourAnalysis(reduce_to_main_contour=True)
+            contours.load_labels(host_mask, fill_holes=False)
+            peaks, fjords = contours.local_extrema()
+            skel = af.SkeletonAnalysis(device="cpu")
+            skel.skeleton_mask = rec["skeleton"].cpu()
+            leaves, junctions, base = skel.leaves_and_junctions()
+            got = [int(row[c]) for c in ("number_tips", "number_fjords", "number_leaves", "number_junctions", "number_base_junctions")]
+            if got != [len(peaks), len(fjords), len(leaves), len(junctions), len(base)] or float(
+                row["contour_length"]
+            ) != float(af.contour_length(host_mask)):
+                raise AssertionError(f"L1b: {row['image']} {row['key']}: {got} against the host reckoning")
+        print(
+            f"L1b. on {card}: the finger step on a context of its own, sequential, {per_photo:.1f} ms per "
+            f"photograph (context {context_s:.2f} s): "
+            + ", ".join(f"{key} {split_ms[key]:.1f}" for key in L_STEPS)
+            + f", rest {rest_ms:.1f} ms (each step closed by a synchronize); the CSVs and statistics.json equal "
+            f"to the CLI's; {len(masks)} masks' counts and lengths equal to a host reckoning; "
+            f"{time.perf_counter() - t_split:.2f} s"
+        )
+        # The tracked tips, mapped back to the raw frame through the rig's
+        # curvature correction (its grid is built): each rises L_GROWTH px
+        # per photograph.
+        record = json.loads((folder / "statistics.json").read_text())
+        grid, _ = ctx.fluidflower.curvature_correction.pullback_field((H, W), device)
+        cs = ctx.fluidflower.baseline.coordinatesystem
+        (x0, y0), (x1, y1) = [np.asarray(cs.coordinate(np.array([[v, v]])), dtype=float).reshape(2) for v in (0, 1)]
+        paths = {k: v for k, v in record["paths"]["fingers"].items() if isinstance(v, dict) and "time" in v}
+        raw = []
+        for entry in paths.values():
+            xy = np.asarray(entry["coordinates"], dtype=float)
+            voxels = np.rint(np.stack([(xy[:, 1] - y0) / (y1 - y0), (xy[:, 0] - x0) / (x1 - x0)], axis=1)).astype(int)
+            index = torch.from_numpy(voxels).to(grid.device)
+            raw.append(grid[:, index[:, 0], index[:, 1]].T.cpu().numpy())
+        steps = np.array([np.diff(r[:, 0]) for r in raw if len(r) == L_PHOTOS])
+        want = np.sort(l_tips(L_PHOTOS)[:, 1])
+        got_cols = np.sort([r[-1, 1] for r in raw if len(r) == L_PHOTOS])
+        if steps.shape != (L_FINGERS, L_PHOTOS - 1) or np.abs(steps + L_GROWTH).max() > 1.0:
+            raise AssertionError(f"L1: raw-frame tip advance per photograph {steps.tolist()}, want -{L_GROWTH}")
+        if np.abs(got_cols - want).max() > L_FLAT + 2:
+            raise AssertionError(f"L1: tip columns {got_cols.tolist()}, painted {want.tolist()}")
+        rates = j_csv(folder / "paths" / "fingers" / "fingers_advance_rates.csv")
+        per_hour = [float(r["advance_rate"]) * 3600.0 for r in rates if int(r["lifetime_steps"]) == L_PHOTOS]
+        metres = [v * float(np.mean(ctx.fluidflower.baseline.voxel_size)) for v in per_hour]
+        arcs = sorted((folder / "interface-contour-npy" / "interface").glob("*.npy"))
+        if len(per_hour) != L_FINGERS or [p.stem for p in arcs] != stems:
+            raise AssertionError(f"L1: {len(per_hour)} advance rates, interface files {[p.name for p in arcs]}")
+        print(
+            f"L1. the tracked tips in the raw frame rise {np.round(-steps, 2).tolist()} px per photograph "
+            f"(painted {L_GROWTH}); advance rates {[round(v, 3) for v in per_hour]} px/h = "
+            f"{[round(v * 1e3, 3) for v in metres]} mm/h; statistics.json and {len(arcs)} interface .npy files written"
+        )
+        result = {"ms": per_photo, "split_ms": split_ms, "cli_s": l1_s}
+        if profile is not None:
+            from torch.profiler import ProfilerActivity
+            from torch.profiler import profile as torch_profile
+
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                af.analysis_fingers_from_context(ctx)
+                torch.cuda.synchronize()
+            averages = prof.key_averages()
+            profile.mkdir(parents=True, exist_ok=True)
+            (profile / "profile_fingers.txt").write_text(
+                averages.table(sort_by="cuda_time_total", row_limit=30)
+                + "\n"
+                + averages.table(sort_by="self_cpu_time_total", row_limit=30)
+            )
+            trace = profile / "profile_fingers.json"
+            prof.export_chrome_trace(str(trace))
+            events = [
+                e
+                for e in json.loads(trace.read_text())["traceEvents"]
+                if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e
+            ]
+            if trace.stat().st_size > 8e6:
+                trace.unlink()
+            busy = busy_us(events) / 1e3 / L_PHOTOS
+            result.update(busy_ms=busy, idle=1 - busy / per_photo)
+            print(
+                f"L1c. profile of the step (prefetched): {len(events) / L_PHOTOS:.0f} device ops per photograph, "
+                f"device busy {busy:.2f} ms per photograph, idle share against the unprofiled {per_photo:.1f} "
+                f"ms: {1 - busy / per_photo:.3f}"
+            )
+
+        # L2. The card's skeleton against the host one on the largest mask.
+        largest = max(masks, key=lambda rec: int(rec["mask"].sum()))
+        mask = largest["mask"]
+        from darsia_tpu_torch.ops.morphology import skeletonize
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_skeleton, iterations = skeletonize(mask)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        host_mask = mask.cpu().numpy()
+        t0 = time.perf_counter()
+        host_skeleton = host_skeletonize(host_mask)
+        host_s = time.perf_counter() - t0
+        eroded, count = host_mask, 0
+        while eroded.any():
+            eroded = ndimage.binary_erosion(eroded, structure=ndimage.generate_binary_structure(2, 1))
+            count += 1
+        if not (np.array_equal(card_skeleton.cpu().numpy(), host_skeleton) and iterations == count == largest["iterations"]):
+            raise AssertionError(f"L2: the card's skeleton differs from the host's ({iterations} / {count} iterations)")
+        skel = af.SkeletonAnalysis(device="cpu")
+        skel.skeleton_mask = torch.from_numpy(host_skeleton)
+        host_counts = [len(x) for x in skel.leaves_and_junctions()]
+        skel.skeleton_mask = largest["skeleton"].cpu()
+        if host_counts != [len(x) for x in skel.leaves_and_junctions()]:
+            raise AssertionError("L2: leaves and junctions of the host skeleton differ")
+        print(
+            f"L2. on {card}: the skeleton of the largest mask ({tuple(mask.shape)}, {int(mask.sum())} px): on the "
+            f"card {card_s:.3f} s, on the host (utils/morphology.py) {host_s:.2f} s, bitwise equal, {iterations} "
+            f"erosions; leaves, junctions, base junctions {host_counts}"
+        )
+        result.update(skeleton_card_s=card_s, skeleton_host_s=host_s, iterations=iterations)
+
+        # L3. Segmentation and thresholding: the steps name matplotlib; their
+        # masks on the card against the host threshold of the same field.
+        t_l3 = time.perf_counter()
+        try:
+            importlib.import_module("matplotlib")
+            have_matplotlib = True
+        except ImportError:
+            have_matplotlib = False
+        named = []
+        for step in ("segmentation", "thresholding"):
+            try:
+                user_interface_analysis.main(["--config", str(split_config), f"--{step}", "--all"], device=dev)
+            except ImportError as err:
+                if have_matplotlib or "matplotlib" not in str(err):
+                    raise
+                named.append(str(err))
+            else:
+                if not have_matplotlib:
+                    raise AssertionError(f"L3: --{step} ran without matplotlib")
+        logging.getLogger().setLevel(logging.WARNING)
+        seg = ctx.config.analysis.segmentation.config
+        layers = ctx.config.analysis.thresholding.layers
+        near_total = differ = 0
+
+        def field_of(mode, img, res):
+            return resolve_mode_image(
+                mode,
+                img,
+                mass_analysis_result=res,
+                color_embedding_registry=ctx.config.color,
+                color_embedding_runtime=ctx.color_embedding_runtime,
+            ).img
+
+        def l3():
+            nonlocal near_total, differ
+            for path in photos:
+                img = ctx.fluidflower.read_image(path)
+                res = ctx.color_to_mass_analysis(img)
+                field = field_of(seg.mode, img, res)
+                host = field.cpu().numpy()
+                for threshold in seg.thresholds:
+                    got = SegmentationContours(seg).extract_mask(img, threshold, mass_analysis_result=res)
+                    bad = got.cpu().numpy() != (host > threshold)
+                    near = np.abs(host - threshold) <= 1e-6
+                    near_total += int(near.sum())
+                    differ += int(bad.sum())
+                    if (bad & ~near).any():
+                        raise AssertionError(f"L3: {path.name}: segmentation mask at {threshold}")
+                for key, layer in layers.items():
+                    f = field_of(layer.mode, img, res)
+                    h = f.cpu().numpy()
+                    want = np.ones(h.shape, bool)
+                    near = np.zeros(h.shape, bool)
+                    if layer.threshold_min is not None:
+                        want &= h >= layer.threshold_min
+                        near |= np.abs(h - layer.threshold_min) <= 1e-6
+                    if layer.threshold_max is not None:
+                        want &= h <= layer.threshold_max
+                        near |= np.abs(h - layer.threshold_max) <= 1e-6
+                    bad = layer_mask(layer, f).cpu().numpy() != want
+                    near_total += int(near.sum())
+                    differ += int(bad.sum())
+                    if (bad & ~near).any():
+                        raise AssertionError(f"L3: {path.name}: thresholding layer {key}")
+
+        _, _, n = counted(w2p, l3, L_PHOTOS * I_READ_K1, "L3: the masks")
+        launches += n
+        print(
+            f"L3. on {card}: --segmentation and --thresholding "
+            + (f"raise without matplotlib: {named[0]!r}" if named else "ran (matplotlib imports here)")
+            + f"; {len(seg.thresholds)} segmentation masks and {len(layers)} thresholding layers per photograph "
+            f"on the card equal to the host threshold of the same field but {differ} pixels, of {near_total} "
+            f"within 1e-6 of a bound; {time.perf_counter() - t_l3:.2f} s"
+        )
+
+        # L4. SimpleFluidFlower on phase I's baseline.
+        t_l4 = time.perf_counter()
+        baseline_path = root / "images" / "img_00000.npz"
+
+        def setup():
+            rig4 = dt.SimpleFluidFlower(baseline_path, device=dev)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                rig4.setup(specs=dict(META), curvature_options={"config": CURVATURE})
+            return rig4, caught
+
+        (rig4, caught), setup_s, n = counted(w2p, setup, L4_SETUP_K1, "L4: SimpleFluidFlower.setup")
+        launches += n
+        names = [type(c).__name__ for c in rig4.corrections]
+        if names != ["TypeCorrection", "DriftCorrection", "CurvatureCorrection", "ColorCorrection"]:
+            raise AssertionError(f"L4: chain {names}; warnings {[str(w.message) for w in caught]}")
+
+        def reads():
+            first = rig4.read_image(photos[0])
+            seconds = []
+            for path in photos:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = rig4.read_image(path)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+            return first, out, seconds
+
+        (first, last, seconds), _, n = counted(w2p, reads, L4_READS_K1, "L4: read_image")
+        launches += n
+        if not (first.img.dtype == torch.float32 and torch.isfinite(last.img).all() and tuple(last.img.shape) == (OH, W, 3)):
+            raise AssertionError(f"L4: read {first.img.dtype} {tuple(last.img.shape)}")
+        saved = root / "l_simple"
+        save_t = time.perf_counter()
+        rig4.save(saved)
+        loaded = dt.SimpleFluidFlower(baseline_path, device=dev)
+        loaded.load(saved)
+        save_s = time.perf_counter() - save_t
+        again, _, n = counted(w2p, lambda: loaded.read_image(photos[-1]), L4_LOADED_K1, "L4: the loaded rig's read")
+        launches += n
+        if not torch.equal(again.img, last.img):
+            raise AssertionError("L4: the loaded rig reads differently")
+        with plain_k1(w2p):
+            plain = rig4.read_image(photos[-1])
+        diff = float((plain.img - last.img).abs().mean())
+        if not diff <= 1e-5:
+            raise AssertionError(f"L4: plain K1 mean|diff| {diff}")
+        ms4 = [1e3 * s for s in seconds]
+        print(
+            f"L4. on {card}: SimpleFluidFlower set up from phase I's baseline in {setup_s:.2f} s ({L4_SETUP_K1} K1 "
+            f"launches), chain {names}; read_image ms {[round(v, 1) for v in ms4]} (median "
+            f"{float(np.median(ms4)):.1f}; {I_READ_K1} K1 launches per read); save + load {save_s:.2f} s, the "
+            f"loaded rig's read bitwise equal; plain K1 mean|diff| {diff:.2e}; {time.perf_counter() - t_l4:.2f} s"
+        )
+        result.update(read_ms=float(np.median(ms4)), setup_s=setup_s)
+
+        # L5. The multiphase calibration session over phase L's photographs.
+        t_l5 = time.perf_counter()
+        chain = ctx.color_to_mass_analysis
+        geometry = ctx.fluidflower.geometry
+        injection = ctx.experiment.injection_protocol
+        tf_g = dt.PWTransformation(supports=[0.0, 0.5, 1.0], values=[0.0, 0.0, 1.0])
+        tf_aq = dt.PWTransformation(supports=[0.0, 0.05, 0.5, 1.0], values=[0.0, 0.0, 1.0, 1.0])
+
+        def pre_mass(img):
+            return img, chain.call_pH_analysis(chain.call_color_interpretation(img))
+
+        def mass_from_pre(pre):
+            img, signal = pre
+            out = chain.co2_mass_analysis.mass_analysis(c_aq=tf_aq(signal), s_g=tf_g(signal))
+            out.time = float(np.asarray(img.time)) / 3600.0
+            return out
+
+        def expected(t):
+            return float(injection.injected_mass(date=I_START + timedelta(hours=t)))
+
+        log = root / "l_calibration"
+        sessions = []
+
+        def calibrate():
+            session = dt.TransformationCalibrationSession(
+                tf_g, tf_aq, photos, dt.MultiphaseTimeSeriesAnalysis(geometry), 11.0,
+                ctx.fluidflower.read_image, pre_mass, mass_from_pre, expected_mass=expected, log=log,
+            )
+            sessions.append(session)
+            start = session.propose()
+            session.auto(maxiter=L_MAXITER)
+            session.accept()
+            return start
+
+        start, calibration_s, n = counted(w2p, calibrate, L_PHOTOS * I_READ_K1, "L5: the calibration session")
+        launches += n
+        session = sessions[0]
+        errors = [it["error"] for it in session.iterations]
+        if not ((log / "calibration_log.npz").exists() and errors[-1] <= start["error"]):
+            raise AssertionError(f"L5: error {start['error']} -> {errors[-1]}")
+        print(
+            f"L5. on {card}: TransformationCalibrationSession over {L_PHOTOS} photographs (the chain split into "
+            f"pre-mass and mass-from-pre), Nelder-Mead maxiter {L_MAXITER}: {len(errors)} proposals, error "
+            f"{start['error']:.6g} at the start -> {errors[-1]:.6g} (lowest {min(errors):.6g}), log written; "
+            f"{calibration_s:.2f} s ({time.perf_counter() - t_l5:.2f} s with the set-up)"
+        )
+        result["calibration_s"] = calibration_s
+
+        # L6. The numerics utilities at 4K.
+        t_l6 = time.perf_counter()
+        frame = torch.from_numpy(lanes["rig"]["frame"]).to(device)
+        moved = torch.roll(frame, L_SHIFT, dims=1)
+        src, dst, ok = dt.FeatureDetection(device=dev).find_matches(frame, moved)
+        shift = np.median(dst - src, axis=0)
+        if not (ok and abs(shift[0]) <= 0.05 and abs(shift[1] - L_SHIFT) <= 0.05):
+            raise AssertionError(f"L6: find_matches shift {shift}, {len(src)} matches")
+        # The first swatch as rig_frame paints it (8 bits, truncated).
+        swatch = dt.ColorCheckerAfter2014().swatches_rgb[0, 0]
+        painted = (swatch * 255).astype(np.uint8) / 255.0
+        r0, c0 = CHECKER_AT
+        found = np.asarray(dt.detect_color(frame.to(torch.float32) / 255, painted, tolerance=1e-3))
+        in_swatch = (found[:, 0] >= r0) & (found[:, 0] < r0 + SWATCH_PX) & (found[:, 1] >= c0) & (found[:, 1] < c0 + SWATCH_PX)
+        if int(in_swatch.sum()) != SWATCH_PX**2:
+            raise AssertionError(f"L6: detect_color found {int(in_swatch.sum())} swatch pixels of {SWATCH_PX ** 2}")
+        n = 256
+        mass_term, convection = 1.0, 0.4
+
+        def stencil(v, skew: float):
+            u = v.reshape(n, n)
+            out = (4.0 + mass_term) * u
+            out[1:] -= u[:-1]
+            out[:-1] -= u[1:]
+            out[:, 1:] -= u[:, :-1]
+            out[:, :-1] -= u[:, 1:]
+            if skew:
+                out[:, :-1] += skew * u[:, 1:]
+            return out.reshape(-1)
+
+        import scipy.sparse as sps
+        import scipy.sparse.linalg  # noqa: F401
+
+        lap = sps.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(n, n))
+        eye = sps.eye(n)
+        matrix = (sps.kron(lap, eye) + sps.kron(eye, lap) + mass_term * sps.eye(n * n)).tocsc()
+        rhs = np.random.default_rng(15).normal(size=n * n)
+        agreement = {}
+        for name, skew in (("cg", 0.0), ("gmres", convection)):
+            A = matrix if not skew else (matrix + skew * sps.kron(eye, sps.diags([1.0], [1], shape=(n, n)))).tocsc()
+            exact = sps.linalg.spsolve(A, rhs)
+            t0 = time.perf_counter()
+            got, info = getattr(dt, f"linalg_{name}")(
+                lambda v, skew=skew: stencil(v, skew), torch.from_numpy(rhs).to(device), tol=1e-9
+            )
+            seconds_solve = time.perf_counter() - t0
+            rel = float(np.linalg.norm(got - exact) / np.linalg.norm(exact))
+            if not (info == 0 and rel <= 1e-6):
+                raise AssertionError(f"L6: linalg_{name} rel {rel}")
+            agreement[name] = (rel, seconds_solve)
+        print(
+            f"L6. on {card}: find_matches on the 4K frame and its copy shifted {L_SHIFT} px: {len(src)} matches, "
+            f"shift {np.round(shift, 4).tolist()}; detect_color found the painted swatch ({SWATCH_PX ** 2} px, "
+            f"{len(found)} in all); on a {n}x{n} TPFA operator as a callable on the card: "
+            + ", ".join(f"linalg_{k} rel {v[0]:.2e} against scipy's sparse solve ({v[1]:.2f} s)" for k, v in agreement.items())
+            + f"; {time.perf_counter() - t_l6:.2f} s"
+        )
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if launches != K1_IN_L:
+        raise AssertionError(f"L: {launches} K1 launches, want {K1_IN_L}")
+    result["phase_s"] = time.perf_counter() - tic
+    print(f"L. phase {result['phase_s']:.2f} s, {launches} K1 launches")
+    return {"launches": launches, **result}
 
 
 def profile_batch(dt, src, dst, out_dir: Path, name: str) -> None:
@@ -5348,7 +6112,8 @@ def main() -> int:
     analysis_run = phase_analysis_run(
         dt, w2p, lanes, rig_config.pop("handoff"), device, card, args.profile, keep=True
     )
-    calibration_run = phase_calibration(dt, w2p, analysis_run.pop("handoff"), device, card)
+    calibration_run = phase_calibration(dt, w2p, analysis_run.pop("handoff"), device, card, keep=True)
+    fingers_run = phase_fingers(dt, w2p, lanes, calibration_run.pop("handoff"), device, card, args.profile)
     phase_volume(dt, device, card)
     phase_kernel_fields(w2p, lanes, device)
 
@@ -5361,13 +6126,15 @@ def main() -> int:
         + sum(p["launches"] for p in (rig_read, drift_lane, drifting))
         + sum(p["launches"] for p in (piecewise, colour, saved, restoration))
     )
-    later = tuple(p["launches"] for p in (colour_to_mass, fluidflower, rig_config, analysis_run, calibration_run))
-    if (earlier, *later) != (K1_BEFORE_E, K1_IN_E, K1_IN_H, K1_IN_I, K1_IN_J, K1_IN_K):
+    later = tuple(
+        p["launches"] for p in (colour_to_mass, fluidflower, rig_config, analysis_run, calibration_run, fingers_run)
+    )
+    if (earlier, *later) != (K1_BEFORE_E, K1_IN_E, K1_IN_H, K1_IN_I, K1_IN_J, K1_IN_K, K1_IN_L):
         raise AssertionError(
             f"K1 launches: {earlier} before phase E (want {K1_BEFORE_E}), "
             f"{later[0]} in it (want {K1_IN_E}), {later[1]} in phase H (want {K1_IN_H}), "
             f"{later[2]} in phase I (want {K1_IN_I}), {later[3]} in phase J (want {K1_IN_J}), "
-            f"{later[4]} in phase K (want {K1_IN_K})"
+            f"{later[4]} in phase K (want {K1_IN_K}), {later[5]} in phase L (want {K1_IN_L})"
         )
     k1_launches = earlier + sum(later)
     results = {

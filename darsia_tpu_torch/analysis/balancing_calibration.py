@@ -20,28 +20,13 @@ import numpy as np
 import torch
 
 from ..image.image import as_numpy
+from ..ops.morphology import dilate_cross
 from ..signals.models.basemodel import LabelIndex
 
 __all__ = [
     "AbstractBalancingCalibration",
     "ContinuityBasedBalancingCalibrationMixin",
-    "dilate_cross",
 ]
-
-
-def dilate_cross(masks: torch.Tensor, iterations: int) -> torch.Tensor:
-    """``scipy.ndimage.binary_dilation(mask, iterations=...)`` with its
-    default cross-shaped structure and a zero border, over the last two axes
-    of a boolean tensor."""
-    out = masks
-    for _ in range(iterations):
-        grown = out.clone()
-        grown[..., 1:, :] |= out[..., :-1, :]
-        grown[..., :-1, :] |= out[..., 1:, :]
-        grown[..., :, 1:] |= out[..., :, :-1]
-        grown[..., :, :-1] |= out[..., :, 1:]
-        out = grown
-    return out
 
 
 class AbstractBalancingCalibration:

@@ -1,6 +1,8 @@
 """Multiphase analysis: flash, CO2 mass, time series."""
 
+from .calibration import TransformationCalibrationSession, calibrate_transformations
 from .flash import AdvancedFlash, Flash, SimpleFlash
+from .fluidflower_co2_meta import FluidFlowerCO2Meta
 from .mass_analysis import (
     EPSILON,
     AdvancedCO2MassAnalysis,
@@ -21,6 +23,7 @@ __all__ = [
     "AdvancedFlash",
     "CO2MassAnalysis",
     "Flash",
+    "FluidFlowerCO2Meta",
     "MassAnalysisResults",
     "MultiphaseTimeSeriesAnalysis",
     "MultiphaseTimeSeriesData",
@@ -28,6 +31,8 @@ __all__ = [
     "SimpleMassAnalysisResults",
     "ThresholdAnalysisResults",
     "TimeSeriesData",
+    "TransformationCalibrationSession",
+    "calibrate_transformations",
     "co2_gas_density",
     "co2_solubility",
     "full_like",

@@ -23,8 +23,10 @@ from ..utils.derivatives import fv_laplace
 
 __all__ = [
     "build_coefficient_pyramid",
+    "cg_operator",
     "cg_solve",
     "clamp_depth",
+    "gmres_operator",
     "iterate_while",
     "iterate_while_batched",
     "jacobi_solve",
@@ -178,16 +180,27 @@ def cg_solve(
 ) -> torch.Tensor:
     """Conjugate gradients on the stencil operator; stops when the squared
     residual falls to ``tol**2`` times the squared norm of ``rhs``."""
+    return cg_operator(lambda x: _operator(x, mass_coeff, diffusion_coeff, dim, h), rhs, x0, tol, maxiter)
 
-    def A(x):
-        return _operator(x, mass_coeff, diffusion_coeff, dim, h)
 
-    def dot(a, b):
-        return torch.dot(a.flatten(), b.flatten())
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.dot(a.flatten(), b.flatten())
 
+
+def cg_operator(
+    A: Callable[[torch.Tensor], torch.Tensor],
+    rhs: torch.Tensor,
+    x0: torch.Tensor,
+    tol: float = 1e-8,
+    maxiter: int = 100,
+) -> torch.Tensor:
+    """Conjugate gradients for a symmetric positive definite operator ``A``
+    (a callable on tensors shaped as ``rhs``), the stopping rule of
+    ``jax.scipy.sparse.linalg.cg``: the squared residual at most ``tol**2``
+    times the squared norm of ``rhs``, read once per iteration."""
     r0 = rhs - A(x0)
-    rs0 = dot(r0, r0)
-    threshold = tol**2 * dot(rhs, rhs).clamp(min=1e-30)
+    rs0 = _dot(r0, r0)
+    threshold = tol**2 * _dot(rhs, rhs).clamp(min=1e-30)
 
     def cond(state, it):
         return state[3] > threshold
@@ -195,14 +208,80 @@ def cg_solve(
     def body(state, it):
         x, r, p, rs = state
         Ap = A(p)
-        alpha = rs / dot(p, Ap).clamp(min=1e-30)
+        alpha = rs / _dot(p, Ap).clamp(min=1e-30)
         x = x + alpha * p
         r = r - alpha * Ap
-        rs_new = dot(r, r)
+        rs_new = _dot(r, r)
         beta = rs_new / rs.clamp(min=1e-30)
         return (x, r, r + beta * p, rs_new)
 
     (x, *_), _ = iterate_while(cond, body, (x0, r0, r0, rs0), maxiter)
+    return x
+
+
+def gmres_operator(
+    A: Callable[[torch.Tensor], torch.Tensor],
+    rhs: torch.Tensor,
+    x0: torch.Tensor,
+    tol: float = 1e-5,
+    maxiter: Optional[int] = None,
+) -> torch.Tensor:
+    """Restarted GMRES for a general operator ``A`` (a callable on tensors
+    shaped as ``rhs``), with the defaults of ``jax.scipy.sparse.linalg.gmres``:
+    Krylov spaces of 20 vectors (at most the size of ``rhs``), at most
+    ``maxiter`` of them (10 times the size when None), stopping once the
+    residual norm is at most ``tol * |rhs|`` (``atol`` 0).
+
+    The Arnoldi vectors and the matvecs stay on ``rhs``'s device (modified
+    Gram-Schmidt); each Arnoldi step reads its column of the Hessenberg
+    matrix on the host, where the Givens rotations give the residual norm
+    without another pass.  The solution agrees with JAX's, not its
+    iterations (JAX builds each Krylov space whole before it tests).
+    """
+    size = rhs.numel()
+    restart = min(20, size)
+    maxiter = 10 * size if maxiter is None else maxiter
+    target = tol * float(torch.linalg.vector_norm(rhs))
+    x = x0
+    for _ in range(maxiter):
+        r = rhs - A(x)
+        beta = float(torch.linalg.vector_norm(r))
+        if beta <= target or beta == 0.0:
+            break
+        basis = [r / beta]
+        hessenberg = np.zeros((restart + 1, restart))
+        cs, sn = np.zeros(restart), np.zeros(restart)
+        g = np.zeros(restart + 1)
+        g[0] = beta
+        k = 0
+        while k < restart:
+            w = A(basis[k])
+            column = []
+            for v in basis:
+                h = _dot(w, v)
+                w = w - h * v
+                column.append(h)
+            column.append(torch.linalg.vector_norm(w))
+            values = torch.stack(column).cpu().numpy().astype(np.float64)
+            hessenberg[: k + 2, k] = values
+            for i in range(k):
+                a, b = hessenberg[i, k], hessenberg[i + 1, k]
+                hessenberg[i, k], hessenberg[i + 1, k] = cs[i] * a + sn[i] * b, -sn[i] * a + cs[i] * b
+            a, b = hessenberg[k, k], hessenberg[k + 1, k]
+            rho = math.hypot(a, b)
+            cs[k], sn[k] = (1.0, 0.0) if rho == 0.0 else (a / rho, b / rho)
+            hessenberg[k, k], hessenberg[k + 1, k] = rho, 0.0
+            g[k + 1] = -sn[k] * g[k]
+            g[k] = cs[k] * g[k]
+            k += 1
+            if abs(g[k]) <= target or values[-1] == 0.0:
+                break
+            basis.append(w / column[-1])
+        y = np.zeros(k)
+        for i in range(k - 1, -1, -1):
+            y[i] = (g[i] - hessenberg[i, i + 1 : k] @ y[i + 1 :]) / hessenberg[i, i]
+        update = sum(float(c) * v for c, v in zip(y, basis[:k]))
+        x = x + update
     return x
 
 

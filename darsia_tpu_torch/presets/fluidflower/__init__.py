@@ -1,4 +1,4 @@
-"""FluidFlower presets: the CO2 and tracer analyses and the rig."""
+"""FluidFlower presets: the CO2 and tracer analyses, the rig and the simple rig."""
 
 from .benchmarkco2model import (
     benchmark_binary_cleaning_preset,
@@ -10,11 +10,13 @@ from .fluidflowertraceranalysis import (
     FluidFlowerTracerAnalysis,
     TailoredConcentrationAnalysis,
 )
+from .simplefluidflower import SimpleFluidFlower
 
 __all__ = [
     "FluidFlowerCO2Analysis",
     "FluidFlowerRig",
     "FluidFlowerTracerAnalysis",
+    "SimpleFluidFlower",
     "TailoredConcentrationAnalysis",
     "benchmark_binary_cleaning_preset",
     "benchmark_concentration_analysis_preset",

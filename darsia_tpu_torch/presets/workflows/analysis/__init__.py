@@ -1,11 +1,10 @@
 """Workflow analysis steps (counterpart of
 :mod:`darsia_tpu.presets.workflows.analysis`).
 
-The context, the mass, volume and cropping steps and their helpers are
-ported.  The segmentation, finger and thresholding steps need
-``presets/workflows/segmentation_contours.py``, ``analysis/contouranalysis``,
-``analysis/skeleton_analysis`` and matplotlib, none of which is ported
-(ROADMAP.md Queue 1 item 6): their names raise ``NotImplementedError``.
+The context, the mass, volume, cropping, segmentation, finger and
+thresholding steps and their helpers.  The segmentation and thresholding
+steps only draw figures, with matplotlib: where it does not import they
+raise, naming it, before they read a photograph.
 """
 
 from .analysis_context import (
@@ -17,7 +16,10 @@ from .analysis_context import (
     select_image_paths,
 )
 from .analysis_cropping import analysis_cropping, analysis_cropping_from_context
+from .analysis_fingers import analysis_fingers, analysis_fingers_from_context
 from .analysis_mass import analysis_mass_from_context, run_mass_analysis
+from .analysis_segmentation import analysis_segmentation, analysis_segmentation_from_context
+from .analysis_thresholding import analysis_thresholding, analysis_thresholding_from_context
 from .analysis_volume import analysis_volume, analysis_volume_from_context
 from .expert_knowledge import ExpertKnowledgeAdapter
 from .image_export_formats import ImageExportFormats
@@ -73,34 +75,3 @@ __all__ = [
     "select_image_paths",
 ]
 
-
-def _not_ported(step: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the {step} analysis needs presets/workflows/segmentation_contours.py, "
-        "analysis/contouranalysis.py, analysis/skeleton_analysis.py and matplotlib, "
-        "which are not ported (ROADMAP.md Queue 1 item 6)"
-    )
-
-
-def analysis_segmentation_from_context(ctx, *args, **kwargs):
-    raise _not_ported("segmentation")
-
-
-def analysis_segmentation(path, *args, **kwargs):
-    raise _not_ported("segmentation")
-
-
-def analysis_fingers_from_context(ctx, *args, **kwargs):
-    raise _not_ported("fingers")
-
-
-def analysis_fingers(path, *args, **kwargs):
-    raise _not_ported("fingers")
-
-
-def analysis_thresholding_from_context(ctx, *args, **kwargs):
-    raise _not_ported("thresholding")
-
-
-def analysis_thresholding(path, *args, **kwargs):
-    raise _not_ported("thresholding")

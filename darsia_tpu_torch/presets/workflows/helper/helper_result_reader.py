@@ -18,6 +18,7 @@ import numpy as np
 
 from ....image.image import as_numpy
 from ....image.imread import imread
+from ....utils.optional import optional_module
 from ..analysis.analysis_context import prepare_analysis_context
 from ..mode_resolution import SCALAR_PRODUCT_MODES
 
@@ -42,13 +43,6 @@ class ResultFrame:
     minimum: float
     maximum: float
     integral: float
-
-
-def _matplotlib(what: str):
-    try:
-        return importlib.import_module("matplotlib")
-    except ImportError as err:
-        raise ImportError(f"{what} needs matplotlib, which is not installed here") from err
 
 
 def load_result_frames(files, device=None) -> list:
@@ -86,8 +80,7 @@ def _result_npz_files(config) -> list:
 def launch_result_reader(frames: list, *, mode: str, cmap=None) -> None:  # pragma: no cover - interactive
     """Interactive frame stepper with a min/max/integral readout (needs
     matplotlib and a display)."""
-    _matplotlib("The result reader")
-    plt = importlib.import_module("matplotlib.pyplot")
+    plt = optional_module("matplotlib.pyplot", "The result reader")
     widgets = importlib.import_module("matplotlib.widgets")
     if len(frames) == 0:
         raise ValueError("ResultViewer received no result frames.")
@@ -161,8 +154,9 @@ def helper_results(path, cls=None, show: bool = False, device=None) -> list:
             target = out_dir / file.name
             image.save(target)
         elif results_config.format in ("jpg", "png"):
-            _matplotlib(f"Re-exporting results as {results_config.format}").use("Agg")
-            plt = importlib.import_module("matplotlib.pyplot")
+            what = f"Re-exporting results as {results_config.format}"
+            optional_module("matplotlib", what).use("Agg")
+            plt = optional_module("matplotlib.pyplot", what)
             target = out_dir / f"{file.stem}.{results_config.format}"
             plt.imsave(target, as_numpy(image.img), cmap=results_config.cmap or "viridis")
         elif results_config.format == "csv":

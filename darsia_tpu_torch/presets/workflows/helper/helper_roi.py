@@ -16,8 +16,8 @@ from typing import Optional
 import numpy as np
 
 from ....image.image import as_numpy
+from ....utils.optional import optional_module
 from ..utils.roi_visualization import build_active_mask_from_rois, draw_active_region
-from .helper_result_reader import _matplotlib
 
 logger = logging.getLogger(__name__)
 
@@ -31,8 +31,7 @@ __all__ = [
 
 
 def _pyplot(what: str):
-    matplotlib = _matplotlib(what)
-    return matplotlib, importlib.import_module("matplotlib.pyplot")
+    return optional_module("matplotlib", what), optional_module("matplotlib.pyplot", what)
 
 
 def format_roi_template(corner_1, corner_2) -> str:

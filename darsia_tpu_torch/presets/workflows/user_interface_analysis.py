@@ -7,9 +7,9 @@ Counterpart of :mod:`darsia_tpu.presets.workflows.user_interface_analysis`
         --config config.toml --mass --volume --cropping --all
 
 The analysis runs on the CUDA card; ``main(argv, device="cpu")`` runs it on
-the CPU.  ``--segmentation``, ``--fingers`` and ``--thresholding`` raise
-``NotImplementedError`` (ROADMAP.md Queue 1 item 6) before anything is
-loaded.
+the CPU.  ``--segmentation`` and ``--thresholding`` only draw figures, with
+matplotlib: where it does not import they raise, naming it, before anything
+is loaded.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from .analysis import (
     analysis_volume_from_context,
     prepare_analysis_context,
 )
+from .analysis.analysis_segmentation import require_matplotlib
 from .rig import Rig
 
 logger = logging.getLogger(__name__)
@@ -52,7 +53,8 @@ _DISPATCH = {
     "thresholding": analysis_thresholding_from_context,
 }
 
-_NOT_PORTED = ("segmentation", "fingers", "thresholding")
+#: Steps whose only product is a matplotlib figure.
+_DRAWING = ("segmentation", "thresholding")
 
 
 def build_parser_for_analysis() -> argparse.ArgumentParser:
@@ -98,10 +100,10 @@ def run_analysis(
     steps = [s for s in _STEP_HELP if getattr(args, s)]
     if not steps:
         raise SystemExit("No analysis step selected; pass e.g. --mass.")
-    for step in _NOT_PORTED:
+    for step in _DRAWING:
         if step in steps:
-            _DISPATCH[step](None)
-    needs_mass = bool({"mass", "volume"} & set(steps))
+            require_matplotlib(step)
+    needs_mass = bool({"mass", "volume", "segmentation", "fingers", "thresholding"} & set(steps))
     ctx = prepare_analysis_context(
         cls=rig_cls, path=path, all=args.all, require_color_to_mass=needs_mass, device=device
     )

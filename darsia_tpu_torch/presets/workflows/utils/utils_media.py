@@ -17,22 +17,13 @@ from typing import Optional
 import numpy as np
 
 from ....experiment.experiment import ProtocolledExperiment
+from ....utils.optional import optional_module
 from ....image.image import as_numpy
 from ..config.fluidflower_config import FluidFlowerConfig
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["build_media"]
-
-
-def _cv2():
-    try:
-        return importlib.import_module("cv2")
-    except ImportError as err:
-        raise ImportError(
-            "build_media needs OpenCV (cv2) to decode, caption and encode the frames; "
-            "it is not installed here"
-        ) from err
 
 
 def _scan_source_images(source) -> list:
@@ -98,7 +89,7 @@ def _read_frame(cv2, file, resolution, overlay, elapsed) -> np.ndarray:
 def build_media(path) -> dict:
     """Build the configured video outputs (mp4/gif/avi); returns their
     paths by format.  Needs OpenCV."""
-    cv2 = _cv2()
+    cv2 = optional_module("cv2", "build_media (decoding, captioning and encoding the frames)")
     config = FluidFlowerConfig(path, require_data=False, require_results=False)
     config.check("video")
     video = config.video

@@ -10,6 +10,17 @@ on the CPU, its reads prefetched on worker threads).  Tolerances: CSV stems,
 datetimes and columns equal; numbers within ``CSV_RTOL`` relative; exported
 fields within ``tests/test_torch_color_to_mass.py``'s ``RTOL`` relative to the
 field's largest value.  The CLI runs through ``main(argv, device="cpu")``.
+
+The config also holds ``[analysis.segmentation]``, ``[analysis.fingers]``
+(two entries: the gas saturation over both ROIs with the skeleton
+analysis, the dissolved concentration over the frame with the skeleton
+and the gradient-based interface) and ``[analysis.thresholding]``.  The
+finger step's CSVs and ``statistics.json`` equal the JAX step's (text cells
+equal, numbers within ``STEP_RTOL`` relative), a rerun appends as pandas
+does, the interface ``.npy`` files agree; the segmentation and thresholding
+masks are equal (compared here, where matplotlib imports, as the steps
+compute them) and both steps raise, naming matplotlib, before they read a
+photograph when its import is blocked.
 """
 
 import csv
@@ -45,6 +56,10 @@ H, W = 64, 96
 CSV_RTOL = 1e-5
 #: tests/test_torch_color_to_mass.py's tolerance of maps in kg/m^3.
 FIELD_RTOL = 1e-6
+#: Lengths, coordinates and speeds of the finger step (float64 host
+#: arithmetic on equal contour points; coordinates through each package's
+#: coordinate system).
+STEP_RTOL = 1e-6
 
 
 def _config_text(work: Path, results: Path, rig_folder: Path, calibration: Path) -> str:
@@ -93,6 +108,34 @@ roi = ["left"]
 
 [analysis.cropping]
 formats = ["npz"]
+
+[analysis.segmentation]
+label = "CO2"
+mode = "saturation_g"
+thresholds = [0.5, 0.2]
+color = [[255, 255, 0], [0, 255, 255]]
+
+[analysis.fingers.plume]
+mode = "saturation_g"
+threshold = 0.5
+roi = ["left", "right"]
+include_skeleton_analysis = true
+
+[analysis.fingers.interface]
+mode = "concentration_aq"
+threshold = 0.05
+include_skeleton_analysis = true
+include_gradient_based_analysis = true
+gradient_mode = "saturation_g"
+
+[analysis.thresholding.layer.gas]
+mode = "saturation_g"
+threshold_min = 0.5
+
+[analysis.thresholding.layer.dissolved]
+mode = "concentration_aq"
+threshold_min = 0.05
+threshold_max = 0.9
 """
 
 
@@ -215,7 +258,7 @@ def _assert_csv_equal(port_csv: Path, jax_csv: Path, text_columns: tuple) -> Non
     assert len(body_t) == len(body_j) > 0
     for row_t, row_j in zip(body_t, body_j):
         for name, cell_t, cell_j in zip(header_j, row_t, row_j):
-            if name in text_columns:
+            if name in text_columns or cell_j == "":
                 assert cell_t == cell_j, name
             else:
                 assert float(cell_t) == pytest.approx(float(cell_j), rel=CSV_RTOL, abs=1e-30), name
@@ -338,11 +381,6 @@ def test_cli_runs_on_the_cpu(workspace, runs, tmp_path):
     shutil.rmtree(tmp_path / "results")
 
 
-@pytest.mark.parametrize("flag", ["--segmentation", "--fingers", "--thresholding"])
-def test_cli_steps_not_ported_raise(workspace, flag):
-    _, configs = workspace
-    with pytest.raises(NotImplementedError, match="item 6"):
-        user_interface_analysis.main(["--config", str(configs["port"]), flag], device="cpu")
 
 
 @pytest.mark.parametrize("ignore", [[], ["boolean_porosity"], ["image_porosity", "inner_labels"]])
@@ -400,3 +438,213 @@ def test_entry_points_default_to_the_card(workspace):
             prepare_analysis_context(cls=dt.Rig, path=configs["port"], all=True, require_color_to_mass=True)
         with pytest.raises(RuntimeError, match='device="cpu"'):
             user_interface_analysis.main(["--config", str(configs["port"]), "--volume", "--all"])
+
+
+# ------------------------------------------------- segmentation, fingers, thresholding
+
+
+@pytest.fixture(scope="module")
+def step_runs(workspace, tmp_path_factory):
+    """Both packages' contexts of their own, each with its own results
+    folder; the finger step run once by each."""
+    from darsia_tpu.presets.workflows.analysis import analysis_fingers_from_context as jax_fingers
+    from darsia_tpu_torch.presets.workflows.analysis import analysis_fingers_from_context
+
+    work, configs = workspace
+    out = {}
+    for name in ("jax", "port"):
+        config = work / f"steps_{name}.toml"
+        results = tmp_path_factory.mktemp(f"steps_{name}")
+        config.write_text(configs[name].read_text().replace(str(work / f"results_{name}"), str(results)))
+        out[name] = {"config": config, "results": results}
+    out["jax"]["ctx"] = jax_context(cls=da.Rig, path=out["jax"]["config"], all=True, require_color_to_mass=True)
+    out["port"]["ctx"] = prepare_analysis_context(
+        cls=dt.Rig, path=out["port"]["config"], all=True, require_color_to_mass=True, device="cpu"
+    )
+    out["jax"]["rows"] = jax_fingers(out["jax"]["ctx"])
+    out["port"]["rows"] = analysis_fingers_from_context(out["port"]["ctx"])
+    return out
+
+
+def _assert_json_close(got, want, where: str = "") -> None:
+    assert type(got) is type(want) or {type(got), type(want)} <= {int, float}, where
+    if isinstance(want, dict):
+        assert list(got) == list(want), where
+        for key in want:
+            _assert_json_close(got[key], want[key], f"{where}/{key}")
+    elif isinstance(want, list):
+        assert len(got) == len(want), where
+        for k, (a, b) in enumerate(zip(got, want)):
+            _assert_json_close(a, b, f"{where}[{k}]")
+    elif isinstance(want, float):
+        if np.isnan(want):
+            assert np.isnan(got), where
+        else:
+            assert got == pytest.approx(want, rel=STEP_RTOL, abs=1e-12), where
+    else:
+        assert got == want, where
+
+
+FINGER_TEXT = ("image_stem", "entry", "roi", "key", "image")
+
+
+def test_fingers_step_matches_the_jax_package(step_runs):
+    import json
+
+    port, ref = step_runs["port"]["results"] / "fingers", step_runs["jax"]["results"] / "fingers"
+    for name in ("fingers_analysis_results.csv", "statistics.csv"):
+        _assert_csv_equal(port / name, ref / name, FINGER_TEXT)
+    stats = pd.read_csv(port / "statistics.csv")
+    # 4 photographs x (2 ROIs of the plume entry + the interface entry's frame).
+    assert len(stats) == 12 and (stats["number_tips"] >= 0).all()
+    assert (stats["number_new_fingers"] + stats["number_continuing_fingers"] == stats["number_fingers"]).all()
+    _assert_json_close(
+        json.loads((port / "statistics.json").read_text()), json.loads((ref / "statistics.json").read_text())
+    )
+    rates = sorted(p.relative_to(ref) for p in ref.glob("paths/*/*_advance_rates.csv"))
+    assert rates and rates == sorted(p.relative_to(port) for p in port.glob("paths/*/*_advance_rates.csv"))
+    for rel in rates:
+        _assert_csv_equal(port / rel, ref / rel, ())
+    arcs = sorted(p.relative_to(ref) for p in ref.glob("interface-contour-npy/*/*.npy"))
+    assert len(arcs) == 4
+    assert arcs == sorted(p.relative_to(port) for p in port.glob("interface-contour-npy/*/*.npy"))
+    for rel in arcs:
+        got, want = np.load(port / rel, allow_pickle=True), np.load(ref / rel, allow_pickle=True)
+        assert got.shape == want.shape
+        for a, b in zip(got.reshape(-1), want.reshape(-1)):
+            assert np.abs(np.asarray(a, float) - np.asarray(b, float)).max() <= 1e-6
+
+
+def test_fingers_rows_give_the_jax_frame(step_runs):
+    rows = step_runs["port"]["rows"]
+    frame = pd.DataFrame(rows)
+    want = step_runs["jax"]["rows"]
+    assert list(frame.columns) == list(want.columns)
+    assert list(frame["image_stem"]) == list(want["image_stem"])
+    np.testing.assert_allclose(frame["contour_length"], want["contour_length"], rtol=STEP_RTOL)
+
+
+def test_fingers_rerun_appends_as_pandas_does(step_runs):
+    from darsia_tpu.presets.workflows.analysis import analysis_fingers_from_context as jax_fingers
+    from darsia_tpu_torch.presets.workflows.analysis import analysis_fingers_from_context
+
+    ctx_j, ctx_t = step_runs["jax"]["ctx"], step_runs["port"]["ctx"]
+    paths_j, paths_t = list(ctx_j.image_paths), list(ctx_t.image_paths)
+    ctx_j.image_paths, ctx_t.image_paths = paths_j[2:], paths_t[2:]
+    try:
+        jax_fingers(ctx_j)
+        rows = analysis_fingers_from_context(ctx_t)
+    finally:
+        ctx_j.image_paths, ctx_t.image_paths = paths_j, paths_t
+    assert len(rows) == 4 * 3 + 2 * 3
+    port, ref = step_runs["port"]["results"] / "fingers", step_runs["jax"]["results"] / "fingers"
+    for name in ("fingers_analysis_results.csv", "statistics.csv"):
+        _assert_csv_equal(port / name, ref / name, FINGER_TEXT)
+
+
+def _mode_fields(pkg_ctx, img, mode: str):
+    """The mode image of a photograph, as the steps resolve it."""
+    result = pkg_ctx.color_to_mass_analysis(img)
+    return getattr(result, mode).img
+
+
+@pytest.mark.parametrize("index", [0, 1, 2, 3])
+def test_segmentation_and_thresholding_masks_equal(step_runs, index):
+    from darsia_tpu.presets.workflows.segmentation_contours import SegmentationContours as JaxContours
+    from darsia_tpu_torch.presets.workflows.analysis.analysis_thresholding import layer_mask
+    from darsia_tpu_torch.presets.workflows.segmentation_contours import (
+        GradientBasedSegmentation,
+        SegmentationContours,
+    )
+    from darsia_tpu.presets.workflows.segmentation_contours import GradientBasedSegmentation as JaxGradient
+
+    ctx_j, ctx_t = step_runs["jax"]["ctx"], step_runs["port"]["ctx"]
+    path_j, path_t = list(ctx_j.image_paths)[index], list(ctx_t.image_paths)[index]
+    img_j, img_t = ctx_j.fluidflower.read_image(path_j), ctx_t.fluidflower.read_image(path_t)
+    res_j, res_t = ctx_j.color_to_mass_analysis(img_j), ctx_t.color_to_mass_analysis(img_t)
+    entry = ctx_t.config.analysis.segmentation.config
+    entry_j = ctx_j.config.analysis.segmentation.config
+    for threshold in entry.thresholds:
+        got = SegmentationContours(entry).extract_mask(img_t, threshold, mass_analysis_result=res_t)
+        want = JaxContours(entry_j).extract_mask(img_j, threshold, mass_analysis_result=res_j)
+        field = np.asarray(res_j.saturation_g.img)
+        near = np.abs(field - threshold) <= 1e-6
+        assert got.device.type == "cpu" and got.dtype == torch.bool
+        assert not ((got.numpy() != want) & ~near).any()
+    field = np.asarray(res_j.saturation_g.img, dtype=float)
+    modulus = np.sqrt(sum(np.gradient(field, axis=axis) ** 2 for axis in range(2)))
+    for threshold in (0.01, 0.05):
+        got = GradientBasedSegmentation("saturation_g", threshold).extract_mask(img_t, mass_analysis_result=res_t)
+        want = JaxGradient("saturation_g", threshold).extract_mask(img_j, mass_analysis_result=res_j)
+        near = np.abs(modulus - threshold) <= 1e-6
+        assert not ((got.numpy() != want) & ~near).any()
+    for key, layer in ctx_t.config.analysis.thresholding.layers.items():
+        field_t = getattr(res_t, layer.mode).img
+        field_j = np.asarray(getattr(res_j, layer.mode).img)
+        got = layer_mask(layer, field_t).numpy()
+        want = np.ones(field_j.shape, bool)
+        near = np.zeros(field_j.shape, bool)
+        for bound, op in ((layer.threshold_min, np.greater_equal), (layer.threshold_max, np.less_equal)):
+            if bound is not None:
+                want &= op(field_j, bound)
+                near |= np.abs(field_j - bound) <= 1e-6
+        assert not ((got != want) & ~near).any(), key
+
+
+@pytest.mark.parametrize("step", ["segmentation", "thresholding"])
+def test_drawing_steps_run_where_matplotlib_imports(step_runs, step):
+    pytest.importorskip("matplotlib")
+    from darsia_tpu_torch.presets.workflows import analysis
+
+    ctx = step_runs["port"]["ctx"]
+    getattr(analysis, f"analysis_{step}_from_context")(ctx)
+    folder = step_runs["port"]["results"] / step
+    figures = sorted(folder.rglob("*.jpg"))
+    assert len(figures) == 4
+
+
+def _block_matplotlib(monkeypatch):
+    """matplotlib as on a machine without it: a ``None`` entry in
+    ``sys.modules`` makes every import of it raise."""
+    import sys
+
+    for name in [n for n in sys.modules if n.split(".")[0] == "matplotlib"] + ["matplotlib"]:
+        monkeypatch.setitem(sys.modules, name, None)
+
+
+@pytest.mark.parametrize("step", ["segmentation", "thresholding"])
+def test_drawing_steps_name_matplotlib_before_reading(step_runs, step, monkeypatch):
+    from darsia_tpu_torch.presets.workflows import analysis
+
+    ctx = step_runs["port"]["ctx"]
+    reads = []
+    monkeypatch.setattr(ctx.fluidflower, "read_image", lambda path: reads.append(path))
+    _block_matplotlib(monkeypatch)
+    with pytest.raises(ImportError, match="matplotlib"):
+        getattr(analysis, f"analysis_{step}_from_context")(ctx)
+    with pytest.raises(ImportError, match="matplotlib"):
+        user_interface_analysis.main(["--config", str(step_runs["port"]["config"]), f"--{step}"], device="cpu")
+    assert reads == []
+
+
+@pytest.mark.parametrize("matplotlib", ["importing", "blocked"])
+def test_cli_fingers_runs_on_the_cpu(step_runs, tmp_path, monkeypatch, matplotlib):
+    """``main([..., "--fingers", "--all"], device="cpu")``: one row per
+    photograph and ROI in ``statistics.csv``; without matplotlib no overlay
+    is drawn and every table and the JSON are still written."""
+    if matplotlib == "blocked":
+        _block_matplotlib(monkeypatch)
+    config = tmp_path / "config.toml"
+    config.write_text(
+        step_runs["port"]["config"].read_text().replace(str(step_runs["port"]["results"]), str(tmp_path / "results"))
+    )
+    (tmp_path / "results").mkdir()
+    user_interface_analysis.main(["--config", str(config), "--fingers", "--all"], device="cpu")
+    folder = tmp_path / "results" / "fingers"
+    stats = pd.read_csv(folder / "statistics.csv")
+    assert len(stats) == 12
+    assert sorted(set(stats["key"])) == ["full", "left", "right"]
+    assert (folder / "statistics.json").exists() and (folder / "fingers_analysis_results.csv").exists()
+    assert len(list(folder.glob("interface-contour-npy/*/*.npy"))) == 4
+    drawn = list(folder.rglob("*.png"))
+    assert (len(drawn) > 0) == (matplotlib == "importing")

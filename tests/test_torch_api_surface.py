@@ -170,6 +170,10 @@ NEEDS_LIBRARY = {
     "helper.helper_roi.launch_roi_helper_viewer": "matplotlib",
     "helper.helper_roi.launch_roi_viewer": "matplotlib",
     "helper.helper_result_reader.launch_result_reader": "matplotlib",
+    "analysis.analysis_segmentation.analysis_segmentation": "matplotlib",
+    "analysis.analysis_segmentation.analysis_segmentation_from_context": "matplotlib",
+    "analysis.analysis_thresholding.analysis_thresholding": "matplotlib",
+    "analysis.analysis_thresholding.analysis_thresholding_from_context": "matplotlib",
 }
 
 WORKFLOW_MODULES = [
@@ -189,6 +193,10 @@ WORKFLOW_MODULES = [
     "user_interface_calibration",
     "user_interface_helper",
     "user_interface_utils",
+    "segmentation_contours",
+    "analysis.analysis_fingers",
+    "analysis.analysis_segmentation",
+    "analysis.analysis_thresholding",
 ]
 
 

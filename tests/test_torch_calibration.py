@@ -19,7 +19,7 @@ import darsia_tpu as da
 import darsia_tpu_torch as dt
 from darsia_tpu.analysis import model_calibration as jax_fits
 from darsia_tpu_torch.analysis import model_calibration as port_fits
-from darsia_tpu_torch.analysis.balancing_calibration import dilate_cross
+from darsia_tpu_torch.ops.morphology import dilate_cross
 
 torch.set_num_threads(1)
 

@@ -776,3 +776,73 @@ def test_kernel_launches_from_threads_count_exactly():
     assert warp2pass.launch_count == before + len(cases) * per_thread
     for k, (data, cols) in enumerate(cases):
         assert torch.equal(results[k], warp2pass.warp_rows_t_reference(data, cols, 7))
+
+
+def test_skeleton_on_the_card_equals_the_host_skeleton():
+    """The skeleton as boolean tensor ops on the card (``ops/morphology.py``)
+    bitwise equal to the host ``utils/morphology.py::skeletonize`` at a
+    ragged 4K shape (seeded blobs up to ~40 px thick, a hole, the border
+    touched), with the same number of erosions; the endpoint and
+    branch-point counts of ``SkeletonAnalysis`` on the card equal scipy's."""
+    from scipy import ndimage
+
+    from darsia_tpu_torch.analysis.skeleton_analysis import SkeletonAnalysis
+    from darsia_tpu_torch.ops.morphology import skeletonize
+    from darsia_tpu_torch.utils.morphology import skeletonize as host_skeletonize
+
+    rng = np.random.default_rng(15)
+    mask = rng.random((1787, 3181)) > 0.9995
+    mask = ndimage.binary_dilation(mask, structure=np.ones((3, 3), bool), iterations=16)
+    mask[:40, :700] = True
+    mask[900:960, 1200:1260] = False
+    got, iterations = skeletonize(torch.from_numpy(mask).cuda())
+    want = host_skeletonize(mask)
+    assert np.array_equal(got.cpu().numpy(), want)
+    eroded, count = mask, 0
+    while eroded.any():
+        eroded = ndimage.binary_erosion(eroded, structure=ndimage.generate_binary_structure(2, 1))
+        count += 1
+    assert iterations == count > 10
+    analysis = SkeletonAnalysis()
+    analysis.load(mask)
+    assert analysis.skeleton_mask.is_cuda
+    neighbours = ndimage.convolve(want.astype(np.int32), np.ones((3, 3), np.int32), mode="constant")
+    assert np.array_equal(analysis.endpoints(), np.argwhere(want & (neighbours == 2)))
+    assert np.array_equal(analysis.branch_points(), np.argwhere(want & (neighbours >= 4)))
+
+
+def test_features_on_the_card_equal_the_cpu(monkeypatch):
+    """``FeatureDetection.extract_features`` of an image on the card masks
+    it and computes the Harris response there, and gives the keypoints and
+    descriptors of the same image on the CPU, at a ragged 4K shape."""
+    from darsia_tpu_torch.utils import features
+
+    # Seeded so that the 201 strongest maxima differ by more than 2e-5
+    # relative: no near-ties for float rounding to reorder.
+    rng = np.random.default_rng(18)
+    gray = np.zeros((1787, 3181), np.float32)
+    for _ in range(300):
+        r, c = rng.integers(8, 1700), rng.integers(8, 3100)
+        gray[r : r + rng.integers(10, 60), c : c + rng.integers(10, 60)] += rng.uniform(0.3, 1)
+    gray += rng.normal(0, 0.01, gray.shape).astype(np.float32)
+    rgb = np.stack([gray, 0.5 * gray, 0.2 * gray], axis=-1)
+    mask = np.ones(gray.shape, bool)
+    mask[:200] = False
+    roi = (slice(4, 1780), slice(3, 3170))
+
+    devices = []
+    response = features._harris_response
+
+    def spy(gray, k=0.05, device=None):
+        devices.append(gray.device.type)
+        return response(gray, k, device)
+
+    monkeypatch.setattr(features, "_harris_response", spy)
+    kp_gpu, desc_gpu = features.FeatureDetection.extract_features(
+        torch.from_numpy(rgb).cuda(), roi=roi, mask=mask
+    )
+    kp_cpu, desc_cpu = features.FeatureDetection.extract_features(torch.from_numpy(rgb), roi=roi, mask=mask)
+    assert devices == ["cuda", "cpu"]
+    assert len(kp_cpu) == 200
+    np.testing.assert_array_equal(kp_gpu, kp_cpu)
+    assert np.abs(desc_gpu - desc_cpu).max() <= 1e-6
