@@ -4,8 +4,8 @@
     python3 chip_smoke.py                  # the check
     python3 chip_smoke.py --profile DIR    # also profile the lanes and paths into DIR
 
-Drives ``darsia_tpu_torch`` only (no JAX; OpenCV only for the contours of
-phase L), from the root of a
+Drives ``darsia_tpu_torch`` only (no JAX; OpenCV for the contours of
+phase L and the photographs, videos and EMD of phase M), from the root of a
 checkout, in phases; any failure raises and exits non-zero:
 
 1. Build the kernels K1 (``csrc/warp_rows_t.cu``), K2 and K3
@@ -420,13 +420,52 @@ L. The segmentation, finger and thresholding steps, SimpleFluidFlower, the
    256x256 TPFA operator (plus a convection term for GMRES) as a callable on
    the card against scipy's sparse solve within 1e-6 relative.  The phase
    checks its 126 K1 launches exactly (24 in L1, 24 in L1b, 16 in L3, 46 in
-   L4, 16 in L5) and deletes the folder.
+   L4, 16 in L5) and hands its folder, its ``SimpleFluidFlower`` and the
+   rig's labels to phase M.
+
+M. Photographs, the assistants and a GUI worker (after phase L).  M1: phase
+   L's 4 photographs written from the card by ``OpticalImage.write`` as JPEG
+   (quality 95), the first also as PNG and TIFF, and ``encode(".png")``:
+   the bytes equal to ``cv2.imencode`` of the host array; each read back by
+   ``imread`` onto the card bitwise equal to ``cv2.imread`` + ``cvtColor``
+   (PNG and TIFF equal to the written array), and with
+   ``transfer="yuv420"`` bitwise the reconstruction of OpenCV's planes; on
+   a smooth 4K JPEG the yuv420 read within tests/test_torch_transfer.py's
+   bound of the full read (mean < 1, p99 <= 4 levels); ``ScalarImage.write``
+   png/jpg/tif of a card image equal to ``cv2.imencode``; host decode ms per
+   photograph and bytes copied.  M2: ``user_interface_analysis.main([...,
+   "--mass", "--all"])`` over the 4 JPEGs (phase J's config, rig and chain,
+   npy export) and over npz files holding their decoded arrays: every read
+   recorded (none skipped), the CSVs byte for byte and the mass fields
+   bitwise equal.  M3: ``wasserstein_distance(method="cv2.emd")`` of card
+   images on the 10x10 two-squares problem and a seeded 64x64 pair within
+   1e-6 relative of the JAX package's values (pinned by
+   tests/test_torch_emd.py), ``EMD().distance_matrix`` of 4 maps symmetric;
+   |EMD - Newton| / Newton printed.  M4: a flat grey 4K ROI photograph with
+   four white 16-px marks near its corners, written as JPEG;
+   ``SimpleFluidFlower.setup_curvature_correction(roi, "automatic",
+   white)`` on phase L's rig: the corners within 1 px of the painted ones
+   and equal to the ``CropAssistant``'s on a CPU copy; two reads through
+   the new correction and one with plain K1, bitwise; ``LabelsAssistant``
+   pick and merge and a mask selection on phase I's labels on the card equal
+   to a CPU copy's.  M5: a ``GuiSession`` (device "cuda") starts "analysis:
+   mass" on M2's JPEG config in a spawned worker (the registry pointed for
+   the run at this script's ``analysis_mass_from_context``, which calls the
+   port's step and reports the worker's K1 launches over the progress
+   queue), polled to ``__done__``: 4 progress events, every PNG preview
+   decodes, no error sentinel, the CSV byte for byte M2's; a second worker
+   stopped after 2 s ends within 5 s.  M6: ``build_media`` over the JPEGs
+   (mp4 and avi): each video opens with 4 frames; ``render_active_region``
+   on the card equal to the CPU's.  The phase checks its 80 K1 launches
+   exactly (48 in M2, 8 in M4, 24 counted in the GUI worker) and deletes the
+   folder.
 
 Every launch count is set to 0 just before each path of phases 3, 5-7,
-8-11, 14-20, B, E, F, G, H, I, J, K and L and read just after it; the
-``kernels`` line's K1 launches are their sum, 586 before phase E, 28 in it,
-none in F or G, 198 in H, 120 in I, 432 in J, 84 in K and 126 in L (1574;
-checked exactly).  Each of phases 8-12, 14-20, A-L prints its seconds.  The
+8-11, 14-20, B, E, F, G, H, I, J, K, L and M and read just after it (in M5
+the worker's process counts from its start); the ``kernels`` line's K1
+launches are their sum, 586 before phase E, 28 in it, none in F or G, 198
+in H, 120 in I, 432 in J, 84 in K, 126 in L and 80 in M (1654; checked
+exactly).  Each of phases 8-12, 14-20, A-M prints its seconds.  The
 second-to-last line is a JSON object of per-kernel results; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
@@ -5205,6 +5244,16 @@ def l_tips(k: int) -> np.ndarray:
     return np.array([[r0 - rise, c0 + (2 * f + 1) * L_HALF] for f in range(L_FINGERS)], dtype=float)
 
 
+def l_photo(frame: np.ndarray, k: int) -> np.ndarray:
+    """Phase L's photograph ``k`` (1-based) as uint8 RGB: phase J's frame
+    with the grey patches and the plumes painted on them."""
+    img = frame.astype(np.float64) / 255.0
+    for patch in L_PATCHES:
+        img[patch] = L_GREY
+    img[l_plume(k)] = L_GREY + np.asarray(I_PLUME_COLOUR)
+    return np.round(np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
+
+
 def l_assets(dt, frame: np.ndarray, root: Path) -> list:
     """Phase L's photographs: phase J's frame with a noise-free grey patch
     under each ROI and the plumes painted on the patches in the grey plus
@@ -5212,14 +5261,7 @@ def l_assets(dt, frame: np.ndarray, root: Path) -> list:
     in a folder of their own, with their imaging protocol."""
     folder = root / "l_photos"
     folder.mkdir()
-    photos = []
-    for k in range(1, L_PHOTOS + 1):
-        img = frame.astype(np.float64) / 255.0
-        for patch in L_PATCHES:
-            img[patch] = L_GREY
-        img[l_plume(k)] = L_GREY + np.asarray(I_PLUME_COLOUR)
-        img = np.round(np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
-        photos.append(h_save(dt, folder / f"img_{k:05d}.npz", img))
+    photos = [h_save(dt, folder / f"img_{k:05d}.npz", l_photo(frame, k)) for k in range(1, L_PHOTOS + 1)]
     (root / "l_protocols").mkdir()
     (root / "l_protocols" / "imaging.csv").write_text(
         "path,image_id,datetime\n"
@@ -5290,13 +5332,14 @@ def l_rows(path: Path, key: str) -> list:
     return [r for r in j_csv(path) if r["key"] == key]
 
 
-def phase_fingers(dt, w2p, lanes, handoff: dict, device, card: str, profile) -> dict:
+def phase_fingers(dt, w2p, lanes, handoff: dict, device, card: str, profile, keep: bool = False) -> dict:
     """Phase L: the finger analysis through the analysis CLI on 4K
     photographs (tips, tracking, advance rates, the skeleton on the card),
     its split and a host reckoning of its counts, the card's skeleton
     against the host one, the segmentation and thresholding masks, the
     SimpleFluidFlower rig, the multiphase calibration session and the
-    numerics utilities."""
+    numerics utilities.  With ``keep`` its folder stays and the result hands
+    it on (``root``, the SimpleFluidFlower ``rig``, the rig's ``labels``)."""
     import logging
     import shutil
     import warnings
@@ -5327,6 +5370,7 @@ def phase_fingers(dt, w2p, lanes, handoff: dict, device, card: str, profile) -> 
     split_config.write_text(toml_text(l_tables(root, root / "l_split")))
     files_s = time.perf_counter() - tic
     launches = 0
+    result: dict = {}
     try:
         # L1. The analysis CLI's finger step over the 4 photographs.
         argv = ["--config", str(config_path), "--fingers", "--all"]
@@ -5824,12 +5868,546 @@ def phase_fingers(dt, w2p, lanes, handoff: dict, device, card: str, profile) -> 
             + ", ".join(f"linalg_{k} rel {v[0]:.2e} against scipy's sparse solve ({v[1]:.2f} s)" for k, v in agreement.items())
             + f"; {time.perf_counter() - t_l6:.2f} s"
         )
+        if keep:
+            result["handoff"] = {"root": root, "rig": rig4, "labels": ctx.fluidflower.labels}
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if "handoff" not in result:
+            shutil.rmtree(root, ignore_errors=True)
     if launches != K1_IN_L:
         raise AssertionError(f"L: {launches} K1 launches, want {K1_IN_L}")
     result["phase_s"] = time.perf_counter() - tic
     print(f"L. phase {result['phase_s']:.2f} s, {launches} K1 launches")
+    return {"launches": launches, **result}
+
+
+# ---------------------------------------------------------------- phase M
+M_QUALITY = 95  # JPEG quality of the written photographs
+M_BLOCK = 16  # px: the ROI photograph's marks, on the JPEG's 16-px blocks
+M_MARKS = ((16, 16), (1760, 16), (1760, 3152), (16, 3152))  # the marks' top-left pixels
+#: The marks' pixels nearest to the frame's corners, in the crop assistant's
+#: order (top left, bottom left, bottom right, top right).
+M_CORNERS = [[16, 16], [1775, 16], [1775, 3167], [16, 3167]]
+M_MARK_COLOUR = [255, 255, 255]
+M_BACKGROUND = 118  # the ROI photograph's flat grey
+#: cv2.EMD through the JAX package on the CPU (tests/test_torch_emd.py).
+M_EMD_TWO_SQUARES = 0.3809106647968293
+M_EMD_SEEDED_64 = 0.11485148221254349
+M_EMD_RTOL = 1e-6
+M_STOP_S = 5.0  # a stopped GUI worker has ended within this
+M_WORKER_S = 300.0  # the GUI worker's whole run
+M_VIDEO_SHAPE = (446, 794)  # the videos' frames: near a quarter of the photograph, even for the mp4 encoder
+# K1 launches: M2 the analysis CLI over the JPEG photographs and over their
+# decoded npz copies (each a freshly loaded rig: its grid, then every
+# photograph read once); M4 two reads through the new curvature correction
+# alone (its grid: X and Y through the crop's warp, a pair each; then a pair
+# per read; the plain-K1 read not counted); M5 the GUI worker's step, counted
+# in the worker's process and reported over its progress queue (the loaded
+# rig's grid, then every photograph read once).
+M2_K1 = 2 * (H_GRID_K1 + L_PHOTOS * I_READ_K1)
+M4_K1 = 2 * 2 + 2 * 2
+M5_K1 = H_GRID_K1 + L_PHOTOS * I_READ_K1
+K1_IN_M = M2_K1 + M4_K1 + M5_K1
+
+
+def m_photo_like(h: int, w: int, seed: int) -> np.ndarray:
+    """Smooth photograph-like content, uint8 RGB (tests/test_torch_transfer.py's
+    ``_photo_like``)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w), indexing="ij")
+    chans = []
+    for k in range(3):
+        a, b, c = rng.uniform(0.5, 2.0, 3)
+        chans.append(np.clip(0.5 + 0.4 * np.sin(a * 4 * xx + k) * np.cos(b * 3 * yy) + 0.05 * c, 0, 1))
+    return (np.stack(chans, axis=-1) * 255).astype(np.uint8)
+
+
+def m_roi_photo() -> np.ndarray:
+    """The ROI photograph: flat grey with four white marks near the corners."""
+    roi = np.full((H, W, 3), M_BACKGROUND, np.uint8)
+    for r0, c0 in M_MARKS:
+        roi[r0 : r0 + M_BLOCK, c0 : c0 + M_BLOCK] = M_MARK_COLOUR
+    return roi
+
+
+def m_mass_tables(root: Path, photos: Path, protocols: Path, results: Path, suffix: str) -> dict:
+    """Phase J's config over the photographs in ``photos`` (imaging protocol
+    in ``protocols``), the mass step only, its field exported as npy.  The
+    config's baseline (only its suffix matters to the run: it selects the
+    photographs) is phase I's, as ``suffix``."""
+    tables = j_tables(root, protocols)
+    tables["data"]["folder"] = photos
+    tables["data"]["baseline"] = root / ("images" if suffix == ".npz" else "m_baseline") / f"img_00000{suffix}"
+    tables["data"]["results"] = results
+    tables["rig"]["path"] = root / "results" / "setup" / "rig"  # phase I's rig
+    results.mkdir(exist_ok=True)
+    tables["analysis"] = {
+        "formats": ["npy"],
+        "mass": {"color": "co2", "roi": list(J_ROIS), "export": ["mass"]},
+    }
+    return tables
+
+
+def m_protocols(root: Path, folder: Path, names: list) -> Path:
+    """An imaging protocol of ``names`` (phase L's times) and phase J's
+    injection protocol, in ``folder``."""
+    import shutil
+
+    folder.mkdir()
+    (folder / "imaging.csv").write_text(
+        "path,image_id,datetime\n"
+        + "".join(
+            f"{name},{k},{(L_START + timedelta(hours=k - 1)).isoformat(sep=' ')}\n"
+            for k, name in enumerate(names, start=1)
+        )
+    )
+    shutil.copy(root / "analysis" / "injection.csv", folder / "injection.csv")
+    return folder
+
+
+def analysis_mass_from_context(ctx, show: bool = False, stream_callback=None, progress_callback=None):
+    """Phase M5's step in the GUI worker's process: the port's mass step,
+    then the worker's K1 launches (counted from the process's start) and
+    its device reported over the progress queue.  Phase M5 points the
+    registry's "analysis: mass" here for its run; the name keeps the
+    worker's colour-to-mass context."""
+    from darsia_tpu_torch.ops import warp2pass as w2p
+    from darsia_tpu_torch.presets.workflows.analysis import analysis_mass
+
+    progress_callback({"event": "smoke_worker", "entered_unix": time.time()})
+    rows = analysis_mass.analysis_mass_from_context(
+        ctx, show=show, stream_callback=stream_callback, progress_callback=progress_callback
+    )
+    if ctx.fluidflower.baseline.img.is_cuda:
+        torch.cuda.synchronize()
+    progress_callback(
+        {
+            "event": "smoke_worker",
+            "launches": read_counts(w2p),
+            "rows": len(rows),
+            "device": str(ctx.fluidflower.baseline.img.device),
+        }
+    )
+    return rows
+
+
+def m_media(dt, root: Path, jpg_dir: Path, frame: np.ndarray, card: str) -> None:
+    """Phase M6: ``build_media`` over the JPEG photographs in ``jpg_dir``
+    (mp4 and avi, each opened and its frames counted), and
+    ``render_active_region`` of ``frame`` on the card against the CPU."""
+    import cv2
+
+    from darsia_tpu_torch.presets.workflows.utils import build_media, roi_visualization
+
+    t_m6 = time.perf_counter()
+    media = root / "m_media.toml"
+    media.write_text(
+        toml_text(
+            {
+                "data": {"results": root / "m_media"},
+                "video": {
+                    "folder": root / "m_media" / "videos",
+                    "source": {"folder": jpg_dir, "extensions": [".jpg"], "sorting": "name"},
+                    "output": {"formats": ["mp4", "avi"], "fps": 2.0, "resolution": list(M_VIDEO_SHAPE), "filename": "m6"},
+                },
+            }
+        )
+    )
+    written = build_media(media)
+    frame_counts = {}
+    for fmt, path in written.items():
+        capture = cv2.VideoCapture(str(path))
+        count = 0
+        while capture.isOpened():
+            ok, shot = capture.read()
+            if not ok:
+                break
+            if shot.shape[:2] != M_VIDEO_SHAPE:
+                raise AssertionError(f"M6: {fmt} frame {shot.shape}")
+            count += 1
+        capture.release()
+        frame_counts[fmt] = count
+    if frame_counts != {"mp4": L_PHOTOS, "avi": L_PHOTOS}:
+        raise AssertionError(f"M6: frames per video {frame_counts}")
+    unit = frame.astype(np.float32) / 255.0
+    photo = dt.OpticalImage(unit, **META)
+    mask = roi_visualization.build_active_mask_from_rois({"left": dt.make_coordinate(J_ROIS["left"])}, photo)
+    rendered = roi_visualization.render_active_region(photo, mask)
+    host_photo = dt.OpticalImage(torch.from_numpy(unit), **META)
+    host = roi_visualization.render_active_region(host_photo, mask.cpu())
+    if not (
+        rendered.image.device.type == "cuda"
+        and torch.equal(rendered.image.cpu(), host.image)
+        and len(rendered.contours) == len(host.contours)
+        and all(np.array_equal(a, b) for a, b in zip(rendered.contours, host.contours))
+    ):
+        raise AssertionError("M6: render_active_region on the card differs from the CPU")
+    print(
+        f"M6. on {card}: build_media over the 4 JPEG photographs: {', '.join(f'{k} {v.name}' for k, v in written.items())}, "
+        f"each with {L_PHOTOS} frames of {M_VIDEO_SHAPE}; render_active_region of the left ROI on the card "
+        f"equal to the CPU's ({len(rendered.contours)} contour); {time.perf_counter() - t_m6:.2f} s"
+    )
+
+
+def phase_photographs(dt, w2p, lanes, handoff: dict, device, card: str) -> dict:
+    """Phase M: photographs through OpenCV (JPEG, PNG, TIFF written and read
+    back, the YUV 4:2:0 transfer), JPEG photographs through the rig's
+    analysis CLI, the earth mover's distance, the crop assistant with
+    ``SimpleFluidFlower.setup_curvature_correction``, the label assistant,
+    a GUI worker on the card, and the media utilities."""
+    import logging
+    import shutil
+    import warnings
+
+    import cv2
+
+    from darsia_tpu_torch.presets.workflows import user_interface_analysis
+    from darsia_tpu_torch.presets.workflows import user_interface_gui as gui
+    from darsia_tpu_torch.presets.workflows.analysis import analysis_context
+    from darsia_tpu_torch.utils.transfer import reconstruct_rgb_yuv420, split_rgb_yuv420
+
+    warnings.filterwarnings("ignore", message="Section .* not found")
+    warnings.filterwarnings("ignore", message="No time information")
+    tic = time.perf_counter()
+    dev = None if device.type == "cuda" else device
+    root = handoff["root"]
+    launches = 0
+    result: dict = {}
+    try:
+        # M1. Phase L's photographs written as JPEG, PNG and TIFF by the
+        # port from the card, the bytes OpenCV's; read back onto the card.
+        t_m1 = time.perf_counter()
+        frames = [l_photo(lanes["rig"]["frame"], k) for k in range(1, L_PHOTOS + 1)]
+        jpg_dir, lossless = root / "m_jpg", root / "m_lossless"
+        jpg_dir.mkdir()
+        lossless.mkdir()
+        jpgs, write_ms = [], {}
+        for k, frame in enumerate(frames, start=1):
+            image = dt.OpticalImage(frame, **META)
+            if image.img.device.type != "cuda":
+                raise AssertionError(f"M1: the photograph lies on {image.img.device}")
+            suffixes = (".jpg", ".png", ".tif") if k == 1 else (".jpg",)
+            for suffix in suffixes:
+                path = (jpg_dir if suffix == ".jpg" else lossless) / f"img_{k:05d}{suffix}"
+                params = [int(cv2.IMWRITE_JPEG_QUALITY), M_QUALITY] if suffix == ".jpg" else []
+                t0 = time.perf_counter()
+                image.write(path, quality=M_QUALITY)
+                write_ms.setdefault(suffix, []).append(1e3 * (time.perf_counter() - t0))
+                ok, want = cv2.imencode(suffix, np.ascontiguousarray(frame[..., ::-1]), params)
+                if not (ok and path.read_bytes() == want.tobytes()):
+                    raise AssertionError(f"M1: {path.name} differs from cv2.imencode")
+                if suffix == ".jpg":
+                    jpgs.append(path)
+            if k == 1:
+                encoded = image.encode(".png")
+                ok, want = cv2.imencode(".png", np.ascontiguousarray(frame[..., ::-1]), [int(cv2.IMWRITE_PNG_COMPRESSION), 6])
+                if encoded != want.tobytes():
+                    raise AssertionError("M1: encode('.png') differs from cv2.imencode")
+        decode_ms, yuv_ms, transfer_bytes = [], [], {}
+        for path in [*jpgs, lossless / "img_00001.png", lossless / "img_00001.tif"]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            read = dt.imread(path)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            yuv = dt.imread(path, transfer="yuv420")
+            torch.cuda.synchronize()
+            yuv_s = time.perf_counter() - t0
+            if path.suffix == ".jpg":
+                decode_ms.append(1e3 * plain_s)
+                yuv_ms.append(1e3 * yuv_s)
+            host = cv2.cvtColor(cv2.imread(str(path), cv2.IMREAD_UNCHANGED), cv2.COLOR_BGR2RGB)
+            if not (read.img.device.type == "cuda" and np.array_equal(read.img.cpu().numpy(), host)):
+                raise AssertionError(f"M1: {path.name}: the read differs from cv2.imread")
+            if path.suffix != ".jpg" and not np.array_equal(host, frames[0]):
+                raise AssertionError(f"M1: {path.name} is not the written photograph")
+            planes = split_rgb_yuv420(host)
+            if not torch.equal(yuv.img, reconstruct_rgb_yuv420(*planes)):
+                raise AssertionError(f"M1: {path.name}: the yuv420 read differs from the reconstruction of cv2's planes")
+            transfer_bytes = {"rgb": host.nbytes, "yuv420": sum(p.nbytes for p in planes)}
+            err = (yuv.img.float() - read.img.float()).abs()
+            result.setdefault("yuv_err", []).append((path.name, float(err.mean()), float(torch.quantile(err.flatten()[::97], 0.99))))
+        # The transfer's bound (tests/test_torch_transfer.py) holds on
+        # photograph-like content; phase L's frames are iid noise, whose
+        # chroma 4:2:0 cannot carry, so there it is printed only.
+        smooth = m_photo_like(H, W, seed=7)
+        smooth_path = lossless / "smooth.jpg"
+        dt.OpticalImage(smooth, **META).write(smooth_path, quality=M_QUALITY)
+        full = dt.imread(smooth_path).img.float()
+        err = (dt.imread(smooth_path, transfer="yuv420").img.float() - full).abs()
+        smooth_err = (float(err.mean()), float(torch.quantile(err.flatten()[::13], 0.99)))
+        if not (smooth_err[0] < 1.0 and smooth_err[1] <= 4.0):
+            raise AssertionError(f"M1: yuv420 on smooth content mean {smooth_err[0]}, p99 {smooth_err[1]}")
+        scalar = dt.ScalarImage(torch.from_numpy(frames[0][..., 1].astype(np.float32) / 255.0).to(device), **META)
+        for suffix in (".png", ".jpg", ".tif"):
+            path = lossless / f"scalar{suffix}"
+            scalar.write(path)
+            want = (np.clip(scalar.img.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+            params = [int(cv2.IMWRITE_JPEG_QUALITY), 90] if suffix == ".jpg" else []
+            ok, buf = cv2.imencode(suffix, want, params)
+            if path.read_bytes() != buf.tobytes():
+                raise AssertionError(f"M1: ScalarImage.write({suffix}) differs from cv2.imencode")
+        result.update(decode_ms=float(np.median(decode_ms)), yuv_ms=float(np.median(yuv_ms)))
+        print(
+            f"M1. on {card}: phase L's 4 photographs written by OpticalImage.write from the card as JPEG "
+            f"(quality {M_QUALITY}; ms {[round(v, 1) for v in write_ms['.jpg']]}), the first also as PNG "
+            f"({write_ms['.png'][0]:.1f} ms) and TIFF ({write_ms['.tif'][0]:.1f} ms), bytes equal to cv2.imencode, "
+            f"encode('.png') too; imread onto the card bitwise cv2.imread + cvtColor: host decode + copy ms per "
+            f"JPEG {[round(v, 1) for v in decode_ms]} (median {result['decode_ms']:.1f}), yuv420 "
+            f"{[round(v, 1) for v in yuv_ms]} (median {result['yuv_ms']:.1f}); bytes to the card per photograph "
+            f"{transfer_bytes['rgb']} (RGB) and {transfer_bytes['yuv420']} (yuv420); the yuv420 read bitwise the "
+            f"reconstruction of cv2's planes, against the full read on a smooth 4K JPEG mean |diff| "
+            f"{smooth_err[0]:.3f}, p99 {smooth_err[1]:.1f} (bound 1.0, 4); on phase L's noise frames "
+            + ", ".join(f"{n} {m:.2f}/{q:.0f}" for n, m, q in result.pop("yuv_err")[:2])
+            + f" (not gated); ScalarImage.write png/jpg/tif of a card image equal to cv2.imencode; "
+            f"{time.perf_counter() - t_m1:.2f} s"
+        )
+
+        # M2. The analysis CLI's mass step over the 4 JPEG photographs and
+        # over npz files that hold exactly their decoded arrays.
+        t_m2 = time.perf_counter()
+        npz_dir = root / "m_npz"
+        npz_dir.mkdir()
+        for path in jpgs:
+            dt.imread(path, device="cpu").save(npz_dir / f"{path.stem}.npz")
+        (root / "m_baseline").mkdir()
+        dt.imread(root / "images" / "img_00000.npz", device="cpu").write(root / "m_baseline" / "img_00000.jpg")
+        configs = {}
+        for kind, folder in (("jpg", jpg_dir), ("npz", npz_dir)):
+            names = [f"{p.stem}.{kind}" for p in jpgs]
+            protocols = m_protocols(root, root / f"m_protocols_{kind}", names)
+            configs[kind] = root / f"m_{kind}.toml"
+            tables = m_mass_tables(root, folder, protocols, root / f"m_results_{kind}", f".{kind}")
+            configs[kind].write_text(toml_text(tables))
+        runs = {}
+        reads = []
+        read_image = dt.Rig.read_image
+
+        def recording(self, path):
+            out = read_image(self, path)
+            reads.append(Path(path).name)
+            return out
+
+        dt.Rig.read_image = recording
+        try:
+            for kind in ("jpg", "npz"):
+                argv = ["--config", str(configs[kind]), "--mass", "--all"]
+                _, seconds, n = counted(
+                    w2p, lambda: user_interface_analysis.main(argv, device=dev), M2_K1 // 2, f"M2: the CLI over {kind}"
+                )
+                launches += n
+                runs[kind] = seconds
+        finally:
+            dt.Rig.read_image = read_image
+        logging.getLogger().setLevel(logging.WARNING)
+        want_reads = [f"{p.stem}.{kind}" for kind in ("jpg", "npz") for p in jpgs]
+        if sorted(reads) != sorted(want_reads):
+            raise AssertionError(f"M2: reads {reads}")
+        csvs = {kind: root / f"m_results_{kind}" / "mass" / "mass_analysis_results.csv" for kind in runs}
+        rows = j_csv(csvs["jpg"])
+        if csvs["jpg"].read_bytes() != csvs["npz"].read_bytes() or [r["image_stem"] for r in rows] != [p.stem for p in jpgs]:
+            raise AssertionError("M2: the JPEG run's CSV differs from the npz run's")
+        for path in jpgs:
+            a, b = (np.load(root / f"m_results_{kind}" / "mass" / "mass" / "npy" / f"{path.stem}.npy") for kind in runs)
+            if not np.array_equal(a, b):
+                raise AssertionError(f"M2: {path.stem}: mass fields differ")
+        masses = [float(r["detected_mass_total"]) for r in rows]
+        read_ms = {kind: 1e3 * s / L_PHOTOS for kind, s in runs.items()}
+        result.update(cli_ms=read_ms)
+        print(
+            f"M2. on {card}: user_interface_analysis.main(--mass --all) over the 4 JPEG photographs "
+            f"{runs['jpg']:.2f} s ({read_ms['jpg']:.1f} ms per photograph with the context, of which the host "
+            f"decode ~{result['decode_ms']:.1f} ms) and over their decoded npz copies {runs['npz']:.2f} s "
+            f"({read_ms['npz']:.1f} ms); {len(reads)} reads, none skipped; CSVs byte for byte and mass fields "
+            f"bitwise equal; masses {[f'{m:.6g}' for m in masses]}; {M2_K1} K1 launches; "
+            f"{time.perf_counter() - t_m2:.2f} s"
+        )
+
+        # M3. The earth mover's distance (cv2.EMD on the host) of card images.
+        t_m3 = time.perf_counter()
+        meta = {"width": 1, "height": 1, "space_dim": 2, "scalar": True}
+
+        def m3():
+            src = np.zeros((10, 10))
+            src[2:5, 2:5] = 1
+            dst = np.zeros((10, 10))
+            dst[1:3, 1:2] = 1
+            dst[4:7, 7:9] = 1
+            squares = [a / (a.sum() / 100) for a in (src, dst)]
+            rng = np.random.default_rng(16)
+            seeded = []
+            for _ in range(2):
+                a = np.zeros((64, 64))
+                a.flat[rng.choice(64 * 64, 160, replace=False)] = rng.uniform(0.5, 1.5, 160)
+                seeded.append(a / (a.sum() / 64**2))
+            images = {key: [dt.Image(a, **meta) for a in arrays] for key, arrays in (("squares", squares), ("seeded", seeded))}
+            got = {key: dt.wasserstein_distance(*imgs, method="cv2.emd") for key, imgs in images.items()}
+            maps = images["squares"] + [dt.Image(np.roll(a, 3, axis=1), **meta) for a in squares]
+            matrix = dt.EMD().distance_matrix(maps)
+            options = {
+                "l1_mode": dt.L1Mode.CONSTANT_CELL_PROJECTION,
+                "mobility_mode": dt.MobilityMode.FACE_BASED,
+                "num_iter": 400,
+                "tol_residual": 1e-3,
+                "tol_increment": 1e-3,
+                "tol_distance": 1e-3,
+                "L": 1e9,
+            }
+            newton = dt.wasserstein_distance(*images["squares"], method="newton", options=options)
+            return images, got, matrix, newton
+
+        (images, got, matrix, newton), _, n = counted(w2p, m3, 0, "M3: EMD")
+        if images["squares"][0].img.device.type != "cuda":
+            raise AssertionError("M3: the images are not on the card")
+        for key, pinned in (("squares", M_EMD_TWO_SQUARES), ("seeded", M_EMD_SEEDED_64)):
+            if not abs(got[key] - pinned) <= M_EMD_RTOL * pinned:
+                raise AssertionError(f"M3: {key} EMD {got[key]!r}, the JAX package's {pinned!r}")
+        if not (np.array_equal(matrix, matrix.T) and np.all(np.diag(matrix) == 0) and (matrix[~np.eye(4, dtype=bool)] > 0).all()):
+            raise AssertionError(f"M3: distance matrix {matrix}")
+        newton = float(newton)
+        print(
+            f"M3. on {card}: wasserstein_distance(method='cv2.emd') of card images: two squares "
+            f"{got['squares']!r}, seeded 64x64 pair {got['seeded']!r}, each within {M_EMD_RTOL} relative of the "
+            f"JAX package's; EMD().distance_matrix of 4 maps symmetric, zero diagonal; |EMD - Newton| / Newton "
+            f"on the two squares {abs(got['squares'] - newton) / newton:.3e} (Newton {newton:.6f}, not gated); "
+            f"0 K1 launches; {time.perf_counter() - t_m3:.2f} s"
+        )
+
+        # M4. The crop assistant through SimpleFluidFlower.setup_curvature_correction
+        # on a marked JPEG ROI photograph; the label assistant.
+        t_m4 = time.perf_counter()
+        rig = handoff["rig"]
+        roi_path = root / "m_roi.jpg"
+        dt.OpticalImage(m_roi_photo(), **META).write(roi_path, quality=M_QUALITY)
+
+        def m4_setup():
+            return rig.setup_curvature_correction(roi_path, roi_mode="automatic", roi_color=M_MARK_COLOUR)
+
+        curvature, setup_s, n = counted(w2p, m4_setup, 0, "M4: setup_curvature_correction")
+        pts = np.asarray(rig.curvature_config["crop"]["pts_src"])
+        cpu_roi = dt.resize(dt.imread(roi_path, device="cpu"), ref_image=rig.raw_baseline)
+        cpu_pts = np.asarray(
+            dt.CropAssistant(cpu_roi, width=rig.width, height=rig.height).from_image(color=M_MARK_COLOUR)["crop"]["pts_src"]
+        )
+        if not (np.abs(pts - np.asarray(M_CORNERS)).max() <= 1 and np.array_equal(pts, cpu_pts)):
+            raise AssertionError(f"M4: corners {pts.tolist()} (CPU {cpu_pts.tolist()}), painted {M_CORNERS}")
+        chain = [dt.TypeCorrection(np.float32), curvature]
+
+        def m4_reads():
+            first = dt.imread(jpgs[0], transformations=chain, device=dev)
+            return first, dt.imread(jpgs[1], transformations=chain, device=dev)
+
+        (first, second), reads_s, n = counted(w2p, m4_reads, M4_K1, "M4: reads through the new correction")
+        launches += n
+        with plain_k1(w2p):
+            plain = dt.imread(jpgs[1], transformations=chain, device=dev)
+        if not torch.equal(plain.img, second.img):
+            raise AssertionError("M4: the read with plain K1 differs")
+        shape = tuple(second.img.shape)
+        labels = handoff["labels"]
+        host_labels = dt.Image(labels.img.cpu(), **labels.metadata())
+        ids = sorted(int(v) for v in torch.unique(labels.img).tolist())[:3]
+        outs = {}
+        for where, lab in (("card", labels), ("cpu", host_labels)):
+            assistant = dt.LabelsAssistant(lab)
+            picked = assistant.pick(ids=ids[:2])
+            merged = assistant.merge(ids=ids)
+            mask = dt.LabelsMaskSelectionAssistant(merged)(points=[[H // 2, W // 2]])
+            outs[where] = [picked.img, merged.img, mask]
+        if outs["card"][0].device.type != "cuda" or not all(
+            torch.equal(a.cpu(), b) for a, b in zip(outs["card"], outs["cpu"])
+        ):
+            raise AssertionError("M4: the label assistant on the card differs from the CPU")
+        n_labels = len(torch.unique(labels.img))
+        print(
+            f"M4. on {card}: SimpleFluidFlower.setup_curvature_correction(marked JPEG, 'automatic', white) "
+            f"{setup_s:.2f} s: corners {pts.tolist()} within 1 px of the painted {M_CORNERS}, equal to the "
+            f"CropAssistant's on a CPU copy; two reads through the new correction {reads_s:.2f} s ({M4_K1} K1 "
+            f"launches, {shape}), the read with plain K1 bitwise equal; LabelsAssistant pick and merge of ids "
+            f"{ids} on phase I's {n_labels} labels on the card equal to a CPU copy's; "
+            f"{time.perf_counter() - t_m4:.2f} s"
+        )
+
+        # M5. A GUI session starts "analysis: mass" on the JPEG config in a
+        # spawned worker on the card, and polls it to its end.
+        t_m5 = time.perf_counter()
+        gui_config = root / "m_gui.toml"
+        gui_config.write_text(
+            toml_text(m_mass_tables(root, jpg_dir, root / "m_protocols_jpg", root / "m_results_gui", ".jpg"))
+        )
+        session = gui.GuiSession(cache_path=root / "m_gui_session.json", device="cuda")
+        session.set_config(gui_config)
+        registered = gui.STEP_REGISTRY["analysis: mass"]
+        gui.STEP_REGISTRY["analysis: mass"] = ("chip_smoke", "analysis_mass_from_context", "context")
+        try:
+            started = time.time()
+            handle = session.start_step("analysis: mass", all_images=True)
+        finally:
+            gui.STEP_REGISTRY["analysis: mass"] = registered
+        logs, events, previews = [], [], []
+        deadline = time.perf_counter() + M_WORKER_S
+        while time.perf_counter() < deadline:
+            handle.poll(on_log=logs.append, on_progress=events.append, on_preview=previews.append)
+            if handle.finished and not handle.alive():
+                break
+            time.sleep(0.05)
+        handle.poll(on_log=logs.append, on_progress=events.append, on_preview=previews.append)
+        worker_s = time.time() - started
+        if not handle.finished or handle.failed:
+            handle.stop()
+            raise AssertionError(f"M5: the worker failed or did not finish: {logs[-3:]}")
+        smoke = [e for e in events if e.get("event") == "smoke_worker"]
+        progress = [e for e in events if e.get("event") == "image_progress"]
+        if [e["image_index"] for e in progress] != list(range(1, L_PHOTOS + 1)):
+            raise AssertionError(f"M5: progress events {[e.get('image_index') for e in progress]}")
+        decoded = 0
+        for payload in previews:
+            for key, data in payload.items():
+                if not isinstance(data, bytes) or cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is None:
+                    raise AssertionError(f"M5: preview {key} does not decode")
+                decoded += 1
+        report = smoke[-1]
+        worker_k1 = report["launches"]
+        check_counts(worker_k1, {"warp_rows_t": M5_K1}, "M5: the GUI worker")
+        launches += worker_k1["warp_rows_t"]
+        gui_csv = root / "m_results_gui" / "mass" / "mass_analysis_results.csv"
+        if gui_csv.read_bytes() != csvs["jpg"].read_bytes() or not report["device"].startswith("cuda"):
+            raise AssertionError(f"M5: the worker's CSV differs from M2's JPEG run (device {report['device']})")
+        start_s = smoke[0]["entered_unix"] - started
+        worker_ms = [1e3 * e["image_duration_s"] for e in progress]
+        t_ctx = time.perf_counter()
+        analysis_context.prepare_analysis_context(
+            cls=dt.Rig, path=gui_config, all=True, require_color_to_mass=True, device=dev
+        )
+        context_s = time.perf_counter() - t_ctx
+        stopped = session.start_step("analysis: mass", all_images=True)
+        time.sleep(2.0)
+        t0 = time.perf_counter()
+        stopped.stop()
+        stop_s = time.perf_counter() - t0
+        if stopped.alive() or stop_s > M_STOP_S:
+            raise AssertionError(f"M5: stop() took {stop_s:.2f} s, alive {stopped.alive()}")
+        session.stop_all()
+        result.update(worker_start_s=start_s, worker_ms=float(np.mean(worker_ms)), worker_s=worker_s)
+        print(
+            f"M5. on {card}: GuiSession.start_step('analysis: mass') on the card in a spawned worker: "
+            f"finished in {worker_s:.2f} s; its step entered {start_s:.2f} s after the start (spawn, imports, "
+            f"CUDA initialisation and the context; the same context in this process {context_s:.2f} s); ms per "
+            f"photograph in the worker {[round(v, 1) for v in worker_ms]}; {len(progress)} progress events, "
+            f"{decoded} PNG previews decoded, no error; the CSV byte for byte M2's JPEG run's; K1 launches "
+            f"counted in the worker and reported over its progress queue: {worker_k1['warp_rows_t']}; a second "
+            f"worker stopped after 2 s ended in {stop_s:.2f} s; {time.perf_counter() - t_m5:.2f} s"
+        )
+
+        # M6. The media utility over the JPEG photographs; the active
+        # region rendered on the card.
+        m_media(dt, root, jpg_dir, frames[-1], card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if launches != K1_IN_M:
+        raise AssertionError(f"M: {launches} K1 launches, want {K1_IN_M}")
+    result["phase_s"] = time.perf_counter() - tic
+    print(f"M. phase {result['phase_s']:.2f} s, {launches} K1 launches ({M5_K1} of them in the GUI worker)")
     return {"launches": launches, **result}
 
 
@@ -6113,7 +6691,10 @@ def main() -> int:
         dt, w2p, lanes, rig_config.pop("handoff"), device, card, args.profile, keep=True
     )
     calibration_run = phase_calibration(dt, w2p, analysis_run.pop("handoff"), device, card, keep=True)
-    fingers_run = phase_fingers(dt, w2p, lanes, calibration_run.pop("handoff"), device, card, args.profile)
+    fingers_run = phase_fingers(
+        dt, w2p, lanes, calibration_run.pop("handoff"), device, card, args.profile, keep=True
+    )
+    photographs = phase_photographs(dt, w2p, lanes, fingers_run.pop("handoff"), device, card)
     phase_volume(dt, device, card)
     phase_kernel_fields(w2p, lanes, device)
 
@@ -6127,14 +6708,17 @@ def main() -> int:
         + sum(p["launches"] for p in (piecewise, colour, saved, restoration))
     )
     later = tuple(
-        p["launches"] for p in (colour_to_mass, fluidflower, rig_config, analysis_run, calibration_run, fingers_run)
+        p["launches"]
+        for p in (colour_to_mass, fluidflower, rig_config, analysis_run, calibration_run, fingers_run, photographs)
     )
-    if (earlier, *later) != (K1_BEFORE_E, K1_IN_E, K1_IN_H, K1_IN_I, K1_IN_J, K1_IN_K, K1_IN_L):
+    want = (K1_BEFORE_E, K1_IN_E, K1_IN_H, K1_IN_I, K1_IN_J, K1_IN_K, K1_IN_L, K1_IN_M)
+    if (earlier, *later) != want:
         raise AssertionError(
             f"K1 launches: {earlier} before phase E (want {K1_BEFORE_E}), "
             f"{later[0]} in it (want {K1_IN_E}), {later[1]} in phase H (want {K1_IN_H}), "
             f"{later[2]} in phase I (want {K1_IN_I}), {later[3]} in phase J (want {K1_IN_J}), "
-            f"{later[4]} in phase K (want {K1_IN_K}), {later[5]} in phase L (want {K1_IN_L})"
+            f"{later[4]} in phase K (want {K1_IN_K}), {later[5]} in phase L (want {K1_IN_L}), "
+            f"{later[6]} in phase M (want {K1_IN_M})"
         )
     k1_launches = earlier + sum(later)
     results = {

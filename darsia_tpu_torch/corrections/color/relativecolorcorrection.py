@@ -9,8 +9,9 @@ once over the baseline's grid, on the baseline's device, and kept there as
 float32 (9 values per pixel); the correction is a per-pixel matrix-vector
 product on the image's device.
 
-Samples are given explicitly (lists of slice tuples); without them the JAX
-package opens an interactive assistant, which is not ported.
+Samples are given explicitly (lists of slice tuples) or, without them,
+picked by hand with :class:`~darsia_tpu_torch.assistants.BoxSelectionAssistant`
+(matplotlib and a display; headless it raises).
 """
 
 from __future__ import annotations
@@ -29,13 +30,14 @@ from ..base import BaseCorrection
 __all__ = ["RelativeColorCorrection"]
 
 
-def _need_samples(samples, what: str):
-    if samples is None:
-        raise NotImplementedError(
-            f"{what}: choosing samples interactively needs the assistants "
-            "(BoxSelectionAssistant), which are not ported; pass the samples"
-        )
-    return samples
+def _samples(samples, img, config: dict) -> list:
+    """``samples``, or boxes of ``config["sample_size"]`` (50) picked by hand
+    on ``img``."""
+    if samples is not None:
+        return samples
+    from ...assistants import BoxSelectionAssistant
+
+    return BoxSelectionAssistant(img, width=config.get("sample_size", 50))()
 
 
 class RelativeColorCorrection(BaseCorrection):
@@ -91,9 +93,9 @@ class RelativeColorCorrection(BaseCorrection):
     def define_similar_colors(self, samples_per_image=None) -> None:
         """Collect groups of similar colors across the calibration images:
         ``samples_per_image[k]`` lists the sample boxes of image ``k``."""
-        _need_samples(samples_per_image, "define_similar_colors")
         cs = self.calibration_images[0].coordinatesystem
-        for img, samples in zip(self.calibration_images, samples_per_image):
+        for k, img in enumerate(self.calibration_images):
+            samples = _samples(None if samples_per_image is None else samples_per_image[k], img, self.config)
             centers, colors = self._sample_centers_and_colors(img, samples)
             coords = np.asarray(cs.coordinate(centers), dtype=float)
             self.data.append((coords, np.asarray(colors, float)))
@@ -101,7 +103,7 @@ class RelativeColorCorrection(BaseCorrection):
     def define_reference_color(self, samples=None) -> None:
         """The reference color: the first sample of the first calibration
         image."""
-        _need_samples(samples, "define_reference_color")
+        samples = _samples(samples, self.calibration_images[0], self.config)
         if len(samples) == 0:
             raise ValueError("No samples selected.")
         _, colors = self._sample_centers_and_colors(self.calibration_images[0], samples[:1])
@@ -113,10 +115,9 @@ class RelativeColorCorrection(BaseCorrection):
         """Two-stage tensorial sampling: a grid of distinct colors on one
         checker and the same grid repeated across the image; the stage-1
         colors serve as references."""
-        what = "define_similar_and_reference_colors_tensorial"
-        _need_samples(reference_samples, what)
-        _need_samples(location_samples, what)
         img = self.calibration_images[0]
+        reference_samples = _samples(reference_samples, img, self.config)
+        location_samples = _samples(location_samples, img, self.config)
         ref_centers, ref_colors = self._sample_centers_and_colors(img, reference_samples)
         loc_centers, _ = self._sample_centers_and_colors(img, location_samples)
         # Tensorial fill-in: each reference color is observed at every

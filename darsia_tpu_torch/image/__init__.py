@@ -8,7 +8,7 @@ from .coordinatesystem import (
     voxels_to_coordinates,
 )
 from .image import ExtensiveImage, Image, OpticalImage, ScalarImage
-from .imread import imread, imread_from_npz, imread_from_numpy
+from .imread import imread, imread_from_bytes, imread_from_npz, imread_from_numpy, imread_from_optical
 from .indexing import (
     cartesianToMatrixIndexing,
     interpret_indexing,
@@ -37,8 +37,10 @@ __all__ = [
     "coordinates_to_voxels",
     "extract_quadrilateral_ROI",
     "imread",
+    "imread_from_bytes",
     "imread_from_npz",
     "imread_from_numpy",
+    "imread_from_optical",
     "interpret_indexing",
     "matrixToCartesianIndexing",
     "ones_like",

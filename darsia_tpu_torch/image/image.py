@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..utils.dtype import convert_dtype
+from ..utils.optional import optional_module
 from ..utils.point import Coordinate, CoordinateArray, Voxel, VoxelArray
 from .coordinatesystem import CoordinateSystem
 from .indexing import interpret_indexing
@@ -546,6 +547,19 @@ class Image:
         return self._with(-self.img)
 
 
+_RASTER = (".png", ".jpg", ".jpeg", ".tif", ".tiff")
+
+
+def _encode_params(cv2, suffix: str, kwargs: dict, png: bool) -> list:
+    """OpenCV's encoder parameters as the JAX package sets them: the JPEG
+    quality (default 90), and with ``png`` the PNG compression (default 6)."""
+    if suffix in (".jpg", ".jpeg"):
+        return [int(cv2.IMWRITE_JPEG_QUALITY), kwargs.get("quality", 90)]
+    if png and suffix == ".png":
+        return [int(cv2.IMWRITE_PNG_COMPRESSION), kwargs.get("compression", 6)]
+    return []
+
+
 class ScalarImage(Image):
     """Scalar-valued image (no range axes)."""
 
@@ -554,14 +568,20 @@ class ScalarImage(Image):
         super().__init__(img, transformations, device, **kwargs)
 
     def write(self, path: Union[str, Path], **kwargs) -> None:
-        """Write the data to ``.npy`` or ``.csv`` (rows of axis 0)."""
+        """Write the data to an image file (png/jpg/tif through OpenCV: float
+        data clipped to [0, 1] and scaled to uint8, JPEG ``quality`` 90 by
+        default), ``.npy`` or ``.csv`` (rows of axis 0).  The data is copied
+        to the host once."""
         path = Path(path)
         suffix = path.suffix.lower()
-        if suffix in (".png", ".jpg", ".jpeg", ".tif", ".tiff"):
-            raise _absent(f"writing {suffix} files", "an image encoder (cv2)")
         data = self.as_numpy()
         path.parent.mkdir(parents=True, exist_ok=True)
-        if suffix == ".npy":
+        if suffix in _RASTER:
+            cv2 = optional_module("cv2", f"writing {suffix} files")
+            if np.issubdtype(data.dtype, np.floating):
+                data = (np.clip(data, 0, 1) * 255).astype(np.uint8)
+            cv2.imwrite(str(path), data, _encode_params(cv2, suffix, kwargs, png=False))
+        elif suffix == ".npy":
             np.save(path, data)
         elif suffix == ".csv":
             np.savetxt(path, data.reshape(data.shape[0], -1), delimiter=",")
@@ -687,8 +707,37 @@ class OpticalImage(Image):
                 data[max(row - half, 0) : row + half + 1, :, :3] = color[:3]
         return OpticalImage(img=data, device=self.device, **self.metadata())
 
-    def write(self, path, **kwargs) -> None:
-        raise _absent("writing photographs", "an image encoder (cv2)")
+    def _host_bgr(self) -> np.ndarray:
+        """The data copied to the host once, as uint8 BGR (float data
+        clipped to [0, 1] and scaled)."""
+        data = self.as_numpy()
+        if np.issubdtype(data.dtype, np.floating):
+            data = (np.clip(data, 0, 1) * 255).astype(np.uint8)
+        return np.ascontiguousarray(data[..., ::-1])
+
+    def write(self, path: Union[str, Path], **kwargs) -> None:
+        """Write the photograph to png/jpg/tif through OpenCV (JPEG
+        ``quality`` 90 by default)."""
+        cv2 = optional_module("cv2", "writing photographs")
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        params = _encode_params(cv2, path.suffix.lower(), kwargs, png=False)
+        cv2.imwrite(str(path), self._host_bgr(), params)
 
     def encode(self, suffix: str, **kwargs) -> bytes:
-        raise _absent("encoding photographs", "an image encoder (cv2)")
+        """The photograph encoded to bytes without touching the disk (JPEG
+        ``quality`` 90, PNG ``compression`` 6 by default): the payload of a
+        streamed preview.
+
+        Raises:
+            ValueError: OpenCV could not encode to ``suffix``.
+
+        """
+        cv2 = optional_module("cv2", "encoding photographs")
+        suffix = suffix.lower()
+        if not suffix.startswith("."):
+            suffix = "." + suffix
+        ok, buf = cv2.imencode(suffix, self._host_bgr(), _encode_params(cv2, suffix, kwargs, png=True))
+        if not ok:
+            raise ValueError(f"Encoding to {suffix} failed.")
+        return bytes(buf.tobytes())

@@ -1,11 +1,14 @@
-"""Reading images from files: numpy arrays and saved images.
+"""Reading images from files: photographs, numpy arrays and saved images.
 
-Counterpart of :mod:`darsia_tpu.image.imread` for ``.npy`` and ``.npz``
-files, folders and lists of them.  The array is decoded on the host and goes
-to ``device`` (the CUDA card unless the caller asks for another), where the
-transformation chain runs.  The other formats of the JAX package need
-decoders that are not part of this package's environment (OpenCV, pydicom,
-meshio) and raise ``NotImplementedError`` naming the decoder.
+Counterpart of :mod:`darsia_tpu.image.imread` for ``.jpg``/``.jpeg``/
+``.png``/``.tif``/``.tiff`` photographs (decoded by OpenCV, imported when
+called), ``.npy`` and ``.npz`` files, folders and lists of them, and encoded
+bytes.  The array is decoded on the host and goes to ``device`` (the CUDA
+card unless the caller asks for another), where the transformation chain
+runs; ``transfer="yuv420"`` ships a photograph at 1.5 bytes per pixel
+(:mod:`darsia_tpu_torch.utils.transfer`).  DICOM and VTU need pydicom and
+meshio, which the port does not use: they raise ``NotImplementedError``
+naming the decoder.
 
 An npz written by the JAX package's ``Image.save`` pickles its metadata, with
 the origin as a point type of that package; it is read through
@@ -24,11 +27,18 @@ from typing import Optional
 import numpy as np
 
 from ..utils.npz import load_npz
-from .image import ExtensiveImage, Image, OpticalImage, ScalarImage
+from ..utils.optional import optional_module
+from .image import ExtensiveImage, Image, OpticalImage, ScalarImage, as_tensor
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["imread", "imread_from_numpy", "imread_from_npz"]
+__all__ = [
+    "imread",
+    "imread_from_bytes",
+    "imread_from_numpy",
+    "imread_from_npz",
+    "imread_from_optical",
+]
 
 _CLASSES = {
     "Image": Image,
@@ -37,12 +47,10 @@ _CLASSES = {
     "OpticalImage": OpticalImage,
 }
 
-#: Suffixes the JAX package reads, and the decoder each needs.
-_MISSING_DECODERS = {
-    **dict.fromkeys((".jpg", ".jpeg", ".png", ".tif", ".tiff"), "cv2 (OpenCV)"),
-    ".dcm": "pydicom",
-    ".vtu": "meshio",
-}
+_OPTICAL = (".jpg", ".jpeg", ".png", ".tif", ".tiff")
+
+#: Suffixes the JAX package reads with decoders the port does not use.
+_MISSING_DECODERS = {".dcm": "pydicom", ".vtu": "meshio"}
 
 
 def imread(path, **kwargs) -> Image:
@@ -85,6 +93,8 @@ def imread(path, **kwargs) -> Image:
         image = imread_from_numpy(path, **kwargs)
     elif suffix == ".npz":
         image = imread_from_npz(path, **kwargs)
+    elif suffix in _OPTICAL:
+        image = imread_from_optical(path, **kwargs)
     elif suffix in _MISSING_DECODERS:
         raise NotImplementedError(
             f"reading {suffix} files needs {_MISSING_DECODERS[suffix]}, which is not "
@@ -95,6 +105,23 @@ def imread(path, **kwargs) -> Image:
 
     logger.info("Image reading for %s took %.2f s.", path, _time.time() - tic)
     return image
+
+
+def imread_from_bytes(data: bytes, transformations=None, **kwargs) -> Image:
+    """Decode an in-memory encoded image (png/jpg bytes): an OpticalImage of
+    a colour image, a ScalarImage of a one-channel one."""
+    cv2 = optional_module("cv2", "decoding image bytes")
+    array = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
+    if array is None:
+        raise ValueError("Could not decode image bytes.")
+    if array.ndim == 3 and array.shape[-1] == 3:
+        array = cv2.cvtColor(array, cv2.COLOR_BGR2RGB)
+        return OpticalImage(img=array, transformations=transformations, **kwargs)
+    if array.ndim == 2:
+        return ScalarImage(img=array, transformations=transformations, **kwargs)
+    if array.ndim == 3 and array.shape[-1] == 1:
+        return ScalarImage(img=array[..., 0], transformations=transformations, **kwargs)
+    raise NotImplementedError
 
 
 def imread_from_numpy(path, **kwargs) -> Image:
@@ -147,3 +174,71 @@ def _exif_date(path: Path) -> Optional[datetime]:
     except Exception:  # noqa: BLE001 - EXIF is best-effort
         return None
     return None
+
+
+def _read_single_optical(path: Path) -> np.ndarray:
+    """One photograph decoded on the host: RGB for a colour file, the file's
+    own channels and depth otherwise."""
+    cv2 = optional_module("cv2", "reading photographs")
+    array = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+    if array is None:
+        raise ValueError(f"Could not read image {path}.")
+    if array.ndim == 3 and array.shape[-1] == 3:
+        array = cv2.cvtColor(array, cv2.COLOR_BGR2RGB)
+    return array
+
+
+def imread_from_optical(
+    path,
+    time=None,
+    transformations=None,
+    transfer: Optional[str] = None,
+    **kwargs,
+) -> OpticalImage:
+    """Read jpg/png/tif photograph(s) into an OpticalImage on ``device``.
+
+    A list of paths gives a series on the time axis (after the two space
+    axes).  ``transfer="yuv420"`` ships each decoded uint8 RGB frame to the
+    device as a full-resolution luma plane and two 2x2-subsampled chroma
+    planes (1.5 bytes per pixel instead of 3) and rebuilds RGB there
+    (:func:`darsia_tpu_torch.utils.transfer.put_rgb_yuv420`).  The dates
+    come from ``date`` or from each file's EXIF (None without PIL).
+    """
+    import torch
+
+    kwargs.pop("suffix", None)
+    device = kwargs.pop("device", None)
+
+    def promote(arr: np.ndarray):
+        if transfer == "yuv420" and arr.ndim == 3 and arr.shape[-1] == 3 and arr.dtype == np.uint8:
+            from ..utils.transfer import put_rgb_yuv420
+
+            return put_rgb_yuv420(arr, device=device)
+        return arr
+
+    if isinstance(path, list):
+        arrays = [promote(_read_single_optical(p)) for p in path]
+        dates = kwargs.pop("date", None)
+        if dates is None:
+            dates = [_exif_date(p) for p in path]
+        if any(isinstance(a, torch.Tensor) for a in arrays):
+            array = torch.stack([as_tensor(a, device) for a in arrays], dim=2)
+        else:
+            array = np.stack(arrays, axis=2)
+        return OpticalImage(
+            img=array,
+            series=True,
+            date=dates,
+            time=time,
+            transformations=transformations,
+            device=device,
+            **kwargs,
+        )
+
+    array = promote(_read_single_optical(path))
+    date = kwargs.pop("date", None)
+    if date is None:
+        date = _exif_date(path)
+    return OpticalImage(
+        img=array, date=date, time=time, transformations=transformations, device=device, **kwargs
+    )

@@ -20,6 +20,7 @@ from .beckmann_linalg import (
     BeckmannLinearSolverFactory,
     BeckmannLinearSolverType,
 )
+from .emd import EMD
 from .integration import (
     ExtrudedGeometry,
     ExtrudedPorousGeometry,
@@ -48,6 +49,7 @@ __all__ = [
     "BeckmannLinearSolverType",
     "BeckmannNewtonSolver",
     "BeckmannProblem",
+    "EMD",
     "ExtrudedGeometry",
     "ExtrudedPorousGeometry",
     "Geometry",

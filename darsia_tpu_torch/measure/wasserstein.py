@@ -2,7 +2,9 @@
 
 Counterpart of :mod:`darsia_tpu.measure.wasserstein` (reference
 ``src/darsia/measure/wasserstein.py``).  The finite-volume solvers run on
-the images' device: the CUDA card for images built from numpy.
+the images' device: the CUDA card for images built from numpy;
+``method="cv2.emd"`` solves the exact transport problem on the host
+(:class:`darsia_tpu_torch.measure.emd.EMD`).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from .beckmann import (
     BeckmannGproxPGHDSolver,
     BeckmannNewtonSolver,
 )
+from .emd import EMD
 
 __all__ = [
     "wasserstein_distance",
@@ -41,17 +44,19 @@ def wasserstein_distance(
     Args:
         mass_src / mass_dst: source/destination distributions (scalar Images).
         method: "newton" | "bregman" | "gprox" (the finite-volume Beckmann
-            solvers).  "sharded_newton" and "cv2.emd" are the JAX package's
-            other methods; they raise here (see below).
+            solvers) or "cv2.emd" (OpenCV's exact solve on the host, no
+            weight).  "sharded_newton" is the JAX package's other method; it
+            raises here (see below).
         weight: optional cell weight image (anisotropic metric); a numpy
             weight goes to the images' device.
-        kwargs: ``options`` dict for the solvers.
+        kwargs: ``options`` dict for the solvers; ``preprocess`` for
+            "cv2.emd".
 
     Raises:
         NotImplementedError: "sharded_newton" (the domain-decomposed solve
-            over several devices is not ported: ROADMAP.md, Queue 1, item 8)
-            and "cv2.emd" (it needs OpenCV, which is not a dependency of this
-            package), or an unknown method.
+            over several devices is not ported: ROADMAP.md, Queue 1, item 8),
+            or an unknown method.
+        ImportError: "cv2.emd" where OpenCV does not import.
     """
     method_name = method.lower()
     if method_name == "sharded_newton":
@@ -61,10 +66,8 @@ def wasserstein_distance(
             "multi-GPU port (ROADMAP.md, Queue 1, item 8); use method='newton'"
         )
     if method_name == "cv2.emd":
-        raise NotImplementedError(
-            "cv2.emd needs OpenCV (cv2), which is not a dependency of this "
-            "package; use method='newton'"
-        )
+        assert weight is None, "Weighted EMD not supported by cv2."
+        return EMD(kwargs.get("preprocess"))(mass_src, mass_dst)
     if method_name not in _SOLVERS:
         raise NotImplementedError(f"Method {method_name} not implemented.")
     grid = generate_grid(mass_dst)

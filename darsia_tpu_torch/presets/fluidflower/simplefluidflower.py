@@ -13,8 +13,8 @@ float64: the JAX package runs without 64-bit floats, so its
 ``TypeCorrection(np.float64)`` hands its drift and curvature warps float32
 data, and the port's chain (K1 takes float32 only) is given the same.  A
 failed colour-correction set-up is swallowed with a warning, as in the JAX
-package.  ``setup_curvature_correction`` needs ``assistants/crop_assistant.py``
-(ROADMAP.md Queue 1 item 7d) and raises ``NotImplementedError``.
+package.  ``setup_curvature_correction`` reads a marked ROI photograph
+onto the device and finds its corners with the crop assistant.
 """
 
 from __future__ import annotations
@@ -246,15 +246,28 @@ class SimpleFluidFlower:
         roi_mode: Literal["interactive", "automatic"] = "automatic",
         roi_color: Optional[list] = None,
     ) -> CurvatureCorrection:
-        """Curvature correction from a marked ROI image: needs the crop
-        assistant (``assistants/crop_assistant.py``), which is not ported
-        (ROADMAP.md Queue 1 item 7d).  Pass ``curvature_options={"config":
-        ...}`` or ``{"cache": ...}`` to :meth:`setup` instead."""
-        raise NotImplementedError(
-            "SimpleFluidFlower.setup_curvature_correction needs assistants/crop_assistant.py, "
-            "which is not ported (ROADMAP.md Queue 1 item 7d); set up with "
-            "curvature_options={'config': ...} or {'cache': ...}"
-        )
+        """Curvature correction from a marked ROI photograph: the photograph
+        is read onto the rig's device and resized to the baseline, and a
+        :class:`~darsia_tpu_torch.assistants.CropAssistant` finds the frame's
+        corners, by hand or from marks of ``roi_color`` ("automatic", on the
+        device); the crop config builds the correction."""
+        from ...assistants.crop_assistant import CropAssistant
+
+        if roi_mode == "automatic" and roi_color is None:
+            raise ValueError(
+                "roi_mode='automatic' requires roi_color (the RGB color "
+                "of the corner marks in the ROI image)."
+            )
+        roi_image = resize(imread(roi, device=self.device), ref_image=self.raw_baseline)
+        crop_assistant = CropAssistant(roi_image, width=self.width, height=self.height)
+        if roi_mode == "interactive":
+            self.curvature_config = crop_assistant()
+        elif roi_mode == "automatic":
+            self.curvature_config = crop_assistant.from_image(color=roi_color)
+        else:
+            raise ValueError(f"Unknown roi_mode: {roi_mode}")
+        self.curvature_correction = CurvatureCorrection(config=self.curvature_config)
+        return self.curvature_correction
 
     def set_corrections(self) -> None:
         """Rebuild correction objects from their stored configs."""

@@ -2,8 +2,7 @@
 
 Counterpart of :mod:`darsia_tpu.presets.workflows.analysis.analysis_cropping`.
 ``npz`` goes through ``Image.save``; ``jpg`` needs matplotlib and raises
-``NotImplementedError`` naming it where it is not installed (the card's
-machine).  Without ``[analysis.cropping]`` the format is jpg, as in the JAX
+``ImportError`` naming it where it does not import (the card's machine).  Without ``[analysis.cropping]`` the format is jpg, as in the JAX
 package.
 """
 
@@ -18,8 +17,8 @@ from typing import Callable, Optional
 import numpy as np
 
 from ....image.image import as_numpy
+from ....utils.optional import optional_module
 from .analysis_context import AnalysisContext, iter_prefetched_images, prepare_analysis_context
-from .image_export_formats import _optional
 from .progress import publish_image_progress, publish_step_complete, publish_step_start
 from .streaming import publish_stream_images
 
@@ -49,7 +48,7 @@ def analysis_cropping_from_context(
         if img is None:
             continue
         if "jpg" in formats:
-            matplotlib = _optional("matplotlib", "writing jpg files", "matplotlib")
+            matplotlib = optional_module("matplotlib", "writing jpg files")
             matplotlib.use("Agg")
             plt = importlib.import_module("matplotlib.pyplot")
             plt.imsave(out / f"{path.stem}.jpg", np.clip(as_numpy(img.img), 0, 1))

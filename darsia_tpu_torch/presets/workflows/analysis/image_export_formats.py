@@ -5,8 +5,9 @@ A field is resampled on its device (``ops/resize.py``), copied to the host
 once, and written as the JAX package writes it: ``npz`` through
 ``Image.save`` (compressed), ``npy`` with ``np.save``, ``csv`` with
 ``np.savetxt``.  ``jpg`` and ``png`` need OpenCV (RGB with a quality or
-compression) or matplotlib (colour-mapped maps); where the library is not
-installed (the card's machine) they raise ``NotImplementedError`` naming it.
+compression) or matplotlib (colour-mapped maps), imported when called; where
+the library does not import (matplotlib on the card's machine) they raise
+``ImportError`` naming it.
 Without ``[analysis] formats`` the default is npz and jpg, as in the JAX
 package, so a run on the card sets ``formats``.
 """
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from ....image.image import as_numpy
+from ....utils.optional import optional_module
 from ..config.format_registry import FormatRegistry, ImageExportFormat
 
 __all__ = ["ImageExportFormats"]
@@ -33,14 +35,6 @@ def _seconds_from_image(image) -> int:
     if time is None:
         return 0
     return int(round(float(time)))
-
-
-def _optional(module: str, what: str, library: str):
-    """Import an optional library, or raise naming it."""
-    try:
-        return importlib.import_module(module)
-    except ImportError as err:
-        raise NotImplementedError(f"{what} needs {library}, which is not installed") from err
 
 
 class ImageExportFormats:
@@ -167,7 +161,7 @@ class ImageExportFormats:
         # (matplotlib's imsave has no such knobs); colour-mapped scalar maps
         # stay on matplotlib.
         if arr.ndim == 3 and (spec.quality is not None or spec.compression is not None):
-            cv2 = _optional("cv2", f"writing {spec.type} files", "cv2 (OpenCV)")
+            cv2 = optional_module("cv2", f"writing {spec.type} files")
 
             data = np.clip(np.asarray(arr, dtype=float), 0, 1)
             bgr = cv2.cvtColor((data * 255).astype(np.uint8), cv2.COLOR_RGB2BGR)
@@ -179,7 +173,7 @@ class ImageExportFormats:
             cv2.imwrite(str(path), bgr, params)
             return
 
-        matplotlib = _optional("matplotlib", f"writing {spec.type} files", "matplotlib")
+        matplotlib = optional_module("matplotlib", f"writing {spec.type} files")
         matplotlib.use("Agg")
         plt = importlib.import_module("matplotlib.pyplot")
 

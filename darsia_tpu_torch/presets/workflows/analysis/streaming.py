@@ -1,8 +1,8 @@
 """Low-resolution PNG previews for GUI streaming.
 
 Counterpart of :mod:`darsia_tpu.presets.workflows.analysis.streaming`.  The
-PNG encoding needs OpenCV; where it is not installed (the card's machine)
-:func:`encode_low_resolution_png` raises ``NotImplementedError`` naming it.
+PNG encoding needs OpenCV, imported when called; where it does not import
+:func:`encode_low_resolution_png` raises ``ImportError`` naming it.
 The publishers keep the JAX package's log-and-continue: a preview is a GUI
 convenience, not part of the analysis, and its failure never stops a loop.
 """
@@ -14,7 +14,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 
 from ....image.image import as_numpy
-from .image_export_formats import _optional
+from ....utils.optional import optional_module
 
 __all__ = [
     "encode_low_resolution_png",
@@ -43,7 +43,7 @@ def _to_uint8_rgb(image_like: Any) -> np.ndarray:
 
 def encode_low_resolution_png(image_like: Any, max_width: int = 640, max_height: int = 480) -> bytes:
     """A downscaled PNG preview of an image (bytes); needs OpenCV."""
-    cv2 = _optional("cv2", "encoding a PNG preview", "cv2 (OpenCV)")
+    cv2 = optional_module("cv2", "encoding a PNG preview")
 
     rgb = _to_uint8_rgb(image_like)
     height, width = rgb.shape[:2]

@@ -2,8 +2,9 @@
 
 Counterpart of :mod:`darsia_tpu.presets.workflows.helper.helper_roi`.
 :func:`helper_roi` with two points and :func:`format_roi_template` are
-headless; picking the points by hand needs the interactive assistants (not
-ported: ROADMAP.md Queue 1 item 7d), and the viewers need matplotlib.
+headless; without points the corners are picked by hand with
+:class:`~darsia_tpu_torch.assistants.SubregionAssistant`, and the viewers
+need matplotlib.
 """
 
 from __future__ import annotations
@@ -142,20 +143,19 @@ def helper_roi_viewer(path, cls=None, keys: Optional[list] = None, device=None) 
 
 def helper_roi(path, cls=None, points: Optional[list] = None, device=None) -> dict:
     """A new ROI from two voxel points on the baseline: prints its TOML
-    snippet and returns its corners.  Without points the corners would be
-    picked by hand, which needs the interactive assistants (not ported:
-    ROADMAP.md Queue 1 item 7d)."""
+    snippet and returns its corners.  Without points the corners are picked
+    by hand (:class:`~darsia_tpu_torch.assistants.SubregionAssistant`:
+    matplotlib and a display)."""
+    from ....assistants.selection_assistants import SubregionAssistant
     from ..analysis.analysis_context import prepare_analysis_context
     from ..rig import Rig
 
-    if points is None:
-        raise NotImplementedError(
-            "helper_roi without points picks the ROI by hand with the interactive "
-            "assistants, which are not ported (ROADMAP.md Queue 1 item 7d); pass points="
-        )
     ctx = prepare_analysis_context(cls=cls or Rig, path=path, section="helper", device=device)
     baseline = ctx.fluidflower.baseline
-    coords = np.asarray([np.asarray(baseline.coordinatesystem.coordinate(p)) for p in points])
+    if points is not None:
+        coords = np.asarray([np.asarray(baseline.coordinatesystem.coordinate(p)) for p in points])
+    else:
+        coords = SubregionAssistant(baseline)()
     snippet = (
         "[roi.new_roi]\n"
         'name = "new_roi"\n'

@@ -9,7 +9,8 @@ Counterpart of :mod:`darsia_tpu.presets.workflows.user_interface_utils`
 
 The utilities copy files and encode on the host: ``main(argv, device=None)``
 takes the ``device`` of the other front ends and hands it to nothing.
-``--media`` needs OpenCV.
+``--media`` reads the photographs and writes the video with OpenCV,
+imported when called.
 """
 
 from __future__ import annotations

@@ -3,20 +3,21 @@
 Counterpart of :mod:`darsia_tpu.presets.workflows.utils.roi_visualization`.
 The mask (the port's ``roi_to_mask``) and the dimmed image are computed on
 the image's device; the boundary contours come from OpenCV's
-``findContours``, imported when a partial mask is rendered (where OpenCV is
-not installed, that raises ``ImportError`` naming it).  :func:`draw_active_region` draws on a matplotlib axis the caller
-gives.
+``findContours`` on one host copy of the mask, imported when a partial
+mask is rendered (where OpenCV does not import, that raises ``ImportError``
+naming it).  :func:`draw_active_region` draws on a matplotlib axis the
+caller gives.
 """
 
 from __future__ import annotations
 
-import importlib
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ....image.image import as_numpy, as_tensor
+from ....utils.optional import optional_module
 from ....utils.standard_images import roi_to_mask
 
 __all__ = [
@@ -39,13 +40,7 @@ class ActiveRegionRenderData:
 
 
 def _find_contours(mask: np.ndarray) -> list:
-    try:
-        cv2 = importlib.import_module("cv2")
-    except ImportError as err:
-        raise ImportError(
-            "the active region's contours need OpenCV (cv2.findContours), "
-            "which is not installed here"
-        ) from err
+    cv2 = optional_module("cv2", "the active region's contours (cv2.findContours)")
     contours, _ = cv2.findContours(mask.astype(np.uint8), cv2.RETR_EXTERNAL, cv2.CHAIN_APPROX_NONE)
     return list(contours)
 

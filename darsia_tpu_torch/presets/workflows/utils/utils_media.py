@@ -2,9 +2,11 @@
 
 Counterpart of :mod:`darsia_tpu.presets.workflows.utils.utils_media`.  The
 frames are decoded, resized, captioned and encoded with OpenCV, imported
-when :func:`build_media` runs; where OpenCV is not installed it raises
-``ImportError`` naming it.  An npz photograph is
-read by the port's ``imread`` on the CPU.
+when :func:`build_media` runs; where OpenCV does not import it raises
+``ImportError`` naming it.  An npz photograph is read by the port's
+``imread`` on the CPU.  A video writer that does not open (a codec missing
+from the OpenCV build) raises ``RuntimeError`` naming the codec, and no
+empty file is left behind.
 """
 
 from __future__ import annotations
@@ -117,6 +119,13 @@ def build_media(path) -> dict:
         writer = cv2.VideoWriter(
             str(out_path), cv2.VideoWriter_fourcc(*codec), video.output.fps, (width, height)
         )
+        if not writer.isOpened():
+            writer.release()
+            out_path.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"OpenCV {cv2.__version__} cannot open a {fmt} writer with codec {codec!r}; "
+                "choose another [video.output] codec or format"
+            )
         for frame in frames:
             writer.write(frame)
         writer.release()

@@ -38,10 +38,15 @@ def detect_value(img, value: float, tolerance: float = 0.01, device=None) -> Vox
 
 def detect_color(img, color, tolerance: float = 0.01, device=None) -> VoxelArray:
     """Voxels where an RGB image matches a color within tolerance (the
-    distance in float64 where ``color`` is, as numpy promotes it)."""
+    distance in float64 where ``color`` is, as numpy promotes it; an integer
+    difference, such as a uint8 image against an integer colour, is measured
+    in float64 as numpy's norm measures it)."""
     data = _data(img, device)
     color = torch.as_tensor(np.asarray(color), device=data.device)
-    distance = torch.linalg.vector_norm(data - color, dim=-1)
+    diff = data - color
+    if not diff.is_floating_point():
+        diff = diff.to(torch.float64)
+    distance = torch.linalg.vector_norm(diff, dim=-1)
     return _voxels(distance < tolerance)
 
 

@@ -1,9 +1,11 @@
-"""Imports of the optional libraries (OpenCV, matplotlib) at call time.
+"""Imports of the optional libraries (OpenCV, matplotlib, tkinter) at call
+time.
 
-The port imports neither when it is imported: the card's machine has no
-matplotlib.  A function that draws or traces contours imports the library
-through :func:`optional_module` when it runs, which raises an
-``ImportError`` naming the library and what needed it.
+The port imports none of them when it is imported: the card's machine has
+OpenCV but no matplotlib, and a GUI-less host has no tkinter.  A function
+that decodes, encodes, draws or opens a window imports the library through
+:func:`optional_module` when it runs, which raises an ``ImportError``
+naming the library and what needed it.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ import importlib
 
 __all__ = ["optional_module"]
 
-_LIBRARIES = {"cv2": "OpenCV (cv2)", "matplotlib": "matplotlib"}
+_LIBRARIES = {"cv2": "OpenCV (cv2)", "matplotlib": "matplotlib", "tkinter": "tkinter"}
 
 
 def optional_module(name: str, what: str):

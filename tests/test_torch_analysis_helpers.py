@@ -6,7 +6,7 @@ precision, missing values, integer columns), and a second run (the file
 read back, rows appended, sorted by time) as the JAX loops do it with
 pandas, cell for cell but for the last bit of a float that pandas' parser
 reads back inexactly.  The progress events, the PNG previews (OpenCV here; without it
-``NotImplementedError`` naming it) and the image export formats (npy, npz
+``ImportError`` naming it) and the image export formats (npy, npz
 and csv with a resolution and a dtype; jpg without matplotlib raises naming
 it) against the JAX package's on the same inputs.
 """
@@ -175,7 +175,7 @@ def test_png_preview_is_the_jax_package_png():
 
 def test_png_preview_without_opencv_names_it(monkeypatch, caplog):
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(NotImplementedError, match="cv2"):
+    with pytest.raises(ImportError, match="cv2"):
         streaming.encode_low_resolution_png(np.zeros((4, 4, 3), np.uint8))
     sent = []
     with caplog.at_level(logging.WARNING):
@@ -219,5 +219,5 @@ def test_jpg_export_without_matplotlib_names_it(tmp_path, monkeypatch):
     monkeypatch.setitem(sys.modules, "matplotlib", None)
     exporter = ImageExportFormats.from_analysis_config(None, None)
     assert [s.type for s in exporter.formats] == ["npz", "jpg"]
-    with pytest.raises(NotImplementedError, match="matplotlib"):
+    with pytest.raises(ImportError, match="matplotlib"):
         exporter.export(dt.ScalarImage(torch.zeros((4, 5)), width=1.0, height=1.0), tmp_path, "x")

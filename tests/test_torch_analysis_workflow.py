@@ -143,7 +143,13 @@ threshold_max = 0.9
 def workspace(tmp_path_factory):
     """The integration test's workspace, written by the JAX package; one
     config per package, each with its own results folder."""
-    work = tmp_path_factory.mktemp("analysis_run")
+    return write_workspace(tmp_path_factory.mktemp("analysis_run"))
+
+
+def write_workspace(work: Path, names=("jax", "port")) -> tuple:
+    """Write the workspace into ``work``: photographs, protocols, the rig
+    and the calibration folder (by the JAX package), and one config per
+    name, each with its own results folder."""
     images = work / "images"
     images.mkdir()
     base = np.full((H, W, 3), 0.5, np.float32)
@@ -215,7 +221,7 @@ def workspace(tmp_path_factory):
     )
     chain.save(calibration / "color_to_mass" / "from_labels")
     configs = {}
-    for name in ("jax", "port"):
+    for name in names:
         (work / f"results_{name}").mkdir()
         configs[name] = work / f"config_{name}.toml"
         configs[name].write_text(_config_text(work, work / f"results_{name}", rig_folder, calibration))

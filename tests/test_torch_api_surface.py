@@ -3,7 +3,7 @@
 Every public name of ``darsia_tpu`` that some module of ``darsia_tpu_torch``
 defines is reachable as ``darsia_tpu_torch.<name>``, and is the port's own
 object.  The names of the parts that cannot be ported to the card's machine
-(ROADMAP Queue 1, "Not portable": decoders, plots, VTK, EMD through OpenCV,
+(ROADMAP Queue 1, "Not portable": the DICOM and VTU decoders, plots, VTK,
 Excel) are the only exception.  The calibration, helper and utils workflow
 modules keep every name of the JAX modules' ``__all__``; those that need
 OpenCV or matplotlib (media, contours, plots) say so in their module's
@@ -31,8 +31,6 @@ torch.set_num_threads(1)
 
 #: ROADMAP Queue 1, "Not portable on the card's machine".
 NOT_PORTABLE = {
-    "imread_from_bytes",  # JPEG/PNG decode
-    "imread_from_optical",
     "imread_from_dicom",  # DICOM
     "imread_from_vtu",  # VTU
     "plotting",  # show*, plots, to_vtk
@@ -41,7 +39,6 @@ NOT_PORTABLE = {
     "plot_distribution_on_image",
     "plot_image_statistics",
     "to_vtk",
-    "EMD",  # cv2.emd
 }
 
 
@@ -119,6 +116,23 @@ def test_exported_names_are_the_ports_own():
         "GaussianKernel",
         "Masks",
         "validate_mode_syntax",
+        "imread_from_bytes",
+        "imread_from_optical",
+        "EMD",
+        "BaseAssistant",
+        "PointSelectionAssistant",
+        "BoxSelectionAssistant",
+        "RectangleSelectionAssistant",
+        "SubregionAssistant",
+        "RotationCorrectionAssistant",
+        "CropAssistant",
+        "LabelsSegmentAssistant",
+        "LabelsMaskSelectionAssistant",
+        "LabelsPickAssistant",
+        "LabelsMergeAssistant",
+        "LabelsAssistant",
+        "LabelsAssistantMenu",
+        "MonochromaticAssistant",
     ],
 )
 def test_named_entry_points_are_exported(name):
@@ -197,6 +211,9 @@ WORKFLOW_MODULES = [
     "analysis.analysis_fingers",
     "analysis.analysis_segmentation",
     "analysis.analysis_thresholding",
+    "gui_helpers",
+    "gui_support",
+    "user_interface_gui",
 ]
 
 

@@ -418,11 +418,11 @@ def test_patchwise_illumination_against_jax(dtype, tmp_path):
     means = t.extract_color_values_patches(torch.from_numpy(base), full=True)
     j_means = j.extract_color_values_patches(base, full=True)
     assert all(np.abs(a - b).max() <= COLOR_TOL for a, b in zip(means, j_means))
-    # A path goes through imread, which reads npz and npy files (on the
-    # card; tests/test_torch_io.py) and names the decoder a photograph needs.
+    # A path goes through imread (on the card; tests/test_torch_io.py),
+    # which decodes a photograph with OpenCV and refuses a broken one.
     (tmp_path / "baseline.jpg").write_bytes(b"\0")
     jpg = tmp_path / "baseline.jpg"
-    with pytest.raises(NotImplementedError, match="cv2"):
+    with pytest.raises(ValueError, match="Could not read"):
         dt.PatchwiseIlluminationCorrection(image=jpg, baseline_images=[jpg])
     with pytest.raises(FileNotFoundError):
         dt.PatchwiseIlluminationCorrection(image="none.npz", baseline_images=["none.npz"])

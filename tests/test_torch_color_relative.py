@@ -7,6 +7,8 @@ field evaluated on the device (one float64 product cast to float32) within
 float32 rounding of the host path; colour products of float32 frames <= 1e-5.
 """
 
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -202,15 +204,26 @@ def test_relative_color_sampling_front_ends_against_jax():
         assert np.abs(t_r - j_r).max() <= 1e-6
 
 
-def test_relative_color_without_samples_names_the_assistants():
+def test_relative_color_without_samples_names_the_assistants(monkeypatch):
+    """Without samples the boxes are picked by hand with the
+    BoxSelectionAssistant: headless it raises naming it, and where matplotlib
+    does not import the error names matplotlib."""
     _, timg = _images(_smooth_frame())
     t = dt.RelativeColorCorrection(timg, timg)
-    for call in (
+    calls = (
         t.define_similar_colors,
         t.define_reference_color,
         t.define_similar_and_reference_colors_tensorial,
-    ):
-        with pytest.raises(NotImplementedError, match="assistants"):
+    )
+    import matplotlib
+
+    matplotlib.use("Agg")
+    for call in calls:
+        with pytest.raises(RuntimeError, match="BoxSelectionAssistant requires an interactive"):
+            call()
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    for call in calls:
+        with pytest.raises(ImportError, match="matplotlib"):
             call()
     with pytest.raises(ValueError):
         t.calibrate()

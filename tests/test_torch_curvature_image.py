@@ -5,6 +5,8 @@ the two images within one uint8 level at 0.1% of the values, as
 ``tests/test_torch_drift.py`` holds the tuning helpers); other files raise
 naming their decoder."""
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -49,8 +51,11 @@ def test_tuning_image_from_a_file_against_jax(tmp_path, suffix):
     _close_u8(port.temporary_image, jax.temporary_image)
 
 
-def test_tuning_image_of_another_format_names_its_decoder(tmp_path):
+def test_tuning_image_of_another_format_names_its_decoder(tmp_path, monkeypatch):
+    """A photograph decodes through OpenCV: where it does not import, the
+    read names it."""
+    monkeypatch.setitem(sys.modules, "cv2", None)
     path = tmp_path / "tuning.jpg"
     path.write_bytes(b"\xff\xd8")
-    with pytest.raises(NotImplementedError, match="cv2"):
+    with pytest.raises(ImportError, match="cv2"):
         dt.CurvatureCorrection(image=path, device="cpu", **KW)

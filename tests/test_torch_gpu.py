@@ -846,3 +846,52 @@ def test_features_on_the_card_equal_the_cpu(monkeypatch):
     assert len(kp_cpu) == 200
     np.testing.assert_array_equal(kp_gpu, kp_cpu)
     assert np.abs(desc_gpu - desc_cpu).max() <= 1e-6
+
+
+def _photo_u8(h=120, w=200, seed=5):
+    rng = np.random.default_rng(seed)
+    arr = (rng.random((h, w, 3)) * 255).astype(np.uint8)
+    arr[20:40, 30:60] = [255, 0, 255]
+    return arr
+
+
+def test_encode_of_a_card_image_equals_the_cpu_image():
+    import darsia_tpu_torch as dt
+
+    arr = _photo_u8()
+    card = dt.OpticalImage(arr, width=2.0, height=1.2)
+    host = dt.OpticalImage(torch.from_numpy(arr), width=2.0, height=1.2)
+    assert card.img.device.type == "cuda"
+    for suffix, kw in ((".png", {}), (".jpg", {"quality": 95}), (".tif", {})):
+        assert card.encode(suffix, **kw) == host.encode(suffix, **kw)
+    scalar = dt.ScalarImage(arr[..., 0].astype(np.float32) / 255)
+    assert scalar.img.device.type == "cuda"
+
+
+def test_detect_color_on_the_card_equals_the_cpu():
+    import darsia_tpu_torch as dt
+    from darsia_tpu_torch.utils.detection import detect_color
+
+    arr = _photo_u8()
+    card = detect_color(dt.OpticalImage(arr), [255, 0, 255], tolerance=5e-2)
+    host = detect_color(dt.OpticalImage(torch.from_numpy(arr)), [255, 0, 255], tolerance=5e-2)
+    assert len(card) == 20 * 30 and np.array_equal(np.asarray(card), np.asarray(host))
+
+
+def test_imread_of_a_jpeg_lands_on_the_card(tmp_path):
+    import cv2
+
+    import darsia_tpu_torch as dt
+
+    arr = _photo_u8()
+    cv2.imwrite(str(tmp_path / "photo.jpg"), arr[..., ::-1].copy(), [cv2.IMWRITE_JPEG_QUALITY, 95])
+    img = dt.imread(tmp_path / "photo.jpg")
+    assert img.img.device == torch.device("cuda", 0) and img.img.dtype == torch.uint8
+    host = dt.imread(tmp_path / "photo.jpg", device="cpu")
+    assert torch.equal(img.img.cpu(), host.img)
+    yuv = dt.imread(tmp_path / "photo.jpg", transfer="yuv420")
+    assert yuv.img.device == torch.device("cuda", 0)
+    # The bilinear upsample may round differently on the card: within
+    # tests/test_torch_transfer.py's bound.
+    diff = (yuv.img.cpu().int() - dt.imread(tmp_path / "photo.jpg", device="cpu", transfer="yuv420").img.int()).abs()
+    assert diff.max().item() <= 1 and (diff > 0).double().mean().item() <= 1e-3

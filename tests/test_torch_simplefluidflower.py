@@ -10,8 +10,9 @@ and the data that the fused drift + curvature warp receives is float32 in
 both (the JAX package asks for float64 but runs without 64-bit floats; K1
 takes float32 only).  A saved and loaded rig reads bitwise as before.  A
 failed colour set-up warns and leaves the colour correction out in both;
-``setup_curvature_correction`` raises, naming ROADMAP item 7d.  The port
-runs on the CPU (``device="cpu"``).
+``setup_curvature_correction`` on a JPEG ROI photograph with four painted
+marks finds the same corners as the JAX package (the crop assistant, item
+7d).  The port runs on the CPU (``device="cpu"``).
 """
 
 import warnings
@@ -165,11 +166,36 @@ def test_failed_colour_setup_warns_in_both(files):
         assert [type(c).__name__ for c in rig.corrections] == ["TypeCorrection"]
 
 
-def test_curvature_from_roi_names_item_7d(files):
-    rig = dt.SimpleFluidFlower(files / "base.npz", active_corrections=["type"], device="cpu")
-    rig.setup(specs={})
-    with pytest.raises(NotImplementedError, match="item 7d"):
-        rig.setup_curvature_correction(files / "base.npz", roi_color=[255, 0, 0])
+def test_curvature_from_roi_names_item_7d(files, tmp_path):
+    """Item 7d's crop assistant: marks painted on a JPEG ROI photograph give
+    the JAX package's corners, within 1 px of the painted ones, and the same
+    corrected read."""
+    import cv2
+
+    roi = np.full((H, W, 3), 120, np.uint8)
+    painted = [(16, 16), (H - 17, 16), (H - 17, W - 17), (16, W - 17)]  # TL, BL, BR, TR
+    for r, c in painted:
+        # 16-px blocks aligned to the JPEG's MCUs decode exactly.
+        r0, c0 = r - r % 16, c - c % 16
+        roi[r0 : r0 + 16, c0 : c0 + 16] = 255
+    cv2.imwrite(str(tmp_path / "roi.jpg"), roi, [cv2.IMWRITE_JPEG_QUALITY, 95])
+    rigs = []
+    for pkg, kw in ((dt, {"device": "cpu"}), (da, {})):
+        rig = pkg.SimpleFluidFlower(files / "base.npz", active_corrections=["type"], **kw)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            rig.setup(specs={"width": 0.92, "height": 0.55})
+        rig.setup_curvature_correction(tmp_path / "roi.jpg", roi_color=[255, 255, 255])
+        rigs.append(rig)
+    port, ref = rigs
+    got = np.asarray(port.curvature_config["crop"]["pts_src"])
+    assert np.array_equal(got, np.asarray(ref.curvature_config["crop"]["pts_src"]))
+    assert np.abs(got - np.asarray(painted)).max() <= 1
+    out = port.curvature_correction(port.baseline).img.numpy()
+    want = np.asarray(ref.curvature_correction(ref.baseline).img)
+    assert out.shape == want.shape and np.abs(out.astype(float) - want.astype(float)).max() <= 1
+    with pytest.raises(ValueError, match="roi_color"):
+        port.setup_curvature_correction(tmp_path / "roi.jpg")
     curved = dt.SimpleFluidFlower(files / "base.npz", active_corrections=["curvature"], device="cpu")
     with pytest.raises(ValueError, match="curvature_options"):
         curved.setup(specs={})

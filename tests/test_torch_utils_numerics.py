@@ -80,6 +80,16 @@ def test_detection_equal(tolerance):
         np.testing.assert_array_equal(dt.orthogonal_colors(color), da.orthogonal_colors(color))
 
 
+def test_detect_color_of_a_uint8_image_with_an_integer_colour():
+    """A uint8 photograph against an integer colour, as the crop assistant's
+    callers give it: the distance in float64, as numpy's norm takes it."""
+    img = (_scene() * 255).astype(np.uint8)
+    img[30:33, 2:6] = [255, 0, 255]
+    got = dt.detect_color(torch.from_numpy(img), [255, 0, 255], 0.05)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(da.detect_color(img, [255, 0, 255], 0.05)))
+    assert len(got) == 12
+
+
 def test_monochromatic_concentration_analysis_close():
     img = _scene(4)
     want = np.asarray(da.monochromatic_concentration_analysis(da.OpticalImage(img, width=1.0, height=1.0), [0.8, 0.2, 0.1]).img)

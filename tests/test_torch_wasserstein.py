@@ -10,6 +10,7 @@ and each also meets the anchor tolerance of the JAX package's own tests
 (1e-2; 5e-2 for G-prox).  The JAX solves are shared through module fixtures.
 """
 
+import sys
 from unittest import mock
 
 import numpy as np
@@ -237,10 +238,14 @@ def test_status_callbacks_and_phase_profile():
         assert info["convergence_history"]["timings"][0]["pressure_solve"] == phases["pressure_solve"]
 
 
-def test_facade_raises():
+def test_facade_raises(monkeypatch):
     src, dst = _port_images(*_anchor())
-    with pytest.raises(NotImplementedError, match="OpenCV"):
-        dt.wasserstein_distance(src, dst, method="cv2.emd")
+    # "cv2.emd" solves through OpenCV (tests/test_torch_emd.py); where it
+    # does not import, the facade names it.
+    with monkeypatch.context() as blocked:
+        blocked.setitem(sys.modules, "cv2", None)
+        with pytest.raises(ImportError, match="OpenCV"):
+            dt.wasserstein_distance(src, dst, method="cv2.emd")
     with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 8"):
         dt.wasserstein_distance(src, dst, method="sharded_newton", options={"mesh": None})
     with pytest.raises(NotImplementedError, match="not implemented"):

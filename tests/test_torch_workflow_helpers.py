@@ -160,8 +160,15 @@ def test_helper_roi_snippet_against_jax(workspace, capsys):
     assert helper.format_roi_template([0.1, 0.2], [1.5, 0.9]) == jax_helper_roi.format_roi_template(
         [0.1, 0.2], [1.5, 0.9]
     )
-    with pytest.raises(NotImplementedError, match="7d"):
+    # Without points the corners are picked by hand (the SubregionAssistant,
+    # item 7d), which needs a display, as in the JAX package.
+    import matplotlib
+
+    matplotlib.use("Agg")
+    with pytest.raises(RuntimeError, match="SubregionAssistant requires an interactive"):
         helper.helper_roi(configs["port", "npz"], device="cpu")
+    with pytest.raises(RuntimeError, match="SubregionAssistant requires an interactive"):
+        jax_helper_roi.helper_roi(configs["jax", "npz"], cls=da.Rig)
 
 
 def test_active_region_against_jax(workspace):
