@@ -1,4 +1,4 @@
-"""Batched Wasserstein-1 solves: many pairs in one Newton loop on one device.
+"""Batched Wasserstein-1 solves: many pairs in one Newton loop per device.
 
 Counterpart of :mod:`darsia_tpu.parallel.wasserstein`'s
 ``batched_wasserstein``.  The JAX package ``vmap``s its fused Newton solve
@@ -12,8 +12,8 @@ criteria, and a pair that has stopped keeps its state while the others run.
 The host reads one ``(B, 5)`` metrics tensor per Newton iteration and one
 ``(B,)`` flag vector per CG iteration.
 
-``sharded_wasserstein_batch`` (the batch split over a device mesh) is not
-ported: it waits for a multi-GPU port (ROADMAP.md, Queue 1, item 8).
+``sharded_wasserstein_batch`` splits the pairs over one axis of a device
+mesh: each position runs this batched loop on its own pairs.
 """
 
 from __future__ import annotations
@@ -26,8 +26,9 @@ import torch
 from ..image.image import as_tensor
 from ..measure.beckmann import BeckmannNewtonSolver
 from ..utils.grid import Grid
+from .mesh import Mesh, Placement
 
-__all__ = ["batched_wasserstein"]
+__all__ = ["batched_wasserstein", "sharded_wasserstein_batch"]
 
 
 def _make_batch_solve(solver: BeckmannNewtonSolver):
@@ -88,5 +89,38 @@ def batched_wasserstein(
         src = as_tensor(src_batch)
         dst = as_tensor(dst_batch, src.device)
         return solve_diff(dst - src)
+
+    return solve
+
+
+def sharded_wasserstein_batch(
+    mesh: Mesh,
+    grid_shape: tuple,
+    voxel_size=1.0,
+    weight=None,
+    options: Optional[dict] = None,
+    axis: Optional[str] = None,
+):
+    """Batch-sharded W1: the pairs split over the ``axis`` mesh axis.
+
+    Returns ``solve(src_batch, dst_batch) -> (distances, iterations,
+    statuses)`` (as :func:`batched_wasserstein`'s) where each mesh position
+    runs the batched Newton loop on its own pairs, on its device, one
+    position after the other.  ``B`` must divide by the axis size; other
+    mesh axes must have size 1.
+    """
+    axis = axis or mesh.axis_names[0]
+    mesh.line(axis)
+    solver = BeckmannNewtonSolver(
+        Grid(tuple(grid_shape), voxel_size), weight, dict(options or {})
+    )
+    solve_diff = _make_batch_solve(solver)
+    placement = Placement(mesh, (axis,) + (None,) * len(grid_shape))
+
+    def solve(src_batch, dst_batch):
+        src = placement.split_line(src_batch)
+        dst = placement.split_line(dst_batch)
+        parts = [solve_diff(d - s) for s, d in zip(src, dst)]
+        return tuple(np.concatenate([p[j] for p in parts]) for j in range(3))
 
     return solve

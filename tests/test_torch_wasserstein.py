@@ -246,14 +246,55 @@ def test_facade_raises(monkeypatch):
         blocked.setitem(sys.modules, "cv2", None)
         with pytest.raises(ImportError, match="OpenCV"):
             dt.wasserstein_distance(src, dst, method="cv2.emd")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 8"):
-        dt.wasserstein_distance(src, dst, method="sharded_newton", options={"mesh": None})
+    with pytest.raises(ValueError, match="mesh"):
+        dt.wasserstein_distance(src, dst, method="sharded_newton", options={"num_iter": 3})
     with pytest.raises(NotImplementedError, match="not implemented"):
         dt.wasserstein_distance(src, dst, method="sinkhorn")
     with pytest.raises(ValueError, match="3-D"):
         dt.wasserstein_distance_3d(src, dst)
     with pytest.raises(NotImplementedError, match="VTK"):
         dt.wasserstein_distance_to_vtk("out.vtk", {})
+
+
+def test_sharded_newton_facade_matches_newton():
+    """``method="sharded_newton"`` over a mesh of ``cpu`` x 4 on a 16x16 pair
+    (the JAX package's facade case): the distance of the single-device
+    Newton solve and of the JAX package's facade within rtol 1e-3, and the
+    pressure in the single-device sign convention (dst - src)."""
+    import jax
+    from jax.sharding import Mesh as JaxMesh
+
+    n = 16
+    src = np.zeros((n, n))
+    src[3:7, 3:7] = 1
+    dst = np.zeros((n, n))
+    dst[9:14, 10:15] = 1
+    src, dst = (src / src.sum() * n * n).astype(np.float32), (dst / dst.sum() * n * n).astype(np.float32)
+    tols = {"num_iter": 200, "tol_increment": 1e-5, "tol_distance": 1e-5}
+    sharded = {**tols, "aa_depth": 5, "return_info": True}
+    newton = {
+        **tols,
+        "mobility_mode": "cell_based",
+        "l1_mode": "constant_cell_projection",
+        "L": 1e9,
+        "return_info": True,
+    }
+    images = _port_images(src, dst)
+    mesh = dt.parallel.create_mesh((4,), ("space",), devices=["cpu"] * 4)
+    distance, info = dt.wasserstein_distance(
+        *images, method="sharded_newton", options={"mesh": mesh, **sharded}
+    )
+    reference, ref_info = dt.wasserstein_distance(*images, method="newton", options=newton)
+    jax_distance, _ = da.wasserstein_distance(
+        *_jax_images(src, dst),
+        method="sharded_newton",
+        options={"mesh": JaxMesh(np.array(jax.devices()[:4]), ("space",)), **sharded},
+    )
+    assert np.isclose(distance, float(reference), rtol=1e-3)
+    assert np.isclose(distance, float(jax_distance), rtol=1e-3)
+    assert info["number_iterations"] > 1
+    p, q = info["pressure"].flatten(), ref_info["pressure"].flatten()
+    assert float(torch.dot(p - p.mean(), q - q.mean())) > 0.99 * float((p - p.mean()).norm() * (q - q.mean()).norm())
 
 
 def test_numpy_mass_without_a_card_raises():
