@@ -18,7 +18,10 @@ checkout, in phases; any failure raises and exits non-zero:
    schedule-test shapes, a ragged case, a violated bound and the 4K row case
    (3 channels folded into rows, 5364x3180, D=120 and D=30): max |diff| <=
    1e-6, and K2 == K3 == K1 transposed (shared cols), bitwise; time both
-   schedules and the plain version at the 4K cases.  Then the warp_rows
+   schedules, the plain version and the library call that computes the same
+   row resample (one ``F.grid_sample`` on the (1, 1, R, W_in) rows, y on the
+   row centres, x the clipped cols; its max |diff| to K2 printed) at the 4K
+   cases.  Then the warp_rows
    path: every launch count set to 0, ``warp_rows`` called at the two 4K
    cases on each schedule, the counts read.
 4. The two-pass warp against the exact gather warp on the 4K curvature field
@@ -493,12 +496,34 @@ N. The multi-device layer (``darsia_tpu_torch/parallel/``, after phase M)
    curvature correction's grid and the chain's pair; 4 per public-lane
    frame).
 
+O. The display and export layer (after phase N).  O1: phase 5's
+   concentration map (the two-warp lane's last frame, 1703x3180 float32 on
+   the card) through ``Image.to_vtk``: timed, its MB printed, re-read with a
+   vectorised parse, every value exactly the map's (the printed float64
+   reprs round-trip).  O2: ``wasserstein_distance_to_vtk`` of phase F5's
+   card solution (64x64, weighted, no new solve): its 9 fields re-read,
+   each exactly the info's tensor (rows bottom-up, vectors (v1, -v0, 0),
+   the weights' first component).  O3: where matplotlib, plotly, pydicom,
+   meshio, pandas or openpyxl does not import, every drawing function (Image.show,
+   the W1 plot, the three overlay plots, the time-series and run-analysis
+   plots, the logs, the colour-path views), ``show_plotly``, ``imread`` of a
+   ``.dcm`` and a ``.vtu`` file and the Excel protocol and facies readers
+   raise ``ImportError`` naming it; where matplotlib imports, every drawing
+   function renders on Agg and a scalar view's array, a statistics profile
+   and a contour level are held against the tensors.  O4:
+   ``plot_image_statistics``' profiles (``utils/augmented_plotting.py::
+   _statistics``, float64 on the card) of the 4K map and of the 4K uint8
+   photograph, both axes, against a float64 numpy reckoning of the host
+   copy: within 1e-6 of the data's scale (float32 profiles), 1e-12
+   (uint8); timed beside numpy.  No kernel launches (checked).
+
 Every launch count is set to 0 just before each path of phases 3, 5-7,
-8-11, 14-20, B, E, F, G, H, I, J, K, L, M and N and read just after it (in
-M5 the worker's process counts from its start); the ``kernels`` line's K1
-launches are their sum, 586 before phase E, 28 in it, none in F or G, 198
-in H, 120 in I, 240 in J, 84 in K, 126 in L, 80 in M and 38 in N (1500;
-checked exactly).  Each of phases 8-12, 14-20, A-N prints its seconds.  The
+8-11, 14-20, B, E, F, G, H, I, J, K, L, M, N and O and read just after it
+(in M5 the worker's process counts from its start); the ``kernels`` line's
+K1 launches are their sum, 586 before phase E, 28 in it, none in F or G,
+198 in H, 120 in I, 240 in J, 84 in K, 126 in L, 80 in M, 38 in N and none
+in O (1500; checked exactly).  Each of phases 8-12, 14-20, A-O prints its
+seconds.  The
 second-to-last line is a JSON object of per-kernel results; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
@@ -862,10 +887,11 @@ def phase_rows(w2p) -> dict:
             cuda_ms(lambda: w2p.warp_rows(data, cols3, D, ring=ring), 20, device_paced=True)
             for ring in (False, True)
         ]
-        # For orientation only (not the same function: no chain-edge clamp):
-        # F.grid_sample's bilinear resample of the same rows.
+        # The library call: one F.grid_sample on the (1, 1, R, W_in) rows,
+        # y on each row's centre, x the clipped cols, bilinear, border
+        # padding (the chain-edge clamp never binds within the bound D).
         Rf, Wo = data.shape[0], cols3.shape[1]
-        gx = 2.0 * cols3 / (W_in - 1) - 1.0
+        gx = 2.0 * cols3.clamp(0.0, float(W_in - 1)) / (W_in - 1) - 1.0
         gy = (2.0 * torch.arange(Rf, device=data.device) / (Rf - 1) - 1.0)[:, None]
         grid = torch.stack([gx, gy.expand(Rf, Wo)], dim=-1)[None].contiguous()
         img = data[None, None]
@@ -875,9 +901,9 @@ def phase_rows(w2p) -> dict:
                 img, grid, mode="bilinear", padding_mode="border", align_corners=True
             )
 
-        g_ms = cuda_ms(grid_sample, 20)
-        ref = w2p.warp_rows_reference(data, cols3, D)
-        g_err = float((grid_sample()[0, 0] - ref).abs().max())
+        g_ms = [cuda_ms(grid_sample, 20), cuda_ms(grid_sample, 20)]
+        g_paced = cuda_ms(grid_sample, 20, device_paced=True)
+        g_err = float((grid_sample()[0, 0] - w2p.warp_rows(data, cols3, D)).abs().max())
         moved = 4.0 * (Rf * W_in + 2 * Rf * Wo)
         # Per output: 2 clamp, add, floor, sub, 2 clamp, lerp (3).
         bound_ms, bound_by = bound(moved, 10.0 * Rf * Wo)
@@ -886,7 +912,9 @@ def phase_rows(w2p) -> dict:
             "K2_ms": [k2a, k2b],
             "K3_ms": [k3a, k3b],
             "plain_ms": [p1, p2],
-            "grid_sample_ms": g_ms,
+            "library_ms": g_ms,
+            "library_paced_ms": g_paced,
+            "library_max_abs_diff": g_err,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
         }
@@ -895,7 +923,8 @@ def phase_rows(w2p) -> dict:
             f"K2/K3 {shape} D={D}: K2 {k2a} / {k2b} ms, K3 {k3a} / {k3b} ms, plain "
             f"{p1} / {p2} ms, device-paced K2 {paced[0]} ms, K3 {paced[1]} ms, bound "
             f"{bound_ms} ms ({bound_by}, {moved / 1e6:.1f} MB); "
-            f"F.grid_sample (orientation only) {g_ms} ms, max|diff| to plain {g_err}"
+            f"library call F.grid_sample {g_ms[0]} / {g_ms[1]} ms, device-paced {g_paced} ms, "
+            f"max|diff| to K2 {g_err}"
         )
         path_inputs.append((data, cols3, D))
         del grid, gx, gy
@@ -1065,6 +1094,7 @@ def phase_main_path(dt, w2p, lanes, device, card: str, profile) -> dict:
         "peak_gib": peak_gib,
         "mean_abs_dconc_plain": diff,
         "mean_abs_dconc_staged": staged_err,
+        "image": out,
     }
     print(
         f"main path (two-warp lane): {ms} ms/frame ({WINDOWS} windows of "
@@ -3068,6 +3098,7 @@ def phase_transport(dt, device, card: str, profile) -> dict:
         runs[name] = (d5, info5["number_iterations"] + 1, time.perf_counter() - t0,
                       info5["pressure"].device.type)
         if name == "card":
+            card_info = info5
             # The facade against the solver it builds: distance and raw gap.
             solver5 = dt.BeckmannNewtonSolver(dt.generate_grid(b), weight, F_NEWTON)
             md5 = b.img - a.img
@@ -3081,7 +3112,7 @@ def phase_transport(dt, device, card: str, profile) -> dict:
     rel5 = abs(runs["card"][0] - runs["cpu"][0]) / runs["cpu"][0]
     if runs["card"][3] != "cuda" or runs["cpu"][3] != "cpu" or not rel5 <= 1e-5:
         raise AssertionError(f"F5: card {runs['card']} vs CPU {runs['cpu']}: rel {rel5}")
-    out["F5"] = {"rel": rel5}
+    out["F5"] = {"rel": rel5, "info": card_info}
     print(
         f"F5. card vs CPU tensor at {n}x{n} (on the card, wasserstein_distance == its solver): distances {runs['card'][0]:.8f} / "
         f"{runs['cpu'][0]:.8f} (rel {rel5:.2e}, bound 1e-5), iterations {runs['card'][1]} / "
@@ -6814,6 +6845,267 @@ def phase_sharded(dt, w2p, device, card: str) -> dict:
     return {"launches": launches, **result}
 
 
+# ---------------------------------------------------------------- phase O
+
+
+def vtk_fields(path: Path) -> dict:
+    """(header lines, field name -> float64 values) of a legacy VTK file:
+    scalars as (N,), vectors as (N, 3); one split and one vectorised parse
+    per field."""
+    lines = path.read_text().split("\n")
+    n, k, fields = int(lines[7].split()[1]), 8, {}
+    while k < len(lines) and lines[k]:
+        kind, name = lines[k].split()[:2]
+        skip = 2 if kind == "SCALARS" else 1
+        body = lines[k + skip : k + skip + n]
+        values = np.array(" ".join(body).split(), dtype=np.float64)
+        fields[name] = values if kind == "SCALARS" else values.reshape(n, 3)
+        k += skip + n
+    return lines[:8], fields
+
+
+def vtk_expected(array: torch.Tensor, vector: bool) -> np.ndarray:
+    """What the writer must hold: rows bottom-up; a vector (v1, -v0, v2 or
+    0); else the first component; as float64 (exact for float32 data)."""
+    flat = array.detach().flip(0).reshape(array.shape[0] * array.shape[1], -1).double()
+    if not vector:
+        return flat[:, 0].cpu().numpy()
+    vz = flat[:, 2] if flat.shape[1] > 2 else torch.zeros_like(flat[:, 0])
+    return torch.stack([flat[:, 1], -flat[:, 0], vz], dim=1).cpu().numpy()
+
+
+def o_export(dt, conc_image, w1_info: dict, root: Path, card: str) -> dict:
+    """O1 and O2: the 4K map and a W1 solution exported, re-read, held exactly."""
+    conc = conc_image.img
+    t0 = time.perf_counter()
+    conc_image.to_vtk(root / "concentration", name="concentration")
+    export_s = time.perf_counter() - t0
+    path = root / "concentration.vtk"
+    t0 = time.perf_counter()
+    header, fields = vtk_fields(path)
+    parse_s = time.perf_counter() - t0
+    rows, cols = conc.shape
+    if header[4] != f"DIMENSIONS {cols} {rows} 1" or list(fields) != ["concentration"]:
+        raise AssertionError(f"O1: header {header[4]!r}, fields {list(fields)}")
+    values, want = fields["concentration"], vtk_expected(conc[..., None], vector=False)
+    if not np.array_equal(values, want) or not np.array_equal(values.astype(np.float32), want.astype(np.float32)):
+        raise AssertionError(f"O1: {int((values != want).sum())} values differ from the map")
+    mb = path.stat().st_size / 1e6
+    print(
+        f"O1. Image.to_vtk of the two-warp lane's {rows}x{cols} float32 concentration map: "
+        f"{export_s:.3f} s, {mb:.1f} MB ({rows * cols / export_s / 1e6:.2f} Mvalues/s), re-read in "
+        f"{parse_s:.3f} s, every value's repr round-trips to the map's exactly on {card}"
+    )
+
+    t0 = time.perf_counter()
+    dt.wasserstein_distance_to_vtk(root / "w1", w1_info)
+    w1_s = time.perf_counter() - t0
+    _, fields = vtk_fields(root / "w1.vtk")
+    keys = ["src", "dst", "mass_diff", "flux", "weighted_flux", "pressure", "transport_density", "weight", "weight_inv"]
+    if list(fields) != keys:
+        raise AssertionError(f"O2: fields {list(fields)}, want {keys}")
+    for key in keys:
+        field = w1_info[key]
+        field = field.img if hasattr(field, "img") else field
+        if field.device != conc.device:
+            raise AssertionError(f"O2: {key} is on {field.device}, the map on {conc.device}")
+        vector = key in ("flux", "weighted_flux")
+        want = vtk_expected(field if vector else field.reshape(field.shape[0], field.shape[1], -1), vector)
+        if not np.array_equal(fields[key], want):
+            raise AssertionError(f"O2: {key}: {int((fields[key] != want).sum())} values differ")
+    n = w1_info["flux"].shape[0]
+    print(
+        f"O2. wasserstein_distance_to_vtk of phase F5's {n}x{n} card solution: {w1_s:.3f} s, "
+        f"{(root / 'w1.vtk').stat().st_size / 1e6:.2f} MB, {len(keys)} fields re-read exactly on {card}"
+    )
+    return {"O1_export_s": export_s, "O1_parse_s": parse_s, "O1_mb": mb, "O2_s": w1_s}
+
+
+def o_gates(dt, conc_image, w1_info: dict, root: Path, card: str) -> dict:
+    """O3: every drawing function, show_plotly and the DICOM, VTU and Excel
+    readers raise naming their library where it does not import; where
+    matplotlib imports, the figures' arrays are held against the tensors."""
+    import importlib
+
+    conc = conc_image.img
+    crop = dt.ScalarImage(conc[:256, :384].clone(), width=0.384, height=0.256)
+    mask = crop.img > crop.img.mean()
+    result = SimpleNamespace(
+        normalized_signal_aq=crop, normalized_signal_g=crop, mass=crop, saturation_g=crop, concentration_co2_aq=crop
+    )
+    series = dt.MultiphaseTimeSeriesAnalysis(None)
+    series.data.append(0.0, 1.0, 0.5, 0.5, 0.0)
+    run = dt.SimpleRunAnalysis(None)
+    path = dt.ColorPath(colors=[np.zeros(3), np.full(3, 0.5), np.ones(3)])
+    co2 = dt.CO2MassAnalysis(crop, 1.01, 23.0)
+    drawing = {
+        "Image.show": lambda: crop.show(),
+        "plot_2d_wasserstein_distance": lambda: dt.plotting.plot_2d_wasserstein_distance(w1_info, show=False),
+        "plot_contour_on_image": lambda: dt.plot_contour_on_image(crop, mask, return_image=True),
+        "plot_distribution_on_image": lambda: dt.plot_distribution_on_image(crop, crop),
+        "plot_image_statistics": lambda: dt.plot_image_statistics(crop),
+        "plot_mass_over_time": lambda: series.plot_mass_over_time(root / "mass.png"),
+        "plot_volume_over_time": lambda: series.plot_volume_over_time(root / "volume.png"),
+        "plot_result": lambda: series.plot_result(result, "mass", root / "result.png"),
+        "plot_contour_signal": lambda: series.plot_contour_signal(crop, result, [0.5], [0.8], None),
+        "plot_contour_mass": lambda: series.plot_contour_mass(crop, result, [0.5], None),
+        **{
+            f"SimpleRunAnalysis.{name}": (lambda name=name, extra=extra: getattr(run, name)(crop, *extra, None))
+            for name, extra in (
+                ("plot_pure_contour_signal", (result, "aqueous", 0.5)),
+                ("plot_simple_contour_signal", (result,)),
+                ("plot_contour_saturation_concentration", (result,)),
+                ("plot_contour_saturation", (result,)),
+                ("plot_contour_concentration", (result,)),
+                ("plot_dissolved_CO2", (crop, result)),
+                ("plot_gas", (crop, result)),
+            )
+        },
+        "CO2MassAnalysis.log": lambda: co2.log(root / "log"),
+        "PWTransformation.log": lambda: dt.PWTransformation([0, 1], [0, 1]).log(root / "pw.png"),
+        "ColorPath.get_color_map": lambda: path.get_color_map(),
+        "ColorPath.show_cmap": lambda: path.show_cmap(),
+        "ColorPath.show_path": lambda: path.show_path(),
+    }
+    (root / "a.dcm").write_bytes(b"DICM")
+    (root / "a.vtu").write_bytes(b"<VTKFile/>")
+    (root / "a.xlsx").write_bytes(b"PK")
+    # (the libraries a call needs, in the order it imports them; the calls)
+    gated = [
+        (("matplotlib",), drawing),
+        (("plotly",), {"Image.show_plotly": lambda: crop.show_plotly()}),
+        (("pydicom",), {"imread .dcm": lambda: dt.imread(root / "a.dcm")}),
+        (("meshio",), {"imread .vtu": lambda: dt.imread(root / "a.vtu")}),
+        (
+            ("pandas", "openpyxl"),
+            {
+                "InjectionProtocol .xlsx": lambda: dt.InjectionProtocol(root / "a.xlsx"),
+                "FaciesProps.load .xlsx": lambda: dt.FaciesProps.load(crop, root / "a.xlsx"),
+            },
+        ),
+    ]
+    present, raised = {}, 0
+
+    def imports(name: str) -> bool:
+        try:
+            importlib.import_module(name)
+            return True
+        except ImportError:
+            return False
+
+    for libraries, calls in gated:
+        present.update({name: imports(name) for name in libraries})
+        missing = [name for name in libraries if not present[name]]
+        if not missing:
+            continue
+        library = missing[0]
+        for what, call in calls.items():
+            try:
+                call()
+            except ImportError as err:
+                if library not in str(err):
+                    raise AssertionError(f"O3: {what} raised {err!r}, not naming {library}") from err
+                raised += 1
+                continue
+            raise AssertionError(f"O3: {what} did not raise without {library}")
+    rendered = o_figures(dt, crop, mask, drawing) if present["matplotlib"] else 0
+    print(
+        f"O3. libraries on this machine: {present}; {raised} calls raised naming their "
+        f"library; {rendered} drawing calls rendered on Agg{' (3 held against the tensors)' if rendered else ''} "
+        f"on {card}"
+    )
+    return {"raised": raised, "present": present, "rendered": rendered}
+
+
+def o_figures(dt, crop, mask, drawing: dict) -> int:
+    """Where matplotlib imports: every drawing call renders on Agg (their
+    count is returned), and the arrays of a scalar view, the statistics
+    profile and a contour overlay's level are the tensors'."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    show, close = plt.show, plt.close
+    plt.show = lambda *a, **k: None
+    try:
+        for call in drawing.values():
+            call()
+            plt.close("all")
+        plt.close = lambda *a, **k: None
+        crop.show()
+        shown = plt.gcf().axes[0].images[0].get_array()
+        if not np.array_equal(np.asarray(shown), crop.img.cpu().numpy()):
+            raise AssertionError("O3: Image.show's array is not the tensor's")
+        close("all")
+        fig = dt.plot_image_statistics(crop)
+        line = fig.axes[0].get_lines()[0].get_ydata()
+        want = crop.img.double().mean(dim=1).float().cpu().numpy()
+        if not np.array_equal(np.asarray(line), want):
+            raise AssertionError("O3: the statistics profile is not the tensor's")
+        close("all")
+        fig = dt.plot_contour_on_image(crop, mask)
+        levels = fig.axes[0].collections[0].levels
+        if list(levels) != [0.5]:
+            raise AssertionError(f"O3: contour levels {levels}")
+        close("all")
+    finally:
+        plt.show, plt.close = show, close
+    return len(drawing)
+
+
+def o_statistics(dt, conc_image, probe_u8: np.ndarray, device, card: str) -> dict:
+    """O4: plot_image_statistics' profiles at 4K on the card against a
+    float64 numpy reckoning of the host copy."""
+    from darsia_tpu_torch.utils.augmented_plotting import _statistics
+
+    out = {}
+    for name, data in (("concentration", conc_image.img), ("photograph", torch.from_numpy(probe_u8).to(device))):
+        host = data.cpu().numpy().astype(np.float64)
+        host = host.mean(axis=-1) if host.ndim == 3 else host
+        for axis in (0, 1):
+            _statistics(data, axis)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mean, std = _statistics(data, axis)
+            card_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            ref_mean, ref_std = host.mean(axis=1 - axis), host.std(axis=1 - axis)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            scale = max(float(np.abs(host).max()), 1e-30)
+            err = max(float(np.abs(mean - ref_mean).max()), float(np.abs(std - ref_std).max())) / scale
+            bound = 1e-6 if data.dtype == torch.float32 else 1e-12
+            if mean.shape != (data.shape[axis],) or not err <= bound:
+                raise AssertionError(f"O4: {name} axis {axis}: rel err {err} (bound {bound})")
+            out[f"{name}_{axis}"] = {"card_ms": card_ms, "host_ms": host_ms, "rel_err": err}
+            print(
+                f"O4. image statistics of the {tuple(data.shape)} {name} ({data.dtype}), axis {axis}: "
+                f"{card_ms:.3f} ms on the card (profiles copied: {2 * mean.size} values), float64 numpy "
+                f"of the host copy {host_ms:.3f} ms, max rel err {err:.2e} (bound {bound}) on {card}"
+            )
+    return out
+
+
+def phase_display(dt, w2p, conc_image, w1_info: dict, probe_u8: np.ndarray, device, card: str) -> dict:
+    """Phase O: the display and export layer."""
+    import tempfile
+
+    tic = time.perf_counter()
+    if conc_image.img.device.type != "cuda":
+        raise AssertionError("O: the lane's concentration map is not on the card")
+    reset_counts(w2p)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        result = o_export(dt, conc_image, w1_info, root, card)
+        result["O3"] = o_gates(dt, conc_image, w1_info, root, card)
+    result["O4"] = o_statistics(dt, conc_image, probe_u8, device, card)
+    torch.cuda.synchronize()
+    check_counts(read_counts(w2p), {}, "O: display and export")
+    result["phase_s"] = time.perf_counter() - tic
+    print(f"O. phase {result['phase_s']:.2f} s, no kernel launch, on {card}")
+    return result
+
+
 def profile_batch(dt, src, dst, out_dir: Path, name: str) -> None:
     """torch.profiler over a short batched solve (the Darcy solve and one
     Newton iteration): device busy against the unprofiled time."""
@@ -7083,7 +7375,7 @@ def main() -> int:
     restoration = phase_restoration_lane(dt, w2p, lanes, device, card, args.profile)
     phase_filters(dt, restoration.pop("conc"), device, card)
     reset_counts(w2p)
-    phase_transport(dt, device, card, args.profile)
+    transport = phase_transport(dt, device, card, args.profile)
     check_counts(read_counts(w2p), {}, "F: transport")
     reset_counts(w2p)
     phase_batched(dt, device, card, args.profile)
@@ -7099,6 +7391,9 @@ def main() -> int:
     )
     photographs = phase_photographs(dt, w2p, lanes, fingers_run.pop("handoff"), device, card)
     sharded = phase_sharded(dt, w2p, device, card)
+    phase_display(
+        dt, w2p, main_path.pop("image"), transport["F5"].pop("info"), lanes["probe_u8"], device, card
+    )
     phase_volume(dt, device, card)
     phase_kernel_fields(w2p, lanes, device)
 
@@ -7136,6 +7431,8 @@ def main() -> int:
             "plain_ms": sum(min(t["plain_ms"]) for t in passes),
             "bound_ms": sum(t["bound_ms"] for t in passes),
             "bound_by": passes[0]["bound_by"],
+            # No PyTorch call computes K1's function (its transposed store).
+            "library_ms": None,
         }
     }
     for name, key in (("warp_rows", "K2_ms"), ("warp_rows_ring", "K3_ms")):
@@ -7146,6 +7443,8 @@ def main() -> int:
             "plain_ms": sum(min(t["plain_ms"]) for t in rows["timed"]),
             "bound_ms": sum(t["bound_ms"] for t in rows["timed"]),
             "bound_by": rows["timed"][0]["bound_by"],
+            # One F.grid_sample per case computes the row resample.
+            "library_ms": sum(min(t["library_ms"]) for t in rows["timed"]),
         }
     kernels = []
     for name, (_, source, line) in KERNELS.items():
@@ -7156,9 +7455,6 @@ def main() -> int:
                 "source": f"darsia_tpu_torch/{source}",
                 "replaces": f"darsia_tpu/ops/pallas/warp2pass.py:{line}",
                 **results[name],
-                # No single PyTorch call computes these functions (the Pallas
-                # chain-edge clamp; K1's transposed store).
-                "library_ms": None,
             }
         )
     print(json.dumps({"kernels": kernels}))

@@ -14,7 +14,7 @@ from typing import Union
 
 import numpy as np
 
-from ..image.image import _absent
+from ..utils.optional import optional_module
 
 __all__ = [
     "AbstractModelObjective",
@@ -118,7 +118,17 @@ class AbstractModelObjective:
         return bool(result.success)
 
     def _visualize_model_calibration(self, input_images, images_diff, times, options) -> None:
-        raise _absent("plotting the model calibration", "matplotlib")
+        plt = optional_module("matplotlib.pyplot", "plotting the model calibration")
+
+        geometry = options["geometry"]
+        volumes = [
+            float(geometry.integrate(self._convert_signal(img, diff)))
+            for img, diff in zip(input_images, images_diff)
+        ]
+        plt.plot(times, volumes, "o-")
+        plt.xlabel("time")
+        plt.ylabel("integrated volume")
+        plt.show()
 
 
 class InjectionRateModelObjectiveMixin(AbstractModelObjective):

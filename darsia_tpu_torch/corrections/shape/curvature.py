@@ -6,8 +6,8 @@ input shape and device by pushing the identity coordinate images through the
 configured steps (init -> crop -> bulge -> stretch), so the whole correction
 costs one resampling pass per image.  The tuning helpers (``pre_bulge_
 correction``, ``crop``, ``bulge_correction``, ``stretch_correction``) set one
-step each and apply it to a tuning image; ``show_image`` is not ported (no
-plotting here: ``temporary_image`` gives the image to show).
+step each and apply it to a tuning image; ``show_image`` draws it with
+matplotlib (imported when called).
 
 Config (dict, ``.json`` file, or the ``[curvature]`` section of a ``.toml``):
 
@@ -31,6 +31,7 @@ import torch
 from ...image.image import Image, as_numpy, as_tensor
 from ...ops.warp import identity_grid, warp_backend
 from ...utils.npz import load_npz
+from ...utils.optional import optional_module
 from ...utils.point import make_voxel
 from ..base import BaseCorrection
 from .quad import extract_quadrilateral_ROI
@@ -186,6 +187,16 @@ class CurvatureCorrection(BaseCorrection):
         if img.dtype in (np.uint8, np.uint16):
             return img
         return (np.clip(np.asarray(img, dtype=float), 0.0, 1.0) * 255.0).astype(np.uint8)
+
+    def show_image(self) -> None:
+        """Show the tuning image (floats clipped to [0, 1] before the copy)."""
+        plt = optional_module("matplotlib.pyplot", "CurvatureCorrection.show_image")
+
+        img = as_tensor(self.current_image)
+        if img.is_floating_point():
+            img = img.clamp(0, 1)
+        plt.imshow(as_numpy(img))
+        plt.show()
 
     def pre_bulge_correction(self, **kwargs) -> None:
         """Set the "init" bulge step and apply it to the tuning image."""

@@ -4,7 +4,9 @@ Counterpart of :mod:`darsia_tpu.experiment.protocols` (reference
 ``src/darsia/experiment/protocols.py``), without pandas: a protocol file is
 read with the ``csv`` module into a :class:`ProtocolTable` (the JAX
 package's ``.df``), and datetimes are parsed as ISO 8601 (``T`` or a space
-between date and time, no time zone), the forms the protocols use.
+between date and time, no time zone), the forms the protocols use.  An
+``.xls``/``.xlsx`` sheet is read by pandas (imported when called) into the
+same table, its datetimes as datetimes.
 
 CSV schemas (columns):
 * imaging: ``image_id, datetime[, path]``; blacklist: ``image_id``.
@@ -24,6 +26,8 @@ from pathlib import Path
 from typing import Optional
 
 import numpy as np
+
+from ..utils.csv_table import read_excel_columns
 
 __all__ = [
     "ImagingInterval",
@@ -79,11 +83,7 @@ def _load_table(path) -> ProtocolTable:
             }
         )
     if protocol_path.suffix in (".xls", ".xlsx"):
-        raise NotImplementedError(
-            f"{protocol_path.name}: reading Excel protocols needs pandas and an "
-            "Excel reader (openpyxl), which are not dependencies of this "
-            "package; save the sheet as .csv"
-        )
+        return ProtocolTable(read_excel_columns(protocol_path, sheet, "reading Excel protocols"))
     raise ValueError(f"Unsupported protocol format {protocol_path.suffix}.")
 
 

@@ -8,7 +8,15 @@ from .coordinatesystem import (
     voxels_to_coordinates,
 )
 from .image import ExtensiveImage, Image, OpticalImage, ScalarImage
-from .imread import imread, imread_from_bytes, imread_from_npz, imread_from_numpy, imread_from_optical
+from .imread import (
+    imread,
+    imread_from_bytes,
+    imread_from_dicom,
+    imread_from_npz,
+    imread_from_numpy,
+    imread_from_optical,
+    imread_from_vtu,
+)
 from .indexing import (
     cartesianToMatrixIndexing,
     interpret_indexing,
@@ -38,9 +46,11 @@ __all__ = [
     "extract_quadrilateral_ROI",
     "imread",
     "imread_from_bytes",
+    "imread_from_dicom",
     "imread_from_npz",
     "imread_from_numpy",
     "imread_from_optical",
+    "imread_from_vtu",
     "interpret_indexing",
     "matrixToCartesianIndexing",
     "ones_like",

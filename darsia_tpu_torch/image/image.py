@@ -113,14 +113,6 @@ def _default_origin(space_dim: int, indexing: str, dimensions: list) -> list:
     return origin
 
 
-def _absent(what: str, library: str):
-    return NotImplementedError(
-        f"{what} is not ported: it needs {library}, which is not a dependency of "
-        "this package; copy the data to the host (as_numpy) and plot or encode "
-        "it there"
-    )
-
-
 class Image:
     """Physical image: space axes (1 to 3, matrix indexing), then the time
     axis (series only), then range axes, e.g. ``(H, W[, T][, C])``.
@@ -493,16 +485,155 @@ class Image:
             image_class=type(self).__name__,
         )
 
-    def to_vtk(self, path, name: str = "data") -> None:
-        raise _absent("to_vtk", "a VTK writer")
+    def to_vtk(self, path: Union[str, Path], name: str = "data") -> None:
+        """Export to the legacy VTK structured-points format (one host copy;
+        :func:`darsia_tpu_torch.utils.plotting.to_vtk`)."""
+        from ..utils.plotting import to_vtk as _to_vtk
+
+        _to_vtk(path, [(name, self)])
+
+    # -------------------------------------------------------------- plotting
+    # matplotlib and plotly are imported when called.  Each frame is cut
+    # (and a colour frame clipped) on the image's device and copied once.
 
     def show(self, *args, **kwargs) -> None:
-        raise _absent("show", "matplotlib")
+        """Display through matplotlib."""
+        self.show_matplotlib(*args, **kwargs)
 
-    show_matplotlib = show_plain = show
+    def show_matplotlib(
+        self,
+        title: Optional[str] = None,
+        duration: Optional[float] = None,
+        **kwargs,
+    ) -> None:
+        """One figure per frame: a 2-D scalar frame with a colour bar, a
+        colour frame (floats clipped to [0, 1]), a 3-D frame's middle slice;
+        ``duration`` seconds each, else blocking."""
+        plt = optional_module("matplotlib.pyplot", "Image.show")
+        frames = list(self.img.unbind(self.space_dim)) if self.series else [self.img]
+        for idx, frame in enumerate(frames):
+            fig, ax = plt.subplots()
+            if self.space_dim == 2:
+                if frame.dim() == 2:
+                    im = ax.imshow(as_numpy(frame), cmap=kwargs.get("cmap", "viridis"))
+                    fig.colorbar(im, ax=ax)
+                else:
+                    if frame.is_floating_point():
+                        frame = frame.clamp(0, 1)
+                    ax.imshow(as_numpy(frame))
+            else:
+                ax.imshow(as_numpy(frame[frame.shape[0] // 2]))
+            ax.set_title(title or self.name or f"frame {idx}")
+            if duration is None:
+                plt.show()
+            else:
+                plt.show(block=False)
+                plt.pause(duration)
+                plt.close(fig)
 
-    def show_plotly(self, *args, **kwargs) -> None:
-        raise _absent("show_plotly", "plotly")
+    def show_plain(self, **kwargs) -> None:
+        self.show_matplotlib(**kwargs)
+
+    def show_plotly(
+        self,
+        title: str = "",
+        duration: Optional[int] = None,
+        **kwargs,
+    ) -> None:
+        """Show through plotly: a 2-D frame as ``px.imshow`` on physical
+        axes, a 3-D scalar frame as a thresholded Scatter3d or a Volume.
+
+        Args:
+            title: window title.
+            duration: unused (plotly windows are browser-based).
+            **kwargs: threshold (float), relative (bool), view
+                ("scatter"|"voxel"), surpress_2d / surpress_3d (bool).
+
+        """
+        px = optional_module("plotly.express", "Image.show_plotly")
+        go = optional_module("plotly.graph_objects", "Image.show_plotly")
+        for fig in self._plotly_figures(px, go, title, **kwargs):
+            fig.show()
+
+    def _frame_label(self, title: str, time_index: int) -> str:
+        """Figure label of one time step ("<title> - <k> - <t> sec.")."""
+        if not self.series:
+            return title
+        stamp = str(time_index)
+        if self.time is not None and self.time[time_index] is not None:
+            stamp = f"{time_index} - {self.time[time_index]} sec."
+        return f"{title} - {stamp}" if title else stamp
+
+    def _frame_at(self, data, time_index: int):
+        """One time step of a (space, time, range) tensor or array."""
+        if not self.series:
+            return data
+        return data[..., time_index] if self.scalar else data[..., time_index, :]
+
+    def _physical_axis(self, plot_axis: int) -> np.ndarray:
+        """Voxel positions along the x (0) or y (1) plot axis, in physical
+        coordinates."""
+        matrix_axis, _ = interpret_indexing("xy"[plot_axis], "ij")
+        ids = np.zeros((self.num_voxels[matrix_axis], self.space_dim))
+        ids[:, matrix_axis] = np.arange(self.num_voxels[matrix_axis])
+        return np.asarray(self.coordinatesystem.coordinate(ids))[:, plot_axis]
+
+    def _plotly_figures(self, px, go, title: str = "", **kwargs) -> list:
+        """One plotly figure per time step (built, not shown)."""
+        if self.space_dim == 2 and kwargs.get("surpress_2d", False):
+            return []
+        if self.space_dim == 3 and kwargs.get("surpress_3d", False):
+            return []
+        frames = [as_numpy(self._frame_at(self.img, k)) for k in range(self.time_num)]
+        if self.space_dim == 2:
+            return [
+                self._plotly_2d(px, frame, self._frame_label(title, k))
+                for k, frame in enumerate(frames)
+            ]
+        return [self._plotly_3d(go, frame, **kwargs) for frame in frames]
+
+    def _plotly_2d(self, px, frame: np.ndarray, label: str):
+        arr = np.asarray(frame, dtype=float)
+        if np.issubdtype(frame.dtype, np.integer):
+            arr = arr / np.iinfo(frame.dtype).max
+        return px.imshow(
+            arr,
+            title=label,
+            x=self._physical_axis(0),
+            y=self._physical_axis(1),
+            aspect="equal",
+        )
+
+    def _plotly_3d(self, go, frame: np.ndarray, **kwargs):
+        assert self.scalar, "3d plotly views need scalar images."
+        lo, hi = float(frame.min()), float(frame.max())
+        threshold = kwargs.get("threshold", lo)
+        if kwargs.get("relative", False):
+            threshold = lo + threshold * (hi - lo)
+        ids = np.indices(frame.shape[:3]).reshape(3, -1).T
+        xyz = np.asarray(self.coordinatesystem.coordinate(ids)).T
+        values = frame.reshape(-1)
+        if kwargs.get("view", "scatter").lower() == "scatter":
+            keep = values > threshold
+            trace = go.Scatter3d(
+                x=xyz[0][keep],
+                y=xyz[1][keep],
+                z=xyz[2][keep],
+                mode="markers",
+                marker=dict(size=3, color=values[keep], colorscale="Viridis", opacity=0.5),
+            )
+        else:
+            trace = go.Volume(
+                x=xyz[0],
+                y=xyz[1],
+                z=xyz[2],
+                value=values,
+                isomin=threshold,
+                isomax=hi,
+                opacity=0.5,
+                surface_count=10,
+            )
+        return go.Figure(data=trace)
 
     # ------------------------------------------------------------ arithmetic
     # Each result holds a new tensor; the operands' tensors are not aliased.

@@ -6,9 +6,9 @@ called), ``.npy`` and ``.npz`` files, folders and lists of them, and encoded
 bytes.  The array is decoded on the host and goes to ``device`` (the CUDA
 card unless the caller asks for another), where the transformation chain
 runs; ``transfer="yuv420"`` ships a photograph at 1.5 bytes per pixel
-(:mod:`darsia_tpu_torch.utils.transfer`).  DICOM and VTU need pydicom and
-meshio, which the port does not use: they raise ``NotImplementedError``
-naming the decoder.
+(:mod:`darsia_tpu_torch.utils.transfer`).  DICOM slice stacks (pydicom) and
+VTU meshes (meshio, resampled on the host by scipy's ``griddata``) are read
+through their libraries, imported when called.
 
 An npz written by the JAX package's ``Image.save`` pickles its metadata, with
 the origin as a point type of that package; it is read through
@@ -35,9 +35,11 @@ logger = logging.getLogger(__name__)
 __all__ = [
     "imread",
     "imread_from_bytes",
+    "imread_from_dicom",
     "imread_from_numpy",
     "imread_from_npz",
     "imread_from_optical",
+    "imread_from_vtu",
 ]
 
 _CLASSES = {
@@ -48,9 +50,6 @@ _CLASSES = {
 }
 
 _OPTICAL = (".jpg", ".jpeg", ".png", ".tif", ".tiff")
-
-#: Suffixes the JAX package reads with decoders the port does not use.
-_MISSING_DECODERS = {".dcm": "pydicom", ".vtu": "meshio"}
 
 
 def imread(path, **kwargs) -> Image:
@@ -95,11 +94,10 @@ def imread(path, **kwargs) -> Image:
         image = imread_from_npz(path, **kwargs)
     elif suffix in _OPTICAL:
         image = imread_from_optical(path, **kwargs)
-    elif suffix in _MISSING_DECODERS:
-        raise NotImplementedError(
-            f"reading {suffix} files needs {_MISSING_DECODERS[suffix]}, which is not "
-            "ported; decode the file elsewhere and pass the array to Image"
-        )
+    elif suffix == ".dcm":
+        image = imread_from_dicom(path, **kwargs)
+    elif suffix == ".vtu":
+        image = imread_from_vtu(path, **kwargs)
     else:
         raise NotImplementedError(f"Filetype {suffix} not supported.")
 
@@ -242,3 +240,89 @@ def imread_from_optical(
     return OpticalImage(
         img=array, date=date, time=time, transformations=transformations, device=device, **kwargs
     )
+
+
+# --------------------------------------------------------------------- DICOM
+
+
+def imread_from_dicom(path, **kwargs) -> ScalarImage:
+    """Read DICOM slices (a file or a list) into a 3-D ScalarImage: ordered
+    by SliceLocation (else InstanceNumber), the modality LUT applied, the
+    dimensions from SliceThickness and PixelSpacing.  Needs pydicom."""
+    what = "reading DICOM (.dcm) files"
+    pydicom = optional_module("pydicom", what)
+    util = optional_module("pydicom.pixel_data_handlers.util", what)
+
+    slices = []
+    for p in path if isinstance(path, list) else [path]:
+        ds = pydicom.dcmread(str(p))
+        slices.append((ds, util.apply_modality_lut(ds.pixel_array, ds)))
+
+    def sort_key(item):
+        ds = item[0]
+        return float(getattr(ds, "SliceLocation", getattr(ds, "InstanceNumber", 0)))
+
+    slices.sort(key=sort_key)
+    volume = np.stack([d for _, d in slices], axis=0)
+    ds0 = slices[0][0]
+    spacing = [float(s) for s in getattr(ds0, "PixelSpacing", [1.0, 1.0])]
+    thickness = float(getattr(ds0, "SliceThickness", 1.0))
+    dimensions = [
+        thickness * volume.shape[0],
+        spacing[0] * volume.shape[1],
+        spacing[1] * volume.shape[2],
+    ]
+    kwargs.setdefault("dimensions", dimensions)
+    kwargs.setdefault("space_dim", 3)
+    return ScalarImage(volume, **kwargs)
+
+
+# ----------------------------------------------------------------------- VTU
+
+
+def imread_from_vtu(path, key: str = "data", **kwargs) -> Image:
+    """Read the field ``key`` of VTU meshes (a file, or a list: a series),
+    resampled on the host onto a regular grid of ``shape`` (default
+    200 x 200) spanning the mesh's bounding box.  Needs meshio."""
+    meshio = optional_module("meshio", "reading VTU (.vtu) files")
+
+    paths = path if isinstance(path, list) else [path]
+    arrays = [_resample_vtu(meshio.read(str(p)), key, **kwargs) for p in paths]
+    kwargs.setdefault("dimensions", arrays[0][1])
+    kwargs.pop("shape", None)
+    if len(arrays) == 1:
+        return ScalarImage(arrays[0][0], **kwargs)
+    data = np.stack([a for a, _ in arrays], axis=2)
+    return ScalarImage(data, series=True, **kwargs)
+
+
+def _resample_vtu(mesh, key: str, **kwargs):
+    """(grid, dimensions): the point data ``key``, else the first cell
+    block's, linearly interpolated at the grid's voxel rows (top to bottom)
+    and columns; 0 outside the data's hull."""
+    from scipy.interpolate import griddata
+
+    points = mesh.points[:, :2]
+    values = None
+    if key in mesh.point_data:
+        values = np.asarray(mesh.point_data[key]).squeeze()
+        sample_pts = points
+    else:
+        for block, data in zip(mesh.cells, mesh.cell_data.get(key, [])):
+            centers = mesh.points[block.data].mean(axis=1)[:, :2]
+            values = np.asarray(data).squeeze()
+            sample_pts = centers
+            break
+    if values is None:
+        raise KeyError(f"Key {key} not found in vtu data.")
+
+    shape = kwargs.get("shape", (200, 200))
+    xmin, ymin = points.min(axis=0)
+    xmax, ymax = points.max(axis=0)
+    gy, gx = np.meshgrid(
+        np.linspace(ymax, ymin, shape[0]),
+        np.linspace(xmin, xmax, shape[1]),
+        indexing="ij",
+    )
+    grid = griddata(sample_pts, values, (gx, gy), method="linear", fill_value=0.0)
+    return grid, [ymax - ymin, xmax - xmin]

@@ -120,7 +120,25 @@ def wasserstein_distance_3d(mass_src, mass_dst, **kwargs):
 
 
 def wasserstein_distance_to_vtk(path: Path, info: dict) -> None:
-    """Export a Wasserstein info dict to a legacy VTK file: not ported."""
-    from ..image.image import _absent
+    """Export a Wasserstein info dict (``return_info``) to a legacy VTK file:
+    the images and scalar fields, the fluxes as vectors, the weights'
+    first component."""
+    from ..utils.formats import Format
+    from ..utils.plotting import to_vtk
 
-    raise _absent("wasserstein_distance_to_vtk", "a VTK writer")
+    data = [
+        (key, info[key], fmt)
+        for key, fmt in [
+            ("src", Format.SCALAR),
+            ("dst", Format.SCALAR),
+            ("mass_diff", Format.SCALAR),
+            ("flux", Format.VECTOR),
+            ("weighted_flux", Format.VECTOR),
+            ("pressure", Format.SCALAR),
+            ("transport_density", Format.SCALAR),
+            ("weight", Format.TENSOR),
+            ("weight_inv", Format.TENSOR),
+        ]
+        if key in info
+    ]
+    to_vtk(path, data)

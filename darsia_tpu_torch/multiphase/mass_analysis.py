@@ -17,7 +17,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..image.image import Image, _absent
+from ..image.image import Image, as_numpy
+from ..utils.optional import optional_module
 
 EPSILON = 1e-12
 
@@ -245,7 +246,20 @@ class CO2MassAnalysis:
         )
 
     def log(self, path: Path) -> None:
-        raise _absent("CO2MassAnalysis.log", "matplotlib")
+        """The density and solubility maps as PNGs in the folder ``path``."""
+        plt = optional_module("matplotlib.pyplot", "CO2MassAnalysis.log")
+
+        path = Path(path)
+        path.mkdir(parents=True, exist_ok=True)
+        for name, data in [
+            ("density_gaseous_co2", self.density_gaseous_co2),
+            ("solubility_co2", self.solubility_co2),
+        ]:
+            plt.figure(name)
+            plt.imshow(as_numpy(data))
+            plt.colorbar()
+            plt.savefig(path / f"{name}.png")
+            plt.close()
 
     def __call__(self, chi_g: Image, chi_aq: Image) -> Tuple[Image, Image, Image]:
         """Mass maps (total, gaseous, aqueous) [kg/m^3 bulk]."""

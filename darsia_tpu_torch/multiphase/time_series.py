@@ -1,8 +1,9 @@
 """Time-series tracking of multiphase mass results.
 
-Counterpart of :mod:`darsia_tpu.multiphase.time_series`, without its plots
-(they raise, naming matplotlib).  Totals are ``Geometry.integrate``'s
-float64 sums, one scalar read each.
+Counterpart of :mod:`darsia_tpu.multiphase.time_series`.  Totals are
+``Geometry.integrate``'s float64 sums, one scalar read each.  The plots
+draw with matplotlib, imported when called; the contour masks are
+thresholded where the result lies and copied as booleans.
 """
 
 from __future__ import annotations
@@ -12,9 +13,10 @@ from pathlib import Path
 
 import numpy as np
 
-from ..image.image import _absent
+from ..image.image import as_numpy
 from ..measure.integration import Geometry
 from ..utils.npz import load_npz
+from ..utils.optional import agg_pyplot, optional_module
 from .mass_analysis import MassAnalysisResults
 
 __all__ = ["MultiphaseTimeSeriesAnalysis", "MultiphaseTimeSeriesData", "TimeSeriesData"]
@@ -74,10 +76,34 @@ class MultiphaseTimeSeriesData(TimeSeriesData):
             setattr(self, attr, list(data[attr]))
 
     def plot_mass_over_time(self, path=None, **kwargs):
-        raise _absent("plot_mass_over_time", "matplotlib")
+        plt = optional_module("matplotlib.pyplot", "plot_mass_over_time")
+
+        plt.figure("mass over time")
+        plt.plot(self.times, self.mass, label="total")
+        plt.plot(self.times, self.mass_g, label="gaseous")
+        plt.plot(self.times, self.mass_aq, label="aqueous")
+        plt.xlabel("time [h]")
+        plt.ylabel("mass [kg]")
+        plt.legend()
+        if path is not None:
+            plt.savefig(path)
+            plt.close()
+        else:
+            plt.show()
 
     def plot_volume_over_time(self, path=None, **kwargs):
-        raise _absent("plot_volume_over_time", "matplotlib")
+        plt = optional_module("matplotlib.pyplot", "plot_volume_over_time")
+
+        plt.figure("volume over time")
+        plt.plot(self.times, self.volume_g, label="gaseous volume")
+        plt.xlabel("time [h]")
+        plt.ylabel("volume [m^3]")
+        plt.legend()
+        if path is not None:
+            plt.savefig(path)
+            plt.close()
+        else:
+            plt.show()
 
 
 class MultiphaseTimeSeriesAnalysis:
@@ -122,10 +148,54 @@ class MultiphaseTimeSeriesAnalysis:
         self.data.plot_volume_over_time(path, **kwargs)
 
     def plot_result(self, mass_analysis_result, component: str, path, vmax=None) -> None:
-        raise _absent("plot_result", "matplotlib")
+        """Save one component map of a mass-analysis result as PNG."""
+        plt = agg_pyplot("plot_result")
 
-    def plot_contour_signal(self, img, mass_analysis_result, values_aq, values_g, path, thickness=5):
-        raise _absent("plot_contour_signal", "matplotlib")
+        plt.figure()
+        plt.imshow(as_numpy(getattr(mass_analysis_result, component).img), vmax=vmax)
+        plt.savefig(path)
+        plt.close()
 
-    def plot_contour_mass(self, img, mass_analysis_result, values, path, thickness=5):
-        raise _absent("plot_contour_mass", "matplotlib")
+    def plot_contour_signal(
+        self,
+        img,
+        mass_analysis_result,
+        values_aq: list,
+        values_g: list,
+        path,
+        thickness: int = 5,
+    ):
+        """Aqueous and gaseous signal contours over the image."""
+        from ..utils.augmented_plotting import plot_contour_on_image
+
+        aq = mass_analysis_result.normalized_signal_aq.img
+        g = mass_analysis_result.normalized_signal_g.img
+        return plot_contour_on_image(
+            img=img,
+            mask=[aq > value for value in values_aq] + [g > value for value in values_g],
+            color=[self.color_aq] * len(values_aq) + [self.color_g] * len(values_g),
+            alpha=list(values_aq) + list(values_g),
+            thickness=thickness,
+            path=path,
+            show_plot=False,
+            return_image=True,
+        )
+
+    def plot_contour_mass(self, img, mass_analysis_result, values: list, path, thickness: int = 5):
+        """Mass iso-contours over the image (alpha scales with the level)."""
+        from ..utils.augmented_plotting import plot_contour_on_image
+
+        lo, hi = min(values), max(values)
+        span = max(hi - lo, 1e-30)
+        alphas = [(v - lo) / span * 0.9 + 0.1 for v in values]
+        mass = mass_analysis_result.mass.img
+        return plot_contour_on_image(
+            img=img,
+            mask=[mass > value for value in values],
+            color=[self.color_g] * len(values),
+            alpha=alphas,
+            thickness=thickness,
+            path=path,
+            show_plot=False,
+            return_image=True,
+        )

@@ -3,12 +3,13 @@
 Counterpart of :mod:`darsia_tpu.ops.resize`: exact block means for
 integer-factor shrinks and ``jax.image.resize`` otherwise.  That resize is
 a separable resample: per axis, a weight matrix of a kernel (a triangle for
-"linear", Keys' cubic for "cubic") at the sample positions ``(i + 0.5) *
-in / out - 0.5``, widened by the shrink factor when antialiasing,
-normalised, and zero where a sample falls outside the input.
-:func:`_resize_jax` builds the same matrices in float32 and contracts each
-axis with them.  Linear upsampling equals ``F.interpolate(mode="bilinear",
-align_corners=False)``, which :func:`upsample_linear` calls.
+"linear", Keys' cubic for "cubic", Lanczos of radius 3 or 5) at the sample
+positions ``(i + 0.5) * in / out - 0.5``, widened by the shrink factor when
+antialiasing (every axis shrinks or keeps its extent), normalised, and zero
+where a sample falls outside the input.  :func:`_resize_jax` builds the
+same matrices in float32 and contracts each axis with them.  Linear 2-D
+upsampling equals ``F.interpolate(mode="bilinear", align_corners=False)``,
+which :func:`upsample_linear` calls; other shapes take the matrices.
 """
 
 from __future__ import annotations
@@ -45,13 +46,17 @@ def downsample_mean(data: torch.Tensor, factors: tuple) -> torch.Tensor:
 
 
 def upsample_linear(data: torch.Tensor, shape: tuple) -> torch.Tensor:
-    """Bilinear upsampling of the two leading axes (``jax.image.resize``
-    with method "linear", edges included)."""
-    if len(shape) != 2:
-        raise NotImplementedError("only 2-D upsampling is ported")
-    x = data.reshape(data.shape[:2] + (-1,)).permute(2, 0, 1)[None].to(torch.float32)
-    out = F.interpolate(x, size=tuple(shape), mode="bilinear", align_corners=False)
-    return out[0].permute(1, 2, 0).reshape(tuple(shape) + tuple(data.shape[2:]))
+    """Linear resampling of the ``len(shape)`` leading axes to ``shape``
+    (``jax.image.resize`` with method "linear": an axis that shrinks is
+    antialiased), in float32."""
+    shape = tuple(int(s) for s in shape)
+    work = data.to(torch.float32)
+    if len(shape) != 2 or any(t < s for s, t in zip(data.shape, shape)):
+        # jax.image.resize's default: each shrinking axis antialiased.
+        return _resize_jax(work, shape, "linear", antialias=True)
+    x = work.reshape(data.shape[:2] + (-1,)).permute(2, 0, 1)[None]
+    out = F.interpolate(x, size=shape, mode="bilinear", align_corners=False)
+    return out[0].permute(1, 2, 0).reshape(shape + tuple(data.shape[2:]))
 
 
 def _triangle(x: torch.Tensor) -> torch.Tensor:
@@ -64,7 +69,36 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2.0, torch.zeros_like(x), out)
 
 
-_KERNELS = {"linear": _triangle, "cubic": _keys_cubic}
+def _lanczos(radius: float):
+    def kernel(x: torch.Tensor) -> torch.Tensor:
+        y = radius * torch.sin(math.pi * x) * torch.sin(math.pi * x / radius)
+        ones = torch.ones_like(x)
+        out = torch.where(x > 1e-3, y / torch.where(x != 0, math.pi**2 * x**2, ones), ones)
+        return torch.where(x > radius, torch.zeros_like(x), out)
+
+    return kernel
+
+
+_KERNELS = {
+    "linear": _triangle,
+    "cubic": _keys_cubic,
+    "lanczos3": _lanczos(3.0),
+    "lanczos5": _lanczos(5.0),
+}
+
+#: ``jax.image.resize``'s method names -> the kernel (or "nearest").
+_JAX_METHODS = {
+    "nearest": "nearest",
+    "linear": "linear",
+    "bilinear": "linear",
+    "trilinear": "linear",
+    "triangle": "linear",
+    "cubic": "cubic",
+    "bicubic": "cubic",
+    "tricubic": "cubic",
+    "lanczos3": "lanczos3",
+    "lanczos5": "lanczos5",
+}
 
 
 def _weight_matrix(n_in: int, n_out: int, kernel, antialias: bool, device):
@@ -89,7 +123,15 @@ def _weight_matrix(n_in: int, n_out: int, kernel, antialias: bool, device):
 
 def _resize_jax(data: torch.Tensor, shape: tuple, method: str, antialias: bool):
     """``jax.image.resize(data, shape + data.shape[len(shape):], method,
-    antialias)`` for float32 data."""
+    antialias)`` for float32 data.
+
+    Raises:
+        ValueError: a method name ``jax.image.resize`` does not know.
+
+    """
+    if method not in _JAX_METHODS:
+        raise ValueError(f'Unknown resize method "{method}"')
+    method = _JAX_METHODS[method]
     out = data
     for d, (n_in, n_out) in enumerate(zip(data.shape, shape)):
         if n_in == n_out:
@@ -129,8 +171,6 @@ def resize_array(
         out = data
     else:
         method = _METHODS.get(interpolation.lower(), interpolation.lower())
-        if method not in ("nearest", *_KERNELS):
-            raise NotImplementedError(f"interpolation {interpolation!r} is not ported")
         work = data.to(torch.float32)
         integer_down = all(s % t == 0 and s >= t for s, t in zip(spatial, target))
         if method == "linear" and integer_down:

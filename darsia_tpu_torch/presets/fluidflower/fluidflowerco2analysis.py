@@ -4,8 +4,8 @@ Counterpart of :mod:`darsia_tpu.presets.fluidflower.fluidflowerco2analysis`.
 The expert-knowledge masks stay on the image's device: a map is masked with
 one ``torch.where``, and whether any pixel is masked (so that the binary
 clean-up runs again) is one host read.  Unlike the JAX package, the mask is
-applied again after that clean-up, so CO2(g) stays inside CO2.  Contour plots need matplotlib, which
-is not a dependency of this package: asking for them raises.
+applied again after that clean-up, so CO2(g) stays inside CO2.  The contour
+plots import matplotlib when asked for (``write_contours_to_file``).
 """
 
 from __future__ import annotations
@@ -16,8 +16,9 @@ from typing import Union
 import numpy as np
 import torch
 
-from ...image.image import _absent, as_numpy, as_tensor
+from ...image.image import as_numpy, as_tensor
 from ...manager.co2analysis import CO2Analysis
+from ...utils.optional import agg_pyplot
 from .benchmarkco2model import (
     benchmark_binary_cleaning_preset,
     benchmark_concentration_analysis_preset,
@@ -123,7 +124,16 @@ class FluidFlowerCO2Analysis(CO2Analysis):
         co2_gas = self.determine_co2_gas_mask(co2)
 
         if kwargs.pop("write_contours_to_file", False):
-            raise _absent("write_contours_to_file (contour plots)", "matplotlib")
+            plt = agg_pyplot("write_contours_to_file")
+
+            out = self.path_to_results / "contour_plots"
+            out.mkdir(parents=True, exist_ok=True)
+            fig, ax = plt.subplots()
+            ax.imshow(as_numpy(self.img.img.clamp(0, 1)))
+            ax.contour(as_numpy(co2.img), levels=[0.5], colors="g")
+            ax.contour(as_numpy(co2_gas.img), levels=[0.5], colors="y")
+            fig.savefig(out / f"{img_id}_with_contours.jpg", dpi=200)
+            plt.close(fig)
 
         if kwargs.pop("write_segmentation_to_file", False) or kwargs.pop(
             "write_coarse_segmentation_to_file", False

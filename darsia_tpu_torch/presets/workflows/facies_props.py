@@ -3,7 +3,8 @@
 Counterpart of :mod:`darsia_tpu.presets.workflows.facies_props`.  The maps
 are float32 on the facies' device, one gather of a per-label table
 (labels without a value get 0, as in the JAX package); the CSV is read with
-the ``csv`` module, where the JAX package uses pandas.
+the ``csv`` module, where the JAX package uses pandas, and an ``.xlsx``
+table through pandas (imported when called).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 
 from ...multiphase.mass_analysis import full_like
 from ...signals.models.basemodel import LabelIndex
+from ...utils.csv_table import read_excel_columns
 
 __all__ = ["FaciesProps"]
 
@@ -46,23 +48,21 @@ class FaciesProps:
 
     @classmethod
     def load(cls, facies, path: Path) -> "FaciesProps":
-        """Load facies properties from a CSV with columns id, porosity,
-        permeability (an ``.xlsx`` file raises: no Excel reader on the
-        card's machine)."""
+        """Load facies properties from a CSV or XLSX table with columns id,
+        porosity, permeability."""
         path = Path(path)
         if path.suffix.lower() == ".xlsx":
-            raise NotImplementedError(
-                f"{path}: Excel facies properties need pandas and openpyxl; save the table as .csv"
-            )
-        if path.suffix.lower() != ".csv":
+            table = read_excel_columns(path, what="reading Excel facies properties")
+        elif path.suffix.lower() == ".csv":
+            with open(path, newline="") as f:
+                rows = list(csv.DictReader(f))
+            table = {name: [row[name] for row in rows] for name in (rows[0] if rows else {})}
+        else:
             raise ValueError("Facies properties file must be .csv or .xlsx.")
-        with open(path, newline="") as f:
-            rows = list(csv.DictReader(f))
         required = {"id", "porosity", "permeability"}
-        columns = set(rows[0].keys()) if rows else set()
-        if not required.issubset(columns):
+        if not required.issubset(table):
             raise ValueError(f"Facies properties file must contain columns {sorted(required)}.")
-        ids = [int(np.float64(row["id"])) for row in rows]
-        porosity = dict(zip(ids, (float(row["porosity"]) for row in rows)))
-        permeability = dict(zip(ids, (float(row["permeability"]) for row in rows)))
+        ids = [int(np.float64(v)) for v in table["id"]]
+        porosity = dict(zip(ids, (float(v) for v in table["porosity"])))
+        permeability = dict(zip(ids, (float(v) for v in table["permeability"])))
         return cls(facies, porosity=porosity, permeability=permeability)

@@ -18,13 +18,14 @@ import numpy as np
 import torch
 
 from ...analysis.concentrationanalysis import ConcentrationAnalysis
-from ...image.image import _absent, as_numpy
+from ...image.image import as_numpy
 from ...signals.color.color_mode import ColorMode
 from ...signals.color.color_path import ColorPath, define_color_path
 from ...signals.models.basemodel import HeterogeneousModel
 from ...signals.models.clipmodel import ClipModel
 from ...signals.models.color_path_interpolation import ColorPathInterpolation
 from ...signals.models.combinedmodel import CombinedModel
+from ...utils.optional import optional_module
 
 __all__ = ["HeterogeneousColorAnalysis"]
 
@@ -153,9 +154,8 @@ class HeterogeneousColorAnalysis(ConcentrationAnalysis):
         self, mass_computation, mask, calibration_images: list, experiment, cmap=None, show=False
     ) -> dict:
         """The integrated mass of the calibration images against the
-        injection protocol: the time series and its square error."""
-        if show:
-            raise _absent("global_calibration_flash(show=True)", "matplotlib")
+        injection protocol: the time series and its square error (with
+        ``show``, also plotted)."""
         times, expected, integrated = [], [], []
         for img in calibration_images:
             time_h = float(np.asarray(img.time)) / 3600.0 if img.time is not None else 0.0
@@ -171,6 +171,14 @@ class HeterogeneousColorAnalysis(ConcentrationAnalysis):
             "square_error": square_error,
         }
         self.calibration_history = history
+        if show:
+            plt = optional_module("matplotlib.pyplot", "global_calibration_flash(show=True)")
+
+            plt.figure("Global flash calibration")
+            plt.plot(times, expected, label="expected", color="k")
+            plt.plot(times, integrated, label="integrated", color="b")
+            plt.legend()
+            plt.show()
         return history
 
     def local_calibration_flash(

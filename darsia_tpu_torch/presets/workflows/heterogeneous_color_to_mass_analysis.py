@@ -25,7 +25,6 @@ import numpy as np
 
 from ...analysis.concentrationanalysis import ConcentrationAnalysis
 from ...convert import chain_parts_from_calibration
-from ...image.image import _absent
 from ...signals.color.color_embedding import ColorEmbeddingBasis, parse_color_embedding_basis
 from ...signals.color.color_mode import ColorMode
 from ...signals.models.basemodel import HeterogeneousModel
@@ -33,6 +32,7 @@ from ...signals.models.clipmodel import ClipModel
 from ...signals.models.combinedmodel import CombinedModel
 from ...signals.models.pwtransformation import read_csv
 from ...utils.npz import load_npz
+from ...utils.optional import optional_module
 from .simple_run_analysis import SimpleRunAnalysis
 
 logger = logging.getLogger(__name__)
@@ -362,11 +362,23 @@ class HeterogeneousCalibrationSession:
         return metrics
 
     def preview(self, path=None) -> dict:
-        """The detected and expected masses (a plot to ``path`` needs
-        matplotlib)."""
+        """The detected and expected masses; with ``path``, also plotted
+        there."""
+        metrics = self._evaluate()
         if path is not None:
-            raise _absent("HeterogeneousCalibrationSession.preview(path=...)", "matplotlib")
-        return self._evaluate()
+            plt = optional_module(
+                "matplotlib.pyplot", "HeterogeneousCalibrationSession.preview(path=...)"
+            )
+
+            fig, ax = plt.subplots()
+            ax.plot(metrics["time"], metrics["detected_mass"], "o-", label="detected")
+            ax.plot(metrics["time"], metrics["expected_mass"], "k--", label="expected")
+            ax.set_xlabel("time [h]")
+            ax.set_ylabel("mass [kg]")
+            ax.legend()
+            fig.savefig(Path(path))
+            plt.close(fig)
+        return metrics
 
     def accept(self):
         if self.log is not None:

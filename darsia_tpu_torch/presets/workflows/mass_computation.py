@@ -11,8 +11,8 @@ import logging
 
 import numpy as np
 
-from ...image.image import _absent
 from ...signals.models.pwtransformation import PWTransformation
+from ...utils.optional import optional_module
 from .simple_run_analysis import SimpleRunAnalysis
 
 logger = logging.getLogger(__name__)
@@ -99,4 +99,13 @@ class MassComputation:
         self.transformation.save(path)
 
     def show(self) -> None:
-        raise _absent("MassComputation.show", "matplotlib")
+        """Plot the signal-to-mass transformation's nodes."""
+        plt = optional_module("matplotlib.pyplot", "MassComputation.show")
+
+        supports = np.asarray(self.transformation.supports)
+        values = np.asarray(self.transformation.values)
+        plt.figure("MassComputation transformation")
+        plt.plot(supports, values, "o-")
+        plt.xlabel("signal")
+        plt.ylabel("transformed signal")
+        plt.show()

@@ -2,8 +2,9 @@
 the facies properties.
 
 Counterpart of :mod:`darsia_tpu.presets.workflows.setup.setup_facies`; the
-labels are read on ``device`` (None: the card) and the properties' CSV with
-the ``csv`` module (an ``.xlsx`` table raises).
+labels are read on ``device`` (None: the card), the properties' CSV with
+the ``csv`` module and an ``.xlsx`` table through pandas (imported when
+called).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 
 from ....image.image import as_numpy
 from ....image.imread import imread
+from ....utils.csv_table import read_excel_columns
 from ....utils.segmentation import reassign_labels
 from ..config.fluidflower_config import FluidFlowerConfig
 from .illustrations import save_discrete_map_illustration
@@ -38,11 +40,11 @@ def setup_facies(cls=None, path=None, show: bool = False, device=None):
 
     props_path = Path(config.facies.props)
     if props_path.suffix == ".xlsx":
-        raise NotImplementedError(
-            f"{props_path}: Excel facies properties need pandas and openpyxl; save the table as .csv"
-        )
-    with open(props_path, newline="") as f:
-        facies_ids = {int(np.float64(row["id"])) for row in csv.DictReader(f)}
+        ids = read_excel_columns(props_path, what="reading Excel facies properties")["id"]
+    else:
+        with open(props_path, newline="") as f:
+            ids = [row["id"] for row in csv.DictReader(f)]
+    facies_ids = {int(np.float64(v)) for v in ids}
     for facies_id in np.unique(as_numpy(facies.img)):
         if int(facies_id) not in facies_ids:
             raise ValueError(f"Facies id {facies_id} not found in facies properties.")

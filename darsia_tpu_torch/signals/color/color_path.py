@@ -17,7 +17,8 @@ from typing import Literal, Optional
 import numpy as np
 import torch
 
-from ...image.image import _absent, as_numpy, as_tensor
+from ...image.image import as_numpy, as_tensor
+from ...utils.optional import optional_module
 from .color_mode import ColorMode
 
 __all__ = ["ColorPath", "define_color_path"]
@@ -72,13 +73,30 @@ class ColorPath:
         return [sampled[i] for i in range(n_colors)]
 
     def get_color_map(self, n_colors: int = 256, name: Optional[str] = None):
-        raise _absent("ColorPath.get_color_map", "matplotlib")
+        """Matplotlib colormap along the path."""
+        colors = optional_module("matplotlib.colors", "ColorPath.get_color_map")
+
+        sampled = np.clip(np.array(self.sample_absolute_color_path(n_colors)), 0, 1)
+        return colors.ListedColormap(sampled, name=name or self.name)
 
     def show_cmap(self) -> None:
-        raise _absent("ColorPath.show_cmap", "matplotlib")
+        plt = optional_module("matplotlib.pyplot", "ColorPath.show_cmap")
+
+        gradient = np.linspace(0, 1, 256)[None].repeat(16, axis=0)
+        plt.imshow(gradient, cmap=self.get_color_map(), aspect="auto")
+        plt.show()
 
     def show_path(self, **kwargs) -> None:
-        raise _absent("ColorPath.show_path", "matplotlib")
+        plt = optional_module("matplotlib.pyplot", "ColorPath.show_path")
+
+        fig = plt.figure()
+        ax = fig.add_subplot(projection="3d")
+        pts = np.array(self.colors)
+        ax.plot(pts[:, 0], pts[:, 1], pts[:, 2], "o-")
+        ax.set_xlabel("R")
+        ax.set_ylabel("G")
+        ax.set_zlabel("B")
+        plt.show()
 
     # ------------------------------------------------------------------- io
 

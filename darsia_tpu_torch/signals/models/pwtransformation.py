@@ -17,8 +17,9 @@ from warnings import warn
 import numpy as np
 import torch
 
-from ...image.image import _absent, as_numpy, as_tensor
+from ...image.image import as_numpy, as_tensor
 from ...ops.interp import interp
+from ...utils.optional import agg_pyplot
 
 __all__ = ["PWTransformation", "read_csv"]
 
@@ -126,6 +127,15 @@ class PWTransformation:
         return cls(supports=supports, values=values)
 
     def log(self, log: Optional[Path]) -> None:
+        """Plot the transformation over its supports to the file ``log``."""
         if not log:
             return
-        raise _absent("PWTransformation.log", "matplotlib")
+        plt = agg_pyplot("PWTransformation.log")
+
+        x = np.linspace(float(self.supports[0]), float(self.supports[-1]), 1000)
+        plt.figure()
+        plt.plot(x, as_numpy(self._call_for_array(torch.from_numpy(x))))
+        plt.xlabel("Signal")
+        plt.ylabel("Converted signal")
+        plt.savefig(log)
+        plt.close()

@@ -10,6 +10,8 @@ joins them), sorts by a column (stable, missing values last, as
 ``sort_values`` does) and writes it with ``index=False``.  A float read back
 is Python's ``float()`` of the cell, exact; pandas' C parser may move its
 last bit, so after a second run the two packages' files can differ there.
+An Excel sheet has no reader but pandas': :func:`read_excel_columns` imports
+it (and its engine) when called.
 """
 
 from __future__ import annotations
@@ -21,7 +23,9 @@ from datetime import datetime
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["CsvTable", "csv_cell", "datetime_column_cells"]
+from .optional import optional_module
+
+__all__ = ["CsvTable", "csv_cell", "datetime_column_cells", "read_excel_columns"]
 
 _INT = re.compile(r"^[+-]?\d+$")
 _BOOLS = {"True": True, "TRUE": True, "true": True, "False": False, "FALSE": False, "false": False}
@@ -68,6 +72,25 @@ def datetime_column_cells(values: list) -> list:
         return f"{text}.{v.microsecond:06d}"[: len(text) + 1 + digits] if digits else text
 
     return [cell(v) for v in values]
+
+
+def read_excel_columns(path, sheet=None, what: str = "reading an Excel table") -> dict:
+    """The columns of one sheet of an ``.xlsx`` or ``.xls`` file (the first
+    sheet when ``sheet`` is None), read by ``pandas.read_excel``: column
+    name -> cells in file order, a datetime as a ``datetime``, a missing
+    cell as None.  Needs pandas and its reader for the suffix (openpyxl,
+    xlrd)."""
+    path = Path(path)
+    pd = optional_module("pandas", what)
+    optional_module("xlrd" if path.suffix.lower() == ".xls" else "openpyxl", what)
+    frame = pd.read_excel(path, sheet_name=0 if sheet is None else sheet)
+
+    def cell(value):
+        if pd.isna(value):
+            return None
+        return value.to_pydatetime() if isinstance(value, pd.Timestamp) else value
+
+    return {name: [cell(v) for v in frame[name].tolist()] for name in frame.columns}
 
 
 def _infer_column(cells: list) -> list:

@@ -2,12 +2,12 @@
 
 Every public name of ``darsia_tpu`` that some module of ``darsia_tpu_torch``
 defines is reachable as ``darsia_tpu_torch.<name>``, and is the port's own
-object.  The names of the parts that cannot be ported to the card's machine
-(ROADMAP Queue 1, "Not portable": the DICOM and VTU decoders, plots, VTK,
-Excel) are the only exception.  The calibration, helper and utils workflow
-modules keep every name of the JAX modules' ``__all__``; those that need
-OpenCV or matplotlib (media, contours, plots) say so in their module's
-docstring.  Also the two signatures that ROADMAP Queue 3
+object, with no exception: the display and export layer (plots, VTK, the
+DICOM and VTU readers) is ported too, and runs where its library imports.
+The calibration, helper and utils workflow modules keep every name of the
+JAX modules' ``__all__``; those that need OpenCV or matplotlib (media,
+contours, plots) say so in their module's docstring, and raise naming the
+library where it does not import.  Also the two signatures that ROADMAP Queue 3
 fault P1 names: ``interpolate_measurements_2d`` takes JAX's two arguments
 (the device defaults to the card), and
 ``load_curvature_correction_config_from_toml`` warns on a file without a
@@ -18,6 +18,7 @@ import __future__
 import importlib
 import inspect
 import pkgutil
+import sys
 import types
 
 import numpy as np
@@ -29,17 +30,8 @@ import darsia_tpu_torch as dt
 
 torch.set_num_threads(1)
 
-#: ROADMAP Queue 1, "Not portable on the card's machine".
-NOT_PORTABLE = {
-    "imread_from_dicom",  # DICOM
-    "imread_from_vtu",  # VTU
-    "plotting",  # show*, plots, to_vtk
-    "augmented_plotting",
-    "plot_contour_on_image",
-    "plot_distribution_on_image",
-    "plot_image_statistics",
-    "to_vtk",
-}
+#: Public JAX names the port leaves out: none.
+NOT_PORTABLE: set = set()
 
 
 def public_jax_names() -> list:
@@ -174,8 +166,8 @@ def test_curvature_toml_loader_warns_like_jax(tmp_path):
     assert port["bulge"]["horizontal_bulge"] == ref["bulge"]["horizontal_bulge"]
 
 
-#: ROADMAP Queue 1, "Not portable on the card's machine": workflow helpers
-#: that exist in the port but need a library that machine lacks.
+#: Workflow helpers that need a library the card's machine lacks (ROADMAP
+#: Queue 1): they raise naming it where it does not import.
 NEEDS_LIBRARY = {
     "utils.utils_media.build_media": "OpenCV",
     "utils.roi_visualization.render_active_region": "OpenCV",
@@ -237,3 +229,95 @@ def test_workflow_packages_export_the_jax_names(package):
     assert names and not [n for n in names if not hasattr(port, n)]
     workflows = importlib.import_module("darsia_tpu_torch.presets.workflows")
     assert getattr(workflows, package) is port
+
+
+@pytest.mark.parametrize(
+    "name",
+    [
+        "imread_from_dicom",
+        "imread_from_vtu",
+        "plotting",
+        "augmented_plotting",
+        "plot_contour_on_image",
+        "plot_distribution_on_image",
+        "plot_image_statistics",
+        "to_vtk",
+        "wasserstein_distance_to_vtk",
+    ],
+)
+def test_display_and_export_names_are_the_ports_own(name):
+    value = getattr(dt, name)
+    module = value.__name__ if isinstance(value, types.ModuleType) else value.__module__
+    assert module.startswith("darsia_tpu_torch.") and hasattr(da, name)
+
+
+def _blocked_calls(tmp_path) -> dict:
+    """Each NEEDS_LIBRARY entry that imports its library: (the modules to
+    block, a call that reaches the import)."""
+    def module(name):
+        return importlib.import_module(f"darsia_tpu_torch.presets.workflows.{name}")
+
+    seg, thr = module("analysis.analysis_segmentation"), module("analysis.analysis_thresholding")
+    helper_result_reader, helper_roi = module("helper.helper_result_reader"), module("helper.helper_roi")
+    roi_visualization, utils_media = module("utils.roi_visualization"), module("utils.utils_media")
+
+    image = dt.OpticalImage(torch.rand(6, 8, 3), width=0.8, height=0.6)
+    partial = torch.zeros(6, 8, dtype=torch.bool)
+    partial[1:4, 2:5] = True
+    config = tmp_path / "config.toml"
+    mpl = "matplotlib"
+    return {
+        "utils.utils_media.build_media": ("cv2", lambda: utils_media.build_media(config)),
+        "utils.roi_visualization.render_active_region": (
+            "cv2",
+            lambda: roi_visualization.render_active_region(image, partial),
+        ),
+        "helper.helper_roi.helper_roi_viewer": (mpl, lambda: helper_roi.helper_roi_viewer(config)),
+        "helper.helper_roi.launch_roi_helper_viewer": (
+            mpl,
+            lambda: helper_roi.launch_roi_helper_viewer([image], mode="mass"),
+        ),
+        "helper.helper_roi.launch_roi_viewer": (
+            mpl,
+            lambda: helper_roi.launch_roi_viewer(
+                [image], roi_entries={"box": np.array([[0.1, 0.1], [0.5, 0.4]])}, title_prefix="ROI"
+            ),
+        ),
+        "helper.helper_result_reader.launch_result_reader": (
+            mpl,
+            lambda: helper_result_reader.launch_result_reader([image], mode="mass"),
+        ),
+        "analysis.analysis_segmentation.analysis_segmentation": (mpl, lambda: seg.analysis_segmentation(config)),
+        "analysis.analysis_segmentation.analysis_segmentation_from_context": (
+            mpl,
+            lambda: seg.analysis_segmentation_from_context(None),
+        ),
+        "analysis.analysis_thresholding.analysis_thresholding": (mpl, lambda: thr.analysis_thresholding(config)),
+        "analysis.analysis_thresholding.analysis_thresholding_from_context": (
+            mpl,
+            lambda: thr.analysis_thresholding_from_context(None),
+        ),
+    }
+
+
+@pytest.mark.parametrize("key", sorted(NEEDS_LIBRARY))
+def test_needs_library_entries_name_their_library_where_it_is_absent(key, tmp_path, monkeypatch):
+    """``draw_active_region`` draws on a matplotlib axis its caller made (a
+    caller without matplotlib has none): it draws on an Agg axis here."""
+    if key == "utils.roi_visualization.draw_active_region":
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        from darsia_tpu_torch.presets.workflows.utils.roi_visualization import draw_active_region
+
+        fig, ax = plt.subplots()
+        full = draw_active_region(ax, torch.rand(6, 8, 3))
+        plt.close(fig)
+        assert full.mask.all() and len(ax.images) == 1
+        return
+    library, call = _blocked_calls(tmp_path)[key]
+    for name in [n for n in sys.modules if n.split(".")[0] == library] + [library]:
+        monkeypatch.setitem(sys.modules, name, None)
+    with pytest.raises(ImportError, match=NEEDS_LIBRARY[key] if library == "matplotlib" else "OpenCV"):
+        call()

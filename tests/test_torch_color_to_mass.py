@@ -185,8 +185,8 @@ def test_manual_calibration_session(tmp_path):
     np.testing.assert_allclose(chain.signal_model.model[1][0].values, old * 1.2)
     assert chain.flash.max_value_g == 3.0 and len(session.iterations) == 2
     assert session.preview()["detected_mass"].shape == (1,) and moved["error"] != first["error"]
-    with pytest.raises(NotImplementedError, match="matplotlib"):
-        session.preview(path=tmp_path / "preview.png")
+    assert session.preview(path=tmp_path / "preview.png")["detected_mass"].shape == (1,)
+    assert (tmp_path / "preview.png").stat().st_size > 0
     assert session.accept() is chain
     assert (tmp_path / "log" / "calibration_log.npz").exists()
     assert (tmp_path / "log" / "calibrated" / "flash.npz").exists()
@@ -333,8 +333,8 @@ def test_pw_transformation_and_inverse_against_jax(tmp_path):
     pws[1].update(values=[0.05], dofs=[1])
     assert pws[1].values[1] == 0.05
     close(pws[1](torch.from_numpy(x)), da.PWTransformation(supports, pws[1].values)(x))
-    with pytest.raises(NotImplementedError, match="matplotlib"):
-        pws[1].log(tmp_path / "log.png")
+    pws[1].log(tmp_path / "log.png")
+    assert (tmp_path / "log.png").stat().st_size > 0
 
 
 def test_flashes_against_jax(tmp_path):
@@ -485,8 +485,8 @@ def test_time_series_and_run_analysis(tmp_path):
         tracker.data.mass[1] = 5.0
         tracker.clean(3.0)
     assert back.data.mass == jax_back.data.mass
-    with pytest.raises(NotImplementedError, match="matplotlib"):
-        trackers[1].plot_gas(None, None, None, None)
+    canvas = trackers[1].plot_gas(timg, timg, tc(timg), None)
+    assert canvas.dtype == np.uint8 and canvas.ndim == 3 and canvas.shape[-1] == 3
     data = dt.SimpleMultiphaseTimeSeriesData()
     data.append(0.0, 1.0, 0.5, 0.5, name="a")
     data.reset()

@@ -7,6 +7,7 @@ packages: the same datetimes, image selections, injected masses and
 pressure/temperature states.  The port reads the CSV files without pandas.
 """
 
+import sys
 from datetime import datetime, timedelta
 from pathlib import Path
 from types import SimpleNamespace
@@ -207,11 +208,12 @@ def test_templates_paths_and_rate_columns_against_jax(tmp_path):
         te.InjectionProtocol(bad)
 
 
-def test_formats_and_legacy_protocol(tmp_path):
-    """Excel protocols raise and name the libraries; an unknown suffix and a
-    non-ISO datetime raise; the legacy interval protocol's JSON reads both
-    ways."""
-    with pytest.raises(NotImplementedError, match="openpyxl"):
+def test_formats_and_legacy_protocol(tmp_path, monkeypatch):
+    """Excel protocols name pandas' Excel reader where it does not import;
+    an unknown suffix and a non-ISO datetime raise; the legacy interval
+    protocol's JSON reads both ways."""
+    monkeypatch.setitem(sys.modules, "openpyxl", None)
+    with pytest.raises(ImportError, match="openpyxl"):
         te.InjectionProtocol(tmp_path / "injection.xlsx")
     with pytest.raises(ValueError, match="Unsupported"):
         te.InjectionProtocol(tmp_path / "injection.txt")

@@ -148,15 +148,15 @@ def test_imread_default_device_is_the_card(tmp_path):
         (".jpg", "cv2", ImportError),
         (".PNG", "cv2", ImportError),
         (".tif", "cv2", ImportError),
-        (".dcm", "pydicom", NotImplementedError),
-        (".vtu", "meshio", NotImplementedError),
+        (".dcm", "pydicom", ImportError),
+        (".vtu", "meshio", ImportError),
     ],
 )
 def test_imread_names_the_missing_decoder(suffix, decoder, error, tmp_path, monkeypatch):
-    """Photographs decode through OpenCV, imported when read: where it does
-    not import, the read names it.  The port does not use pydicom and
-    meshio."""
-    monkeypatch.setitem(sys.modules, "cv2", None)
+    """Photographs decode through OpenCV, DICOM through pydicom and VTU
+    through meshio, each imported when read: where it does not import, the
+    read names it."""
+    monkeypatch.setitem(sys.modules, decoder, None)
     path = tmp_path / f"file{suffix}"
     path.write_bytes(b"\0")
     with pytest.raises(error, match=decoder):

@@ -1,10 +1,12 @@
 """The port imports and runs with JAX and OpenCV absent.
 
-A subprocess blocks ``jax`` and ``cv2`` (``sys.modules[name] = None`` makes
-any import of them fail), imports ``darsia_tpu_torch`` and runs the small
-correct -> register -> concentrate pipeline on a numpy-made frame.  It also
-imports every module of the package and runs the heterogeneous
-colour-to-mass chain, a W1 solve, the FluidFlower CO2 analysis and rig from
+A subprocess blocks ``jax`` and ``cv2``, and the display and export layer's
+libraries (matplotlib, plotly, pydicom, meshio, pandas), as
+``sys.modules[name] = None`` (any import of them fails), imports
+``darsia_tpu_torch`` and runs the small correct -> register -> concentrate
+pipeline on a numpy-made frame.  It also imports every module of the
+package and runs the heterogeneous colour-to-mass chain, a W1 solve and its
+VTK export (which needs no library), the FluidFlower CO2 analysis and rig from
 a numpy-made JSON config and npz frames, the rig workflow from a TOML
 config (set-up steps without matplotlib warn and write their .npz), the
 colour-path regression and the colour report (the active region's contours
@@ -27,7 +29,7 @@ REPO = Path(__file__).resolve().parent.parent
 
 SCRIPT = r"""
 import sys
-for name in ("jax", "jaxlib", "cv2", "pandas", "matplotlib"):
+for name in ("jax", "jaxlib", "cv2", "pandas", "matplotlib", "plotly", "pydicom", "meshio"):
     sys.modules[name] = None
 sys.path.insert(0, sys.argv[1])
 
@@ -256,6 +258,11 @@ w1 = dt.wasserstein_distance(
     method="newton", options={"L": 1e9, "tol_increment": 1e-3, "tol_distance": 1e-3},
 )
 assert abs(w1 - 0.379543951823) < 0.01, w1
+with tempfile.TemporaryDirectory() as tmp:
+    dt.ScalarImage(torch.from_numpy(square), width=1, height=1).to_vtk(Path(tmp) / "square")
+    lines = (Path(tmp) / "square.vtk").read_text().splitlines()
+    # Rows bottom-up: voxel (2, 2) is value 72 of 100.
+    assert len(lines) == 10 + 100 and float(lines[10 + 72]) == float(square[2, 2])
 
 # The FluidFlower CO2 analysis from a JSON config and npz frames (per-label
 # static CO2 thresholds, per-label Otsu for CO2(g)), and a rig segmented
@@ -406,7 +413,7 @@ print("ok", tuple(out.img.shape))
 # result); image.npz with image.npy; affine.npz.
 READ_SCRIPT = r"""
 import sys
-for name in ("jax", "jaxlib", "darsia_tpu", "cv2", "pandas", "matplotlib"):
+for name in ("jax", "jaxlib", "darsia_tpu", "cv2", "pandas", "matplotlib", "plotly", "pydicom", "meshio"):
     sys.modules[name] = None
 sys.path.insert(0, sys.argv[1])
 from pathlib import Path
@@ -495,7 +502,10 @@ rig = dt.FluidFlowerRig(ff / "rig.npz", ff / "rig.json", device="cpu")
 assert np.array_equal(rig.labels, np.load(ff / "labels.npy"))
 assert [os.stat(p).st_mtime_ns for p in caches] == stamps
 loaded = [m for m, module in sys.modules.items() if module is not None]
-assert not any(m.split(".")[0] in ("jax", "jaxlib", "darsia_tpu", "pandas", "matplotlib") for m in loaded)
+assert not any(
+    m.split(".")[0] in ("jax", "jaxlib", "darsia_tpu", "pandas", "matplotlib", "plotly", "pydicom", "meshio")
+    for m in loaded
+)
 print("ok", len(names))
 """
 
@@ -609,7 +619,7 @@ def test_port_reads_jax_files_without_the_jax_package(tmp_path):
 
 
 def test_package_sources_import_no_jax():
-    banned = ("jax", "darsia_tpu", "cv2", "pandas", "matplotlib")
+    banned = ("jax", "darsia_tpu", "cv2", "pandas", "matplotlib", "plotly", "pydicom", "meshio")
     for path in (REPO / "darsia_tpu_torch").rglob("*.py"):
         for line in path.read_text().splitlines():
             words = line.split()
