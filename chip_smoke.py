@@ -517,13 +517,37 @@ O. The display and export layer (after phase N).  O1: phase 5's
    copy: within 1e-6 of the data's scale (float32 profiles), 1e-12
    (uint8); timed beside numpy.  No kernel launches (checked).
 
+P. The port's last gaps against the JAX package (after phase O).  P1:
+   ``TranslationAnalysis.build_fused_aligner(120)`` on the bench's
+   registration set-up (8x16 patches) and phase 8's staged 4K probe: its
+   frame bitwise ``fused_align``'s, every patch passing, exactly 2 K1
+   launches per call; built and timed (median of 5 calls after a
+   warm-up).  P2: a 1788x3180 float32 numpy array assigned to a card
+   image's ``img`` lands on cuda:0; ``copy`` and a nearest ``resize`` stay
+   there (the resize bitwise the CPU tensor's) and ``Geometry.integrate``
+   is within 1e-6 of float64 numpy.  P3: ``extract_quadrilateral_ROI`` of
+   phase 4's smooth 4K image with ``shape`` (1500, 2800) and ``pts_dst``:
+   bilinear (one K1 pair; bitwise its plain version on the same field;
+   against a float64 numpy pull-back at 4096 sampled pixels, the two-pass
+   approximation of this field: mean < 5e-3, max < 0.05) and
+   ``inter_nearest`` (the gather warp, no K1; exact at every sample not
+   within 1e-3 of a cell edge).  P4: ``masked_normalized_cross_correlation``
+   of two 4K frames within 1e-5 of float64 numpy.  P5: where matplotlib
+   does not import, the new drawing calls (``plot_translation``,
+   ``ImageRegistration.plot``, ``call_with_output(plot_patch_translation=
+   True)``, ``ColorChecker.plot``, ``ConcentrationAnalysis(verbosity=2)``)
+   raise naming it (5 more than phase O's); where it imports, they render
+   on Agg and the concentration at verbosity 2 equals that at 0.  Each
+   step's launches, the staged probe's correction pair included, are read
+   from 0 and added up; the phase's count is that sum.
+
 Every launch count is set to 0 just before each path of phases 3, 5-7,
-8-11, 14-20, B, E, F, G, H, I, J, K, L, M, N and O and read just after it
-(in M5 the worker's process counts from its start); the ``kernels`` line's
-K1 launches are their sum, 586 before phase E, 28 in it, none in F or G,
-198 in H, 120 in I, 240 in J, 84 in K, 126 in L, 80 in M, 38 in N and none
-in O (1500; checked exactly).  Each of phases 8-12, 14-20, A-O prints its
-seconds.  The
+8-11, 14-20, B, E, F, G, H, I, J, K, L, M, N, O and P and read just after
+it (in M5 the worker's process counts from its start); the ``kernels``
+line's K1 launches are their sum, 586 before phase E, 28 in it, none in F
+or G, 198 in H, 120 in I, 240 in J, 84 in K, 126 in L, 80 in M, 38 in N,
+none in O and 22 in P (1522; checked exactly).  Each of phases 8-12,
+14-20, A-P prints its seconds.  The
 second-to-last line is a JSON object of per-kernel results; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
@@ -7106,6 +7130,290 @@ def phase_display(dt, w2p, conc_image, w1_info: dict, probe_u8: np.ndarray, devi
     return result
 
 
+# ---------------------------------------------------------------- phase P
+
+P_TIMED = 5  # timed aligner calls (median printed)
+# K1 launches in phase P: the staged probe's corrections (one pair), the
+# aligner's first call and fused_align's (a pair each), the timed calls, the
+# bilinear 4K crop's pair, and in P5 the crop's registration and its
+# call_with_output (a pair each).
+P1_SETUP_K1 = 2
+P5_K1 = 2 * 2
+K1_IN_P = P1_SETUP_K1 + 2 * 2 + 2 * P_TIMED + 2 + P5_K1
+# A quadrilateral inside the 4K frame and where it lands in a (1500, 2800)
+# crop, (row, col): displacements within K1's bound, every sample inside.
+P_SRC = np.array([[60.5, 90.25], [1600.0, 70.0], [1650.75, 3000.5], [40.0, 3050.0]])
+P_DST = np.array([[30.0, 40.0], [1460.0, 25.0], [1480.0, 2760.0], [15.0, 2790.0]])
+P_SHAPE = (1500, 2800)
+
+
+def p_homography(dst: np.ndarray, src: np.ndarray) -> np.ndarray:
+    """The float64 3x3 map of (row, col, 1) from ``dst`` to ``src`` points."""
+    A, b = [], []
+    for (x, y), (u, v) in zip(dst, src):
+        A += [[x, y, 1, 0, 0, 0, -u * x, -u * y], [0, 0, 0, x, y, 1, -v * x, -v * y]]
+        b += [u, v]
+    return np.append(np.linalg.solve(np.array(A), np.array(b)), 1.0).reshape(3, 3)
+
+
+def p_flush(w2p, tally: dict) -> dict:
+    """The launches since the last flush: added to ``tally``, then every count
+    set to 0, so that each step of phase P is read from 0 and none is lost."""
+    torch.cuda.synchronize()
+    counts = read_counts(w2p)
+    for name, n in counts.items():
+        tally[name] += n
+    reset_counts(w2p)
+    return counts
+
+
+def p_aligner(dt, w2p, lanes, device, card: str, tally: dict) -> dict:
+    """P1: ``build_fused_aligner`` on the bench's registration set-up at 4K."""
+    probe = staged_probe(dt, lanes, device)
+    ta = dt.ImageRegistration(lanes["analysis"].base, N_patches=[8, 16], rel_overlap=0.1, quality_tol=0.02)
+    ta = ta._engine.translation_analysis
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    aligner = ta.build_fused_aligner(D_REG)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - tic) * 1e3
+    check_counts(p_flush(w2p, tally), {"warp_rows_t": P1_SETUP_K1}, "P1: the staged probe and the set-up")
+    out, shifts, quality = aligner(probe.img)
+    aligned = ta.fused_align(probe, max_disp=D_REG)
+    check_counts(p_flush(w2p, tally), {"warp_rows_t": 4}, "P1: aligner + fused_align")
+    if not torch.equal(aligned.img, out):
+        raise AssertionError("P1: build_fused_aligner's frame is not fused_align's")
+    if tuple(out.shape) != tuple(probe.img.shape) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"P1: bad registered frame {tuple(out.shape)}")
+    if tuple(shifts.shape) != (128, 2) or not bool((quality > 0.02).all()):
+        raise AssertionError("P1: not every one of the 128 patches passed")
+    again, ms, each, counts = median_call_ms(w2p, lambda: aligner(probe.img), P_TIMED, 2, "P1: aligner")
+    p_flush(w2p, tally)  # the timed calls, which median_call_ms read and checked
+    if not torch.equal(again[0], out):
+        raise AssertionError("P1: the aligner is not deterministic")
+    print(
+        f"P1. build_fused_aligner({D_REG}) on the {tuple(probe.img.shape)} probe (8x16 patches): "
+        f"built in {build_ms:.3f} ms, {ms:.4f} ms per call (median of {P_TIMED} after a warm-up: "
+        f"{each}), launches {counts}, bitwise fused_align's frame, on {card}"
+    )
+    return {"build_ms": build_ms, "ms": ms, "each_ms": each}
+
+
+def p_assignment(dt, device, card: str) -> dict:
+    """P2: a 4K numpy array assigned to a card image stays on the card;
+    copy, resize and integrate there."""
+    rng = np.random.default_rng(31)
+    host = rng.random((H, W)).astype(np.float32)
+    image = dt.ScalarImage(torch.zeros((H, W), device=device), **META)
+    tic = time.perf_counter()
+    image.img = host
+    torch.cuda.synchronize()
+    assign_ms = (time.perf_counter() - tic) * 1e3
+    if image.img.device != device or not torch.equal(image.img.cpu(), torch.from_numpy(host)):
+        raise AssertionError(f"P2: the assigned array is on {image.img.device}")
+    copied = image.copy()
+    resized = dt.resize(image, shape=(H // 2, W // 2), interpolation="inter_nearest")
+    on_cpu = dt.resize(
+        dt.ScalarImage(torch.from_numpy(host), **META), shape=(H // 2, W // 2), interpolation="inter_nearest"
+    )
+    if copied.img.device != device or resized.img.device != device:
+        raise AssertionError("P2: copy or resize left the card")
+    if not torch.equal(copied.img, image.img) or not torch.equal(resized.img.cpu(), on_cpu.img):
+        raise AssertionError("P2: copy or resize differs from the host's")
+    integral = float(dt.Geometry(**image.shape_metadata()).integrate(image))
+    want = float(host.astype(np.float64).sum()) * (META["width"] / W) * (META["height"] / H)
+    rel = abs(integral - want) / abs(want)
+    if not rel <= 1e-6:
+        raise AssertionError(f"P2: integral {integral} vs {want} (rel {rel})")
+    print(
+        f"P2. a ({H}, {W}) float32 numpy array assigned to a card image: on {image.img.device} "
+        f"({assign_ms:.3f} ms with its copy), copy and nearest resize on the card (resize == the CPU "
+        f"tensor's), integral rel err {rel:.2e} against float64 numpy (bound 1e-6), on {card}"
+    )
+    return {"assign_ms": assign_ms, "integral_rel_err": rel}
+
+
+def p_quad(dt, w2p, device, card: str, tally: dict) -> dict:
+    """P3: ``extract_quadrilateral_ROI`` at 4K with ``shape`` + ``pts_dst``,
+    bilinear (one K1 pair) and nearest (the gather warp), against a float64
+    numpy pull-back at 4096 sampled pixels."""
+    from darsia_tpu_torch.corrections.shape.quad import quad_coordinate_grid
+    from darsia_tpu_torch.ops.warp import warp_backend
+
+    data = smooth_image(device)
+    host = data.cpu().numpy().astype(np.float64)
+    rng = np.random.default_rng(37)
+    rows, cols = rng.integers(0, P_SHAPE[0], 4096), rng.integers(0, P_SHAPE[1], 4096)
+    pull = p_homography(P_DST, P_SRC) @ np.stack([rows, cols, np.ones(4096)])
+    r, c = pull[0] / pull[2], pull[1] / pull[2]
+    if not (r.min() >= 0 and c.min() >= 0 and r.max() <= H - 1 and c.max() <= W - 1):
+        raise AssertionError("P3: a sample falls outside the frame")
+    r0, c0 = np.floor(r).astype(int), np.floor(c).astype(int)
+    r1, c1 = np.minimum(r0 + 1, H - 1), np.minimum(c0 + 1, W - 1)
+    fr, fc = (r - r0)[:, None], (c - c0)[:, None]
+    bilinear = (
+        (1 - fr) * ((1 - fc) * host[r0, c0] + fc * host[r0, c1]) + fr * ((1 - fc) * host[r1, c0] + fc * host[r1, c1])
+    )
+    nearest = host[np.round(r).astype(int), np.round(c).astype(int)]
+    near_edge = (np.abs(r - np.floor(r) - 0.5) < 1e-3) | (np.abs(c - np.floor(c) - 0.5) < 1e-3)
+    out, kw = {}, {"pts_src": P_SRC, "indexing": "matrix", "shape": P_SHAPE, "pts_dst": P_DST}
+    for interpolation, want_k1, ref in (("inter_linear", 2, bilinear), ("inter_nearest", 0, nearest)):
+        check_counts(p_flush(w2p, tally), {}, f"P3: before the {interpolation} crop")
+        tic = time.perf_counter()
+        crop = dt.extract_quadrilateral_ROI(data, interpolation=interpolation, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - tic) * 1e3
+        check_counts(p_flush(w2p, tally), {"warp_rows_t": want_k1} if want_k1 else {}, f"P3: {interpolation}")
+        if tuple(crop.shape) != P_SHAPE + (3,) or crop.device != device:
+            raise AssertionError(f"P3: {interpolation} crop of shape {tuple(crop.shape)} on {crop.device}")
+        got = crop[torch.from_numpy(rows).to(device), torch.from_numpy(cols).to(device)].cpu().numpy()
+        err = np.abs(got - ref).max(axis=1)
+        if interpolation == "inter_linear":
+            # The crop is K1's two-pass warp: bitwise its plain version on the
+            # same field, and off the exact bilinear pull-back by the two-pass
+            # approximation of this perspective field (its plain version on
+            # the CPU: mean 4.2e-3, max 0.023 over the whole crop).
+            coords = quad_coordinate_grid(P_SRC, P_SHAPE, P_DST, device=device)
+            plain = warp_backend(data, coords, order=1, warp_impl="plain")
+            d_plain = float((crop - plain).abs().max())
+            worst, ties = float(err.max()), 0
+            if not (d_plain <= 1e-6 and float(err.mean()) < 5e-3 and worst < 0.05):
+                raise AssertionError(
+                    f"P3: bilinear crop vs plain K1 {d_plain}; vs float64 numpy mean {float(err.mean())}, max {worst}"
+                )
+        else:
+            ties = int(near_edge.sum())
+            worst = float(err[~near_edge].max())
+            if not worst == 0.0:
+                raise AssertionError(f"P3: nearest crop vs float64 numpy, max |diff| {worst} off the cell edges")
+        print(
+            f"P3. extract_quadrilateral_ROI({interpolation}, shape={P_SHAPE}, pts_dst) of the ({H}, {W}, 3) "
+            f"frame: {ms:.3f} ms (one call, set-up included), {want_k1} K1 launches, max |diff| {worst:.2e} "
+            f"(mean {float(err.mean()):.2e}) against a float64 numpy pull-back at 4096 pixels ({ties} within "
+            f"1e-3 of a cell edge left out; bilinear: the two-pass warp, bitwise plain K1; nearest: exact), "
+            f"on {card}"
+        )
+        out[interpolation] = {"ms": ms, "max_abs_err": worst, "mean_abs_err": float(err.mean()), "edge_samples": ties}
+    return out
+
+
+def p_ncc(dt, device, card: str) -> dict:
+    """P4: ``masked_normalized_cross_correlation`` of two 4K frames against
+    float64 numpy."""
+    from darsia_tpu_torch.ops.fft import masked_normalized_cross_correlation
+
+    src = smooth_image(device)[..., 0]
+    rng = np.random.default_rng(41)
+    dst = 0.7 * src + 0.3 * torch.from_numpy(rng.random((H, W)).astype(np.float32)).to(device)
+    a, b = src.cpu().numpy().astype(np.float64), dst.cpu().numpy().astype(np.float64)
+    a, b = a - a.mean(), b - b.mean()
+    want = float((a * b).sum() / (np.sqrt((a * a).sum() * (b * b).sum()) + 1e-12))
+    masked_normalized_cross_correlation(src, dst)
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    score = masked_normalized_cross_correlation(src, dst)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - tic) * 1e3
+    err = abs(float(score) - want)
+    if score.dtype != torch.float32 or score.device != device or not err <= 1e-5:
+        raise AssertionError(f"P4: NCC {float(score)} ({score.dtype}, {score.device}) vs float64 {want}")
+    print(
+        f"P4. masked_normalized_cross_correlation of two ({H}, {W}) frames: {float(score):.7f} in "
+        f"{ms:.3f} ms on the card, float64 numpy {want:.7f} (|diff| {err:.2e}, bound 1e-5), on {card}"
+    )
+    return {"ms": ms, "abs_err": err}
+
+
+def p_plots(dt, lanes, device, raised_in_o: int, card: str) -> dict:
+    """P5: where matplotlib does not import, the new plots raise naming it;
+    where it does, they render on Agg."""
+    import importlib
+
+    base = lanes["analysis"].base
+    crop = dt.OpticalImage(base.img[:256, :384].clone(), width=0.384, height=0.256)
+    reg = dt.ImageRegistration(crop, N_patches=[2, 3], rel_overlap=0.1)
+    reg(crop)
+    loud = dt.ConcentrationAnalysis(
+        base=crop, signal_reduction=dt.MonochromaticReduction(color="gray"), verbosity=2
+    )
+    calls = {
+        "TranslationAnalysis.plot_translation": lambda: reg._engine.translation_analysis.plot_translation(),
+        "ImageRegistration.plot": lambda: reg.plot(),
+        "call_with_output(plot_patch_translation=True)": lambda: reg._engine.call_with_output(
+            crop, plot_patch_translation=True
+        ),
+        "ColorChecker.plot": lambda: dt.ColorCheckerAfter2014().plot(),
+        "ConcentrationAnalysis(verbosity=2)": lambda: loud(crop),
+    }
+    try:
+        importlib.import_module("matplotlib")
+        present = True
+    except ImportError:
+        present = False
+    raised = 0
+    if present:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        show, plt.show = plt.show, lambda *a, **k: None
+        try:
+            for call in calls.values():
+                call()
+                plt.close("all")
+            quiet = dt.ConcentrationAnalysis(base=crop, signal_reduction=dt.MonochromaticReduction(color="gray"))
+            probe = dt.OpticalImage(torch.roll(crop.img, 3, dims=1), width=0.384, height=0.256)
+            if not torch.equal(loud(probe).img, quiet(probe).img):
+                raise AssertionError("P5: the concentration depends on verbosity")
+            plt.close("all")
+        finally:
+            plt.show = show
+    else:
+        for what, call in calls.items():
+            try:
+                call()
+            except ImportError as err:
+                if "matplotlib" not in str(err):
+                    raise AssertionError(f"P5: {what} raised {err!r}, not naming matplotlib") from err
+                raised += 1
+                continue
+            raise AssertionError(f"P5: {what} did not raise without matplotlib")
+    print(
+        f"P5. matplotlib {'imports' if present else 'does not import'} here: "
+        + (
+            f"{raised} new drawing calls raised naming it ({raised_in_o} in phase O, {raised_in_o + raised} in all)"
+            if not present
+            else f"{len(calls)} new drawing calls rendered on Agg, the concentration at verbosity 2 == at 0"
+        )
+        + f"; on {card}"
+    )
+    return {"raised": raised, "present": present}
+
+
+def phase_gaps(dt, w2p, lanes, device, raised_in_o: int, card: str) -> dict:
+    """Phase P: the port's last gaps against the JAX package."""
+    tic = time.perf_counter()
+    # Every step's launches are read from 0 and added up here: the phase's
+    # count is what its steps launched, set-up included.
+    tally = dict.fromkeys(KERNELS, 0)
+    reset_counts(w2p)
+    result = {"P1": p_aligner(dt, w2p, lanes, device, card, tally)}
+    result["P2"] = p_assignment(dt, device, card)
+    check_counts(p_flush(w2p, tally), {}, "P2: assignment, copy, resize and integrate")
+    result["P3"] = p_quad(dt, w2p, device, card, tally)
+    result["P4"] = p_ncc(dt, device, card)
+    check_counts(p_flush(w2p, tally), {}, "P4: NCC")
+    result["P5"] = p_plots(dt, lanes, device, raised_in_o, card)
+    check_counts(p_flush(w2p, tally), {"warp_rows_t": P5_K1}, "P5: plots")
+    check_counts(tally, {"warp_rows_t": K1_IN_P}, "P: the phase")
+    launches = tally["warp_rows_t"]
+    result["launches"] = launches
+    result["phase_s"] = time.perf_counter() - tic
+    print(f"P. phase {result['phase_s']:.2f} s, {launches} K1 launches, on {card}")
+    return result
+
+
 def profile_batch(dt, src, dst, out_dir: Path, name: str) -> None:
     """torch.profiler over a short batched solve (the Darcy solve and one
     Newton iteration): device busy against the unprofiled time."""
@@ -7391,9 +7699,10 @@ def main() -> int:
     )
     photographs = phase_photographs(dt, w2p, lanes, fingers_run.pop("handoff"), device, card)
     sharded = phase_sharded(dt, w2p, device, card)
-    phase_display(
+    display = phase_display(
         dt, w2p, main_path.pop("image"), transport["F5"].pop("info"), lanes["probe_u8"], device, card
     )
+    gaps = phase_gaps(dt, w2p, lanes, device, display["O3"]["raised"], card)
     phase_volume(dt, device, card)
     phase_kernel_fields(w2p, lanes, device)
 
@@ -7410,17 +7719,18 @@ def main() -> int:
         p["launches"]
         for p in (
             colour_to_mass, fluidflower, rig_config, analysis_run, calibration_run, fingers_run,
-            photographs, sharded,
+            photographs, sharded, gaps,
         )
     )
-    want = (K1_BEFORE_E, K1_IN_E, K1_IN_H, K1_IN_I, K1_IN_J, K1_IN_K, K1_IN_L, K1_IN_M, K1_IN_N)
+    want = (K1_BEFORE_E, K1_IN_E, K1_IN_H, K1_IN_I, K1_IN_J, K1_IN_K, K1_IN_L, K1_IN_M, K1_IN_N, K1_IN_P)
     if (earlier, *later) != want:
         raise AssertionError(
             f"K1 launches: {earlier} before phase E (want {K1_BEFORE_E}), "
             f"{later[0]} in it (want {K1_IN_E}), {later[1]} in phase H (want {K1_IN_H}), "
             f"{later[2]} in phase I (want {K1_IN_I}), {later[3]} in phase J (want {K1_IN_J}), "
             f"{later[4]} in phase K (want {K1_IN_K}), {later[5]} in phase L (want {K1_IN_L}), "
-            f"{later[6]} in phase M (want {K1_IN_M}), {later[7]} in phase N (want {K1_IN_N})"
+            f"{later[6]} in phase M (want {K1_IN_M}), {later[7]} in phase N (want {K1_IN_N}), "
+            f"{later[8]} in phase P (want {K1_IN_P})"
         )
     k1_launches = earlier + sum(later)
     results = {

@@ -6,7 +6,9 @@ baselines), balancing, model conversion and restoration compose as tensor
 functions (:meth:`pipeline_fn`), which
 :class:`~darsia_tpu_torch.analysis.fusedpipeline.FusedAnalysisPipeline`
 inlines.  A time series runs through the single-frame pipeline frame by
-frame, its output stacked on the time axis.
+frame, its output stacked on the time axis.  ``verbosity=2`` draws the
+difference and the scalar, clean and balanced signals as the JAX package's
+eager path does (per frame of a series, into the same four figures).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from ..image.image import Image, ScalarImage, as_numpy, as_tensor
 from ..ops.resize import resize_array
+from ..utils.optional import optional_module
 
 __all__ = ["ConcentrationAnalysis", "PriorPosteriorConcentrationAnalysis"]
 
@@ -56,6 +59,7 @@ class ConcentrationAnalysis:
         self.labels = labels
         self._diff_option = kwargs.get("diff option", "absolute")
         self.first_restoration_then_model = kwargs.get("restoration -> model", False)
+        self.verbosity: int = kwargs.get("verbosity", 0)
         self.find_cleaning_filter()
         self.mask = None
         if self.base is not None:
@@ -110,8 +114,12 @@ class ConcentrationAnalysis:
 
     def _pipeline_stages(self, diff: torch.Tensor) -> torch.Tensor:
         """diff -> concentration."""
-        signal = self._clean_signal(self._reduce_signal(diff))
+        signal = self._reduce_signal(diff)
+        self._inspect(signal, "Scalar signal")
+        signal = self._clean_signal(signal)
+        self._inspect(signal, "Clean signal")
         balanced = self._balance_signal(signal)
+        self._inspect(balanced, "Balanced signal")
         if self.first_restoration_then_model:
             return self._convert_signal(self._restore_signal(balanced), diff)
         return self._restore_signal(self._convert_signal(balanced, diff))
@@ -122,6 +130,7 @@ class ConcentrationAnalysis:
 
         def pipeline(data, reference=None):
             diff = self._diff_arrays(data, reference if has_base else None)
+            self._inspect(diff, "Difference")
             return self._pipeline_stages(diff)
 
         return pipeline
@@ -166,6 +175,15 @@ class ConcentrationAnalysis:
         if concentration.shape[-1] == 1:
             return ScalarImage(concentration[..., 0], **metadata)
         return type(img)(concentration, **metadata)
+
+    def _inspect(self, img: torch.Tensor, title: str) -> None:
+        """At ``verbosity >= 2``, draw a stage's output in the figure
+        ``title`` (one host copy; needs matplotlib).  What is computed does
+        not depend on it."""
+        if self.verbosity >= 2:
+            plt = optional_module("matplotlib.pyplot", "ConcentrationAnalysis(verbosity=2)")
+            plt.figure(title)
+            plt.imshow(as_numpy(img))
 
     def _diff_arrays(self, data, reference):
         option = self._diff_option

@@ -2,8 +2,8 @@
 
 Counterpart of :mod:`darsia_tpu.analysis.contour_smoother` (the same numpy
 smoothers; ``PolyDPSmoother`` needs OpenCV, imported when it is called).
-A contour is an OpenCV-style (N, 1, 2) integer array; the JAX package's
-``Contour`` alias of ``np.ndarray`` is not repeated here.
+A contour is an OpenCV-style (N, 1, 2) integer array (``Contour``, an
+alias of ``np.ndarray``, as in the JAX package).
 Parity: reference
 ``src/darsia/single_image_analysis/contour_smoother.py:18-343``.
 """
@@ -17,6 +17,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 __all__ = [
+    "Contour",
     "ContourSmoother",
     "ContourSmootherSequence",
     "PolyDPSmoother",
@@ -24,6 +25,10 @@ __all__ = [
     "GaussianSmoother",
     "SavitzkyGolaySmoother",
 ]
+
+
+# Type alias of OpenCV-style contours.
+Contour = np.ndarray
 
 
 def _as_xy(contour) -> np.ndarray:

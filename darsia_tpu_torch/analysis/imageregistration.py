@@ -1,6 +1,6 @@
 """Diffeomorphic image registration (single- and multiscale) and its facade.
 
-Counterpart of :mod:`darsia_tpu.analysis.imageregistration` (no plots).
+Counterpart of :mod:`darsia_tpu.analysis.imageregistration`.
 Every path warps through :func:`~darsia_tpu_torch.ops.warp.warp_backend`,
 so on CUDA each warp is a pair of K1 launches.
 """
@@ -64,15 +64,27 @@ class DiffeomorphicImageRegistration:
         return transformed
 
     def call_with_output(
-        self, img, return_patch_translation: bool = False, mask=None
+        self,
+        img,
+        plot_patch_translation: bool = False,
+        return_patch_translation: bool = False,
+        mask=None,
     ):
-        """Register; with ``return_patch_translation`` also return the (N0,
-        N1, 2) metric displacement at the patch centres."""
+        """Register; with ``plot_patch_translation`` draw :meth:`plot`; with
+        ``return_patch_translation`` also return the (N0, N1, 2) metric
+        displacement at the patch centres."""
         transformed = self(img, mask=mask)
+        if plot_patch_translation:
+            self.plot()
         if return_patch_translation:
             ta = self.translation_analysis
             return transformed, ta.return_patch_translation(reverse=True)
         return transformed
+
+    def plot(self, scaling: float = 1.0, mask=None) -> None:
+        """Quiver plot of the registered deformation over the base
+        (:meth:`TranslationAnalysis.plot_translation`; needs matplotlib)."""
+        self.translation_analysis.plot_translation(reverse=False, scaling=scaling, mask=mask)
 
     def displacement(self) -> torch.Tensor:
         """Dense (2, H, W) displacement in voxel units, on the base's device."""
@@ -191,6 +203,10 @@ class ImageRegistration:
     def evaluate(self, points, units: str = "metric") -> np.ndarray:
         """Sample the displacement at points."""
         return self._engine.evaluate(points, units=units)
+
+    def plot(self, scaling: float = 1.0, mask=None) -> None:
+        """Quiver plot of the registered deformation (needs matplotlib)."""
+        self._engine.plot(scaling=scaling, mask=mask)
 
     def displacement(self) -> torch.Tensor:
         """Dense (2, H, W) displacement in voxel units."""

@@ -1,6 +1,6 @@
 """Patch-wise translation analysis: the flexible and fused registration lanes.
 
-Counterpart of :mod:`darsia_tpu.analysis.translationanalysis` (no plots).
+Counterpart of :mod:`darsia_tpu.analysis.translationanalysis`.
 All patch windows are cut as one batched tensor, a batched FFT phase
 correlation against precomputed baseline spectra estimates every patch
 shift, a prefactored thin-plate spline (TPS) turns the shifts into a smooth
@@ -21,9 +21,11 @@ import torch
 import torch.nn.functional as F
 
 from ..corrections.shape.translation import _to_gray
+from ..image.image import as_numpy, as_tensor
 from ..ops.fft import phase_correlation_prepared, prepare_phase_reference
 from ..ops.warp import identity_grid, warp_backend
 from ..utils.interpolation import rbf_interpolate
+from ..utils.optional import optional_module
 
 __all__ = ["TranslationAnalysis", "patch_centers", "warp_image"]
 
@@ -336,6 +338,32 @@ class TranslationAnalysis:
             disp = np.stack([disp[:, 0] * vs[1], -disp[:, 1] * vs[0]], axis=1)
         return disp.reshape((*self.N_patches, 2))
 
+    def plot_translation(self, reverse: bool = False, scaling: float = 1.0, mask=None) -> None:
+        """Quiver plot of the patch-centre displacements (pixels) over the
+        base image; the background is masked (and a colour base clipped to
+        [0, 1]) on the base's device and copied to the host once."""
+        plt = optional_module("matplotlib.pyplot", "TranslationAnalysis.plot_translation")
+        flat = self.return_patch_translation(reverse=reverse, units="pixel").reshape(-1, 2)
+        centers = patch_centers(self.base.num_voxels, self.N_patches)
+        fig, ax = plt.subplots(num="translation analysis")
+        base = self.base.img
+        if mask is not None:
+            keep = as_tensor(mask.img, base.device).to(torch.bool)
+            zero = torch.zeros((), dtype=base.dtype, device=base.device)
+            base = torch.where(keep[..., None] if base.dim() == 3 else keep, base, zero)
+        ax.imshow(as_numpy(base if base.dim() == 2 else base.clamp(0, 1)))
+        ax.quiver(
+            centers[:, 1],
+            centers[:, 0],
+            scaling * flat[:, 0],
+            -scaling * flat[:, 1],
+            color="white",
+            angles="xy",
+            scale_units="xy",
+            scale=1,
+        )
+        plt.show()
+
     def _grid_positions(self, H: int, W: int, device) -> tuple:
         """(CH, CW, row positions, col positions) of the TPS evaluation grid,
         float32: every pixel, or above :attr:`COARSE_THRESHOLD` the cell
@@ -517,13 +545,24 @@ class TranslationAnalysis:
 
         return aligner, operands
 
+    def build_fused_aligner(self, max_disp: int = 120):
+        """``aligner(data) -> (registered_f32, shifts, qualities)``: the body
+        of :meth:`fused_aligner_parts` with its operands bound, for (H, W) or
+        (H, W, C) tensors of the base's spatial shape on the base's device.
+
+        Patches failing ``quality_tol`` pin zero displacement at their
+        centres (the JAX package's fused lane); on CUDA within ``max_disp``
+        one call launches K1 twice.
+        """
+        body, operands = self.fused_aligner_parts(max_disp=max_disp)
+        return lambda data: body(data, operands)
+
     def fused_align(self, img, max_disp: int = 120):
         """Register ``img`` onto the base through the fused lane."""
         key = (max_disp, img.device)
         if self._fused is None or self._fused[0] != key:
-            self._fused = (key, *self.fused_aligner_parts(max_disp=max_disp))
-        _, body, operands = self._fused
-        out, shifts, quality = body(img.img, operands)
+            self._fused = (key, self.build_fused_aligner(max_disp=max_disp))
+        out, shifts, quality = self._fused[1](img.img)
         self._stage_shifts(shifts, quality, self._window_geometry()[1])
         if not img.dtype.is_floating_point:
             out = torch.round(out)

@@ -30,6 +30,7 @@ from ...ops.resize import resize_array
 from ...utils.dtype import convert_dtype
 from ...utils.kmeans import dominant_color
 from ...utils.npz import load_npz
+from ...utils.optional import optional_module
 from ...utils.point import VoxelArray, make_voxel
 from ..base import BaseCorrection
 from ..shape.quad import extract_quadrilateral_ROI
@@ -113,6 +114,14 @@ class ColorChecker(ABC):
     def swatches_RGB(self):
         return (self._reference_swatches_rgb * 255).astype(np.uint8)
 
+    def plot(self) -> None:
+        """Show the 4x6 swatches (host data; needs matplotlib)."""
+        plt = optional_module("matplotlib.pyplot", "ColorChecker.plot")
+        _, ax = plt.subplots()
+        ax.imshow(self._reference_swatches_rgb)
+        ax.set_title("Color checker")
+        plt.show()
+
     def save(self, path: Path) -> None:
         Path(path).parent.mkdir(parents=True, exist_ok=True)
         np.save(path, self._reference_swatches_rgb)
@@ -160,7 +169,7 @@ class CustomColorChecker(ColorChecker):
         device; only the resized crop is read to the host, for the k-means."""
         crop = convert_dtype(as_tensor(img), torch.float32)
         # The physical checker's aspect ratio, then a fixed width.
-        crop = extract_quadrilateral_ROI(crop, None, _CHECKER_WIDTH, _CHECKER_HEIGHT)
+        crop = extract_quadrilateral_ROI(crop, pts_src=None, width=_CHECKER_WIDTH, height=_CHECKER_HEIGHT)
         Ny, Nx = crop.shape[:2]
         fixed_width = 500
         resized = resize_array(crop, (int(Ny / Nx * fixed_width), fixed_width), "inter_linear")
@@ -251,7 +260,7 @@ class ColorCorrection(BaseCorrection):
                     return torch.rot90(box, turns, dims=(0, 1)) if turns else box
             raise ValueError("The brown sample is not in a corner of the ROI.")
         return extract_quadrilateral_ROI(
-            img, self.roi, _CHECKER_WIDTH, _CHECKER_HEIGHT, indexing="matrix"
+            img, pts_src=self.roi, width=_CHECKER_WIDTH, height=_CHECKER_HEIGHT, indexing="matrix"
         )
 
     def _swatches(self, img: torch.Tensor) -> np.ndarray:

@@ -2,8 +2,9 @@
 
 Counterpart of :mod:`darsia_tpu.image.image`: 1-, 2- and 3-D images, single
 frames or time series.  ``Image.img`` is a ``torch.Tensor``: a tensor input stays on
-its device, a numpy input goes to ``device`` (the CUDA card unless the
-caller asks for another, e.g. ``device="cpu"``).  The metadata (physical
+its device unless ``device`` is given, a numpy input goes to ``device`` (the CUDA card unless the
+caller asks for another, e.g. ``device="cpu"``); an array assigned to
+``img`` later goes to the device of the tensor it replaces.  The metadata (physical
 dimensions in meters, Cartesian origin, dates and times) stays on the host.
 Corrections passed as ``transformations=[...]`` run at construction, runs of
 geometric ones fused into one warp
@@ -96,6 +97,12 @@ def voxel_box(roi, coordinatesystem) -> tuple:
     return voxels
 
 
+def _is_object_array(value) -> bool:
+    """Whether ``value`` is an object array, which ``Image.img`` holds as it
+    is (metadata, not pixels)."""
+    return isinstance(value, np.ndarray) and value.dtype == object
+
+
 def _is_none(value) -> bool:
     if isinstance(value, list):
         return all(v is None for v in value)
@@ -132,7 +139,7 @@ class Image:
     def __init__(
         self, img, transformations: Optional[list] = None, device=None, **kwargs
     ) -> None:
-        self.img = as_tensor(img, device)
+        self.img = img if _is_object_array(img) else as_tensor(img, device)
 
         self.space_dim = int(kwargs.get("space_dim", kwargs.get("dim", 2)))
         if self.space_dim not in (1, 2, 3):
@@ -167,8 +174,8 @@ class Image:
 
         self.scalar = bool(kwargs.get("scalar", False))
         lead = self.space_dim + self.time_dim
-        self.range_dim = 0 if self.scalar else self.img.dim() - lead
-        if self.img.dim() != lead + self.range_dim:
+        self.range_dim = 0 if self.scalar else len(self.shape) - lead
+        if len(self.shape) != lead + self.range_dim:
             raise ValueError(f"image of shape {self.shape} does not fit its metadata")
 
         if transformations is not None:
@@ -188,6 +195,20 @@ class Image:
             self.time = (self.date - self.reference_date).total_seconds()
 
     # ------------------------------------------------------------------ data
+
+    @property
+    def img(self):
+        return self._img
+
+    @img.setter
+    def img(self, value) -> None:
+        # As the JAX package's setter: whatever is assigned becomes an array
+        # of the package (here a tensor on the image's device); an object
+        # array (metadata) stays as it is.
+        if not (isinstance(value, torch.Tensor) or _is_object_array(value)):
+            held = self.__dict__.get("_img")
+            value = as_tensor(value, held.device if isinstance(held, torch.Tensor) else None)
+        self._img = value
 
     @property
     def shape(self) -> tuple:

@@ -12,7 +12,12 @@ import functools
 
 import torch
 
-__all__ = ["phase_correlation", "phase_correlation_prepared", "prepare_phase_reference"]
+__all__ = [
+    "masked_normalized_cross_correlation",
+    "phase_correlation",
+    "phase_correlation_prepared",
+    "prepare_phase_reference",
+]
 
 
 def _hann(n: int, device) -> torch.Tensor:
@@ -119,3 +124,14 @@ def phase_correlation(
     ref = prepare_phase_reference(dst[None])
     shift, quality = phase_correlation_prepared(ref, src[None], tuple(src.shape), eps)
     return shift[0], quality[0]
+
+
+def masked_normalized_cross_correlation(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """Normalized cross-correlation score of two equally shaped patches: a
+    float32 0-d tensor on their device."""
+    a = src.to(torch.float32)
+    b = dst.to(torch.float32)
+    a = a - a.mean()
+    b = b - b.mean()
+    denom = torch.sqrt((a * a).sum() * (b * b).sum()) + 1e-12
+    return (a * b).sum() / denom

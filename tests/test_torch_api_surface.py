@@ -15,11 +15,15 @@ fault P1 names: ``interpolate_measurements_2d`` takes JAX's two arguments
 """
 
 import __future__
+import ast
+import functools
 import importlib
 import inspect
 import pkgutil
 import sys
+import textwrap
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -73,7 +77,10 @@ def test_exported_names_are_the_ports_own():
         if isinstance(value, types.ModuleType):
             assert value.__name__.startswith("darsia_tpu_torch."), name
         elif (inspect.isclass(value) or inspect.isfunction(value)) and value.__module__ != "builtins":
-            # (A type alias such as ColorCheckerPosition = str is builtin.)
+            # (A type alias such as ColorCheckerPosition = str is builtin;
+            # Contour = np.ndarray is numpy's class in both packages.)
+            if value is getattr(da, name) and not value.__module__.startswith("darsia_tpu"):
+                continue
             assert value.__module__.startswith("darsia_tpu_torch"), (name, value.__module__)
 
 
@@ -321,3 +328,253 @@ def test_needs_library_entries_name_their_library_where_it_is_absent(key, tmp_pa
         monkeypatch.setitem(sys.modules, name, None)
     with pytest.raises(ImportError, match=NEEDS_LIBRARY[key] if library == "matplotlib" else "OpenCV"):
         call()
+
+
+# ------------------------------------------------ the JAX package -> the port
+#
+# Every module of ``darsia_tpu`` (but its Pallas kernels and its JAX cache
+# set-up) has a counterpart of the same path in ``darsia_tpu_torch``, which
+# holds every name of the JAX module's ``__all__`` (or, without one, its
+# public module-level definitions), every public method and property of its
+# classes, a superset of every public callable's parameter names, and reads
+# every ``kwargs``/``options`` key the JAX callable reads, itself or in a
+# helper function of the port it calls by name, or takes it as a parameter.
+
+#: What the JAX package has and the port deliberately has not, with why.
+JAX_ONLY = {
+    "image.image.Image.tree_flatten": "a JAX pytree hook; the port's Image crosses no tracer",
+    "image.image.Image.tree_unflatten": "a JAX pytree hook; the port's Image crosses no tracer",
+    "parallel.halo.halo_exchange": "JAX axis names (local, axis_name) become shard lists in the port's one-process mesh",
+    "parallel.halo.halo_exchange_2d": "JAX axis names (local, row/col_axis_name) become shard lists in the port's one-process mesh",
+    "parallel.tpfa.projected_pcg_local": "JAX axis names (axis) become shard lists in the port's one-process mesh",
+    "parallel.tpfa.local_tpfa_operator": "JAX axis names (axis, num) become shard lists in the port's one-process mesh",
+}
+
+_JAX_ROOT = Path(da.__file__).parent
+_READERS = ("kwargs", "options")
+
+
+def jax_module_paths() -> list:
+    """Dotted paths (relative to the package) of the JAX modules compared."""
+    paths = []
+    for file in sorted(_JAX_ROOT.rglob("*.py")):
+        rel = file.relative_to(_JAX_ROOT)
+        if rel.parts[:2] == ("ops", "pallas") or rel.as_posix() == "utils/jax_cache.py":
+            continue
+        parts = list(rel.with_suffix("").parts)
+        paths.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    return paths
+
+
+def _module(package, path: str):
+    return importlib.import_module(f"{package.__name__}.{path}" if path else package.__name__)
+
+
+def module_names(module) -> list:
+    """``__all__``, else the public module-level definitions of the source."""
+    if hasattr(module, "__all__"):
+        return list(module.__all__)
+    tree = ast.parse(Path(module.__file__).read_text())
+    names = []
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.append(node.name)
+        elif isinstance(node, ast.Assign):
+            names += [t.id for t in node.targets if isinstance(t, ast.Name)]
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.append(node.target.id)
+    return [n for n in names if not n.startswith("_")]
+
+
+def _key(fn) -> str:
+    """Where a function is defined, relative to its package."""
+    fn = inspect.unwrap(fn)
+    return f"{fn.__module__.split('.', 1)[1]}.{fn.__qualname__}"
+
+
+def _callables(module):
+    """(key, JAX callable, name, owner) of a module's compared functions
+    and methods (owner None for a module function)."""
+    for name in module_names(module):
+        value = getattr(module, name, None)
+        if inspect.isfunction(value) and value.__module__.startswith("darsia_tpu."):
+            yield _key(value), value, name, None
+        elif inspect.isclass(value) and value.__module__.startswith("darsia_tpu."):
+            for member in dir(value):
+                if member.startswith("_") and member not in ("__init__", "__call__"):
+                    continue
+                static = inspect.getattr_static(value, member)
+                if isinstance(static, (classmethod, staticmethod)):
+                    static = static.__func__
+                if isinstance(static, property):
+                    fn = static.fget
+                elif isinstance(static, types.FunctionType):
+                    fn = static
+                else:
+                    continue
+                if fn.__module__.startswith("darsia_tpu."):
+                    yield _key(fn), fn, member, value
+
+
+def keys_read(fn, depth: int = 2) -> set:
+    """The constant keys ``fn`` reads from a ``kwargs`` or ``options``
+    mapping (``.get``/``.pop``/``.setdefault``, ``[...]``, ``in``), and
+    those the functions of its package it calls by name read."""
+    fn = inspect.unwrap(fn)
+    try:
+        tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+    except (OSError, TypeError):
+        return set()
+    package = fn.__module__.split(".")[0]
+    # A loop or comprehension variable that runs over constant keys
+    # (``for k in ("a", "b")``) reads each of them.
+    looped = {}
+    for node in ast.walk(tree):
+        if (
+            isinstance(node, (ast.For, ast.comprehension))
+            and isinstance(node.target, ast.Name)
+            and isinstance(node.iter, (ast.Tuple, ast.List, ast.Set))
+            and all(isinstance(e, ast.Constant) for e in node.iter.elts)
+        ):
+            looped.setdefault(node.target.id, set()).update(e.value for e in node.iter.elts)
+    keys = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            func = node.func
+            if (
+                isinstance(func, ast.Attribute)
+                and func.attr in ("get", "pop", "setdefault")
+                and isinstance(func.value, ast.Name)
+                and func.value.id in _READERS
+                and node.args
+            ):
+                if isinstance(node.args[0], ast.Constant):
+                    keys.add(node.args[0].value)
+                elif isinstance(node.args[0], ast.Name):
+                    keys |= looped.get(node.args[0].id, set())
+            elif isinstance(func, ast.Name) and depth > 0:
+                helper = getattr(fn, "__globals__", {}).get(func.id)
+                if inspect.isfunction(helper) and helper.__module__.split(".")[0] == package:
+                    keys |= keys_read(helper, depth - 1)
+        elif (
+            isinstance(node, ast.Subscript)
+            and isinstance(node.value, ast.Name)
+            and node.value.id in _READERS
+            and isinstance(node.slice, ast.Constant)
+        ):
+            keys.add(node.slice.value)
+        elif (
+            isinstance(node, ast.Compare)
+            and len(node.ops) == 1
+            and isinstance(node.ops[0], (ast.In, ast.NotIn))
+            and isinstance(node.comparators[0], ast.Name)
+            and node.comparators[0].id in _READERS
+            and isinstance(node.left, ast.Constant)
+        ):
+            keys.add(node.left.value)
+    return keys
+
+
+def _named_parameters(fn) -> list:
+    try:
+        params = inspect.signature(fn).parameters.values()
+    except (TypeError, ValueError):
+        return []
+    return [p.name for p in params if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)]
+
+
+@functools.lru_cache(maxsize=None)
+def audit(group: str) -> dict:
+    """The gaps of the port against the JAX modules under ``group`` (the
+    first path component; "" for the package itself), by kind."""
+    gaps = {"names": [], "members": [], "parameters": [], "keys": []}
+    seen = set()
+    for path in jax_module_paths():
+        if path.split(".")[0] != group and (path or group):
+            continue
+        jax, port = _module(da, path), _module(dt, path)
+        gaps["names"] += [f"{path}.{n}" for n in module_names(jax) if hasattr(jax, n) and not hasattr(port, n)]
+        for key, fn, name, owner in _callables(jax):
+            if key in seen:
+                continue
+            seen.add(key)
+            port_owner = getattr(port, owner.__name__, None) if owner is not None else port
+            if port_owner is None:
+                continue  # (a missing class is a missing name)
+            if not hasattr(port_owner, name):
+                gaps["members"].append(key)
+                continue
+            if owner is not None and isinstance(inspect.getattr_static(owner, name), property):
+                continue
+            port_fn = getattr(port_owner, name)
+            if owner is not None:
+                static = inspect.getattr_static(port_owner, name)
+                port_fn = static.__func__ if isinstance(static, (classmethod, staticmethod)) else port_fn
+            port_params = _named_parameters(port_fn)
+            missing = [p for p in _named_parameters(fn) if p not in port_params]
+            if missing:
+                gaps["parameters"].append(f"{key}: {missing}")
+            unread = sorted(keys_read(fn, depth=0) - keys_read(port_fn) - set(port_params))
+            if unread:
+                gaps["keys"].append(f"{key}: {unread}")
+    return gaps
+
+
+def _groups() -> list:
+    return sorted({path.split(".")[0] for path in jax_module_paths()})
+
+
+def _without_exceptions(entries: list) -> list:
+    return [e for e in entries if e.split(":")[0] not in JAX_ONLY]
+
+
+def test_every_public_jax_name_is_in_the_port():
+    assert not [n for n in public_jax_names() if not hasattr(dt, n)]
+
+
+def test_every_jax_module_has_a_counterpart():
+    paths = jax_module_paths()
+    assert len(paths) > 200
+    for path in paths:
+        _module(dt, path)
+
+
+@pytest.mark.parametrize("group", _groups())
+def test_port_modules_hold_every_name_of_their_jax_module(group):
+    assert not audit(group)["names"]
+
+
+@pytest.mark.parametrize("group", _groups())
+def test_port_classes_hold_every_public_method_and_property(group):
+    assert not _without_exceptions(audit(group)["members"])
+
+
+@pytest.mark.parametrize("group", _groups())
+def test_port_callables_take_every_jax_parameter_name(group):
+    assert not _without_exceptions(audit(group)["parameters"])
+
+
+@pytest.mark.parametrize("group", _groups())
+def test_port_callables_read_every_jax_option_key(group):
+    assert not _without_exceptions(audit(group)["keys"])
+
+
+def test_every_exception_is_still_a_difference():
+    found = set()
+    for group in _groups():
+        gaps = audit(group)
+        found |= {e.split(":")[0] for kind in ("members", "parameters", "keys") for e in gaps[kind]}
+    assert found == set(JAX_ONLY)
+
+
+def test_the_audit_finds_a_gap():
+    """The audit sees a missing name, member, parameter and key."""
+    def jax_fn(a, b, **kwargs):
+        return kwargs.get("alpha"), kwargs["beta"], "gamma" in kwargs
+
+    def port_fn(a, beta=None, **kwargs):
+        return kwargs.get("alpha")
+
+    assert keys_read(jax_fn) == {"alpha", "beta", "gamma"}
+    assert keys_read(jax_fn) - keys_read(port_fn) - set(_named_parameters(port_fn)) == {"gamma"}
+    assert [p for p in _named_parameters(jax_fn) if p not in _named_parameters(port_fn)] == ["b"]

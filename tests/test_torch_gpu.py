@@ -933,3 +933,43 @@ def test_sharded_warp_on_a_card_mesh_matches_the_gather_warp():
     assert warp2pass.launch_count == before
     assert out.device == torch.device("cuda", 0)
     assert (out - warp(img, coords, order=1)).abs().max().item() <= 1e-5
+
+
+def test_numpy_assigned_to_a_card_image_lands_on_the_card():
+    import darsia_tpu_torch as dt
+
+    rng = np.random.default_rng(19)
+    image = dt.ScalarImage(torch.zeros((48, 64), device="cuda:0"), width=1.6, height=1.2)
+    host = rng.random((48, 64)).astype(np.float32)
+    image.img = host
+    assert image.img.device == torch.device("cuda:0")
+    assert torch.equal(image.img.cpu(), torch.from_numpy(host))
+    copied = image.copy()
+    resized = dt.resize(image, shape=(24, 32), interpolation="inter_nearest")
+    assert copied.img.device.type == resized.img.device.type == "cuda"
+    on_cpu = dt.ScalarImage(torch.from_numpy(host), width=1.6, height=1.2)
+    cpu_resized = dt.resize(on_cpu, shape=(24, 32), interpolation="inter_nearest")
+    assert torch.equal(resized.img.cpu(), cpu_resized.img)
+    integral = float(dt.Geometry(**image.shape_metadata()).integrate(image))
+    want = float(host.astype(np.float64).sum()) * (1.6 / 64) * (1.2 / 48)
+    assert abs(integral - want) <= 1e-6 * abs(want)
+    moved = dt.ScalarImage(torch.from_numpy(host), width=1.6, height=1.2, device="cuda:0")
+    assert moved.img.device == torch.device("cuda:0")
+
+
+def test_build_fused_aligner_launches_k1_twice_per_call():
+    import darsia_tpu_torch as dt
+
+    rng = np.random.default_rng(23)
+    base = torch.from_numpy(rng.random((192, 256, 3)).astype(np.float32)).cuda()
+    base = torch.nn.functional.avg_pool2d(base.permute(2, 0, 1)[None], 5, 1, 2)[0].permute(1, 2, 0).contiguous()
+    probe = torch.roll(base, shifts=(2, -3), dims=(0, 1))
+    ta = dt.TranslationAnalysis(dt.OpticalImage(base, width=1.0, height=0.75), N_patches=[3, 4], rel_overlap=0.2)
+    aligner = ta.build_fused_aligner(max_disp=40)
+    before = warp2pass.launch_count
+    out, shifts, quality = aligner(probe)
+    torch.cuda.synchronize()
+    assert warp2pass.launch_count == before + 2
+    aligned = ta.fused_align(dt.OpticalImage(probe, width=1.0, height=0.75), max_disp=40)
+    assert torch.equal(aligned.img, out) and warp2pass.launch_count == before + 4
+    assert out.is_cuda and bool(torch.isfinite(out).all()) and shifts.shape == (12, 2)

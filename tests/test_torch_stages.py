@@ -145,7 +145,7 @@ def test_jacobi_and_h1_regularization():
 def test_quad_grid_and_patch_centers():
     pts = np.array([[3, 2], [60, 4], [58, 90], [1, 88]], dtype=float)
     ref = np.asarray(jax_quad_grid(pts, (55, 80)))
-    assert np.abs(quad_coordinate_grid(pts, (55, 80), CPU).numpy() - ref).max() <= 1e-4
+    assert np.abs(quad_coordinate_grid(pts, (55, 80), device=CPU).numpy() - ref).max() <= 1e-4
     for nv, n in [((96, 96), [2, 2]), ((1703, 3180), [8, 16]), ((50, 41), [3, 7])]:
         img = da.ScalarImage(np.zeros(nv, np.float32))
         ref = Patches(img, n, rel_overlap=0.1).centers_voxels.reshape(-1, 2)
