@@ -236,7 +236,7 @@ G. Batched W1 and the cross-run comparison (after phase F).  The bench's
    ``parallel.batched_wasserstein``, one warm-up call, then a timed one
    (``w1_batch8_256_pairs_per_s``, the largest Newton iteration count, CG
    iterations run by the batch against each pair's): every pair converged;
-   pairs 0 and 7 solved alone by the single Newton device path within 1e-4
+   pair 0 solved alone by the single Newton device path within 1e-4
    relative of the batch.  B = 1, 8 and 32 of the same problem: seconds per
    batch, pairs/s, launches per CG iteration (equal for every B, checked;
    beside one problem without a batch axis) and peak GiB.  Then the
@@ -340,9 +340,9 @@ J. The config-driven analysis run (after phase I) over phase I's rig: its 4
    median), peak GiB, the progress events; the CSV bytes and every exported
    field equal across all loops, each photograph's mass field and total
    bitwise equal to the chain called on ``rig.read_image``; one more
-   sequential loop split into read, chain, products, export, integrals and
-   CSV (each step closed by a synchronize).  J3: the loop with plain K1,
-   every field within mean |diff| <= 1e-5.  J4 (``--profile``): one
+   sequential loop over the first 2 photographs split into read, chain,
+   products, export, integrals and CSV (each step closed by a synchronize).
+   J3: the loop with plain K1, every field within mean |diff| <= 1e-5.  J4 (``--profile``): one
    prefetched loop profiled (device ops and busy ms per photograph, idle
    share, peak GiB).  J5: ``user_interface_setup.main(["--config", ...,
    "--protocols", "--overwrite"])`` on a copy of the config whose protocols
@@ -350,8 +350,8 @@ J. The config-driven analysis run (after phase I) over phase I's rig: its 4
    EXIF, so the dates are the file times), and
    ``user_interface_comparison.main([... "--wasserstein-compute",
    "--wasserstein-assemble"])`` on phase G's runs: the 12 JSON files and
-   the CSV equal to phase I4's.  The phase checks its 240 K1 launches
-   exactly (104 in J1, 136 in J2) and hands its folder to phase K.
+   the CSV equal to phase I4's.  The phase checks its 216 K1 launches
+   exactly (104 in J1, 112 in J2) and hands its folder to phase K.
 
 K. The calibration workflows (after phase J) over phase J's photographs:
    its config with a data registry (the baseline photograph, the 8
@@ -419,7 +419,12 @@ L. The segmentation, finger and thresholding steps, SimpleFluidFlower, the
    ``SimpleFluidFlower`` set up from phase I's baseline with the default
    corrections and phase 14's CURVATURE: the chain type, drift, curvature,
    colour; 4 timed reads; saved, loaded and read bitwise as before; the read
-   with plain K1 within mean |diff| <= 1e-5.  L5: ``TransformationCalibrationSession``
+   with plain K1 within mean |diff| <= 1e-5.  L4b: a second
+   ``SimpleFluidFlower`` with ``DynamicIlluminationCorrection`` (3 sample
+   patches) between curvature and colour: its baseline colours equal to
+   those of a host copy of the baseline the set-up corrected (1e-6), 4
+   timed reads beside L4's (the baseline photograph's read printed against
+   L4's), the read with plain K1 within mean |diff| <= 1e-5.  L5: ``TransformationCalibrationSession``
    over the 4 photographs, the chain split into pre-mass (colour
    interpretation and signal) and mass-from-pre (gas and aqueous
    transformations, CO2 mass), Nelder-Mead maxiter 10: the error at the
@@ -429,8 +434,8 @@ L. The segmentation, finger and thresholding steps, SimpleFluidFlower, the
    first swatch (all its 3600 px), ``linalg_cg`` and ``linalg_gmres`` on a
    256x256 TPFA operator (plus a convection term for GMRES) as a callable on
    the card against scipy's sparse solve within 1e-6 relative.  The phase
-   checks its 126 K1 launches exactly (24 in L1, 24 in L1b, 16 in L3, 46 in
-   L4, 16 in L5) and hands its folder, its ``SimpleFluidFlower`` and the
+   checks its 168 K1 launches exactly (24 in L1, 24 in L1b, 16 in L3, 46 in
+   L4, 42 in L4b, 16 in L5) and hands its folder, its ``SimpleFluidFlower`` and the
    rig's labels to phase M.
 
 M. Photographs, the assistants and a GUI worker (after phase L).  M1: phase
@@ -551,8 +556,10 @@ P. The port's last gaps against the JAX package (after phase O).  P1:
 Q. The port's example suite (after phase P): every module of
    ``darsia_tpu_torch.examples`` (the JAX package's ``examples/``) runs
    ``main(device="cuda", fast=True)``, then ``fused_pipeline``,
-   ``image_registration`` and ``co2_and_tracer_analysis`` (``Q_DEFAULT``:
-   their default mode differs) at default size; its printed lines are held to the JAX
+   ``image_registration`` and ``co2_and_tracer_analysis`` (their default
+   mode differs) and ``color_correction`` and ``optical_images`` (no fast
+   switch: the same run, pinned as their default mode) at default size
+   (``Q_DEFAULT``); its printed lines are held to the JAX
    examples' lines in ``expected.json`` with their tolerances (on the card
    two lines have their own: its warps are K1's two passes where the CPU's
    are the gather warp), its K1 launches read from 0 and checked exactly
@@ -565,13 +572,28 @@ Q. The port's example suite (after phase P): every module of
    (OpenCV on 4096-point signatures, minutes; phase M runs ``cv2.emd``),
    its EMD line left out of the comparison.
 
+R. The device-parity sweep (after phase Q): every case of
+   ``tests/torch_device_cases.py`` (one or more of the port's public classes
+   and functions each, at 16x16 to 120x200, W1 grids of 16x16, capped
+   solver iterations; ``EXEMPT`` lists the rest: abstract bases, enums,
+   dataclasses, type aliases) runs on ``cpu`` and on ``cuda:0``: the outputs
+   within the case's stated tolerance (a case that warps through
+   ``warp_backend`` at ``bench.py:1133``'s two-pass tier), every tensor and
+   image of a card case on ``cuda:0``, each K1 call copied at the wrapper
+   and held bitwise to the plain K1 on its inputs, each case's K1 launches
+   read from 0 and equal to its table count (``K1_IN_R`` in all), K2 and K3
+   never launched; a case whose library does not import raises the
+   ImportError naming it on both devices.  Per layer it prints the cases,
+   card and host cases, the worst ratio of difference to tolerance and the
+   seconds, then the phase's seconds; any miss fails the script.
+
 Every launch count is set to 0 just before each path of phases 3, 5-7,
-8-11, 14-20, B, E, F, G, H, I, J, K, L, M, N, O, P and Q and read just
-after it (in M5 the worker's process counts from its start); the
-``kernels`` line's K1 launches are their sum, 586 before phase E, 28 in
-it, none in F or G, 162 in H, 120 in I, 240 in J, 84 in K, 126 in L, 80
-in M, 38 in N, none in O, 22 in P and 68 in Q (1554; checked exactly).
-Each of phases 8-12, 14-20, A-Q prints its seconds.  The
+8-11, 14-20, B, E, F, G, H, I, J, K, L, M, N, O, P, Q and of each case
+of R and read just after it (in M5 the worker's process counts from its
+start); the ``kernels`` line's K1 launches are their sum, 586 before phase
+E, 28 in it, none in F or G, 162 in H, 120 in I, 216 in J, 84 in K, 168 in
+L, 80 in M, 38 in N, none in O, 22 in P, 80 in Q and 84 in R (1668;
+checked exactly).  Each of phases 8-12, 14-20, A-R prints its seconds.  The
 second-to-last line is a JSON object of per-kernel results; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
@@ -581,6 +603,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -3387,9 +3410,10 @@ def phase_batched(dt, device, card: str, profile) -> dict:
         f"{trips.sum() / per_pair.mean():.2f}x a mean pair's)"
     )
 
-    # Pairs 0 and 7 alone, through the single Newton device path.
+    # Pair 0 alone, through the single Newton device path (the last pair
+    # alone too is depth cut for the script's time: PERF.md section 4).
     singles = {}
-    for i in (0, G_B - 1):
+    for i in (0,):
         solver = dt.BeckmannNewtonSolver(dt.Grid((n, n), 1.0 / n), None, dict(G_OPTIONS))
         t0 = time.perf_counter()
         d_i, _, _, info = solver.solve_beckmann_problem(dst[i] - src[i])
@@ -4524,7 +4548,8 @@ J_STEPS = ("read", "chain", "products", "export", "integrals", "csv")
 # more for the direct check.  J3 takes the plain K1; J4 and J5 launch none
 # that is counted.
 J1_K1 = 3 * J_PHOTOS * I_READ_K1 + H_GRID_K1
-J2_K1 = (2 * J_REPS + 1) * J_PHOTOS * I_READ_K1 + H_GRID_K1 + J_PHOTOS * I_READ_K1
+J_SPLIT = 2  # photographs of J2's split loop (all 8 is depth cut for the script's time: PERF.md section 4)
+J2_K1 = 2 * J_REPS * J_PHOTOS * I_READ_K1 + J_SPLIT * I_READ_K1 + H_GRID_K1 + J_PHOTOS * I_READ_K1
 K1_IN_J = J1_K1 + J2_K1
 
 
@@ -4795,11 +4820,14 @@ def phase_analysis_run(dt, w2p, lanes, handoff: dict, device, card: str, profile
         ImageExportFormats.export = timed("export", export)
         CsvTable.write = timed("csv", write)
         events = []
+        all_paths = ctx.image_paths
+        ctx.image_paths = all_paths[:J_SPLIT]
         try:
             _, split_s, n = counted(
-                w2p, lambda: loop("sequential", root / "j2" / "split", events), J_PHOTOS * I_READ_K1, "J2: split"
+                w2p, lambda: loop("sequential", root / "j2" / "split", events), J_SPLIT * I_READ_K1, "J2: split"
             )
         finally:
+            ctx.image_paths = all_paths
             del ctx.fluidflower.read_image
             ctx.color_to_mass_analysis = chain
             analysis_mass.analysis_scalar_products, ImageExportFormats.export, CsvTable.write = (
@@ -4808,8 +4836,8 @@ def phase_analysis_run(dt, w2p, lanes, handoff: dict, device, card: str, profile
         launches += n
         after_read = sum(e["image_duration_s"] for e in events if e["event"] == "image_progress")
         split["integrals"] = after_read - split["chain"] - split["products"] - split["export"] - split["csv"]
-        split_ms = {key: 1e3 * v / J_PHOTOS for key, v in split.items()}
-        rest_ms = 1e3 * split_s / J_PHOTOS - sum(split_ms.values())
+        split_ms = {key: 1e3 * v / J_SPLIT for key, v in split.items()}
+        rest_ms = 1e3 * split_s / J_SPLIT - sum(split_ms.values())
 
         # Each photograph's mass against the chain called on the rig's read.
         geometry = ctx.fluidflower.geometry
@@ -4838,9 +4866,10 @@ def phase_analysis_run(dt, w2p, lanes, handoff: dict, device, card: str, profile
             f"photograph (+{H_GRID_K1} in the first read)"
         )
         print(
-            "J2. split of a sequential loop, ms per photograph (each step closed by a synchronize): "
+            f"J2. split of a sequential loop over {J_SPLIT} photographs, ms per photograph (each step closed by a "
+            "synchronize): "
             + ", ".join(f"{key} {split_ms[key]:.1f}" for key in J_STEPS)
-            + f", rest {rest_ms:.1f}; loop {1e3 * split_s / J_PHOTOS:.1f}; {time.perf_counter() - t_j2:.2f} s"
+            + f", rest {rest_ms:.1f}; loop {1e3 * split_s / J_SPLIT:.1f}; {time.perf_counter() - t_j2:.2f} s"
         )
 
         # J3. The same loop with K1 swapped for its plain version.
@@ -5375,7 +5404,16 @@ L_READS_K1 = H_GRID_K1 + L_PHOTOS * I_READ_K1
 L4_SETUP_K1 = 2 + 2 + H_GRID_K1 + 2
 L4_READS_K1 = (1 + L_PHOTOS) * I_READ_K1
 L4_LOADED_K1 = H_GRID_K1 + I_READ_K1
-K1_IN_L = 2 * L_READS_K1 + L_PHOTOS * I_READ_K1 + L4_SETUP_K1 + L4_READS_K1 + L4_LOADED_K1 + L_PHOTOS * I_READ_K1
+# L4b: a SimpleFluidFlower with the dynamic illumination correction: the
+# set-up as L4's (the correction itself warps nothing), the baseline
+# photograph read through it and through L4's rig, and the 1 + 4 timed reads.
+L4B_K1 = L4_SETUP_K1 + 2 * I_READ_K1 + L4_READS_K1
+L4B_SAMPLES = ((slice(200, 264), slice(300, 364)), (slice(900, 964), slice(2500, 2564)),
+               (slice(1400, 1464), slice(1200, 1264)))
+K1_IN_L = (
+    2 * L_READS_K1 + L_PHOTOS * I_READ_K1 + L4_SETUP_K1 + L4_READS_K1 + L4_LOADED_K1 + L4B_K1
+    + L_PHOTOS * I_READ_K1
+)
 
 
 def l_plume(k: int) -> np.ndarray:
@@ -5922,6 +5960,82 @@ def phase_fingers(dt, w2p, lanes, handoff: dict, device, card: str, profile, kee
             f"loaded rig's read bitwise equal; plain K1 mean|diff| {diff:.2e}; {time.perf_counter() - t_l4:.2f} s"
         )
         result.update(read_ms=float(np.median(ms4)), setup_s=setup_s)
+
+        # L4b. SimpleFluidFlower with the dynamic illumination correction.
+        t_l4b = time.perf_counter()
+        samples = [tuple(s) for s in L4B_SAMPLES]
+
+        def dynamic_setup():
+            rig = dt.SimpleFluidFlower(
+                baseline_path, device=dev,
+                active_corrections=["type", "drift", "curvature", "dynamic-illumination", "color"],
+            )
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                rig.setup(specs=dict(META), curvature_options={"config": CURVATURE},
+                          dynamic_illumination_options={"samples": samples})
+            first = rig.read_image(baseline_path)
+            return rig, first
+
+        def dynamic_reads():
+            first = rig4b.read_image(photos[0])
+            seconds = []
+            for path in photos:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = rig4b.read_image(path)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+            return first, out, seconds
+
+        reset_counts(w2p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rig4b, on_base = dynamic_setup()
+        torch.cuda.synchronize()
+        setup_b = time.perf_counter() - t0
+        first_b, last_b, seconds_b = dynamic_reads()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            base_l4 = rig4.read_image(baseline_path)
+        counts = read_counts(w2p)
+        check_counts(counts, {"warp_rows_t": L4B_K1}, "L4b: dynamic illumination set-up and reads")
+        launches += counts["warp_rows_t"]
+        names_b = [type(c).__name__ for c in rig4b.corrections]
+        want_b = ["TypeCorrection", "DriftCorrection", "CurvatureCorrection", "DynamicIlluminationCorrection",
+                  "ColorCorrection"]
+        if names_b != want_b:
+            raise AssertionError(f"L4b: chain {names_b}")
+        dynamic = rig4b.dynamic_illumination_correction
+        # The baseline's colours, extracted again from a host copy of the
+        # baseline the set-up saw (type, drift, curvature applied in turn,
+        # under the plain K1: bitwise K1's), and the baseline photograph read
+        # beside L4's read of it (printed: a rescaling near 1).
+        with plain_k1(w2p):
+            staged = rig4b.raw_baseline
+            for correction in rig4b.corrections[:3]:
+                staged = correction(staged)
+            plain_b = rig4b.read_image(photos[-1])
+        host = dt.DynamicIlluminationCorrection()
+        host.setup(staged.img.cpu(), samples)
+        colour_diff = float(np.abs(np.asarray(host.base_colors) - np.asarray(dynamic.base_colors)).max())
+        base_diff = float((on_base.img - base_l4.img).abs().max())
+        plain_diff = float((plain_b.img - last_b.img).abs().mean())
+        finite_b = bool(torch.isfinite(last_b.img).all()) and tuple(last_b.img.shape) == (OH, W, 3)
+        if not (colour_diff <= 1e-6 and plain_diff <= 1e-5 and finite_b):
+            raise AssertionError(
+                f"L4b: host colours {colour_diff:.2e}, plain K1 mean|diff| {plain_diff:.2e}, finite and shaped "
+                f"{finite_b}"
+            )
+        ms4b = [1e3 * v for v in seconds_b]
+        print(
+            f"L4b. on {card}: SimpleFluidFlower with DynamicIlluminationCorrection ({len(samples)} 64x64 samples) "
+            f"set up and the baseline read in {setup_b:.2f} s; read_image ms {[round(v, 1) for v in ms4b]} (median "
+            f"{float(np.median(ms4b)):.1f}, L4's {float(np.median(ms4)):.1f}); {L4B_K1} K1 launches; host colours "
+            f"within {colour_diff:.1e}, the baseline photograph's read max |diff| {base_diff:.1e} to L4's, plain K1 mean|diff| "
+            f"{plain_diff:.2e}; {time.perf_counter() - t_l4b:.2f} s"
+        )
+        result.update(dynamic_read_ms=float(np.median(ms4b)))
 
         # L5. The multiphase calibration session over phase L's photographs.
         t_l5 = time.perf_counter()
@@ -7500,43 +7614,20 @@ Q_K1 = {
     "color_correction": 2 * 2,
     "optical_images": 2 * 2 * 2,
 }
-# The examples whose default mode differs from fast mode, the two Newton
-# transport ones aside (color_correction and optical_images take no fast
-# mode): run once more at default size; the K1 ones with the same warps.
-Q_DEFAULT = ("fused_pipeline", "image_registration", "co2_and_tracer_analysis")
+# Run once more at default size, the K1 ones with the same warps: the
+# examples whose default mode differs from fast mode, the two Newton
+# transport ones aside (their default mode: PERF.md), and color_correction
+# and optical_images, which read no fast switch (their default mode is the
+# fast mode's run).
+Q_DEFAULT = ("fused_pipeline", "image_registration", "co2_and_tracer_analysis", "color_correction", "optical_images")
+# Pinned at default size too, run on the card apart (about 70 and 30 s
+# there, PERF.md): the script's time has no room for them.
+Q_DEFAULT_APART = ("sharded_wasserstein", "wasserstein_split_square")
 K1_IN_Q = sum(Q_K1.values()) + sum(Q_K1.get(name, 0) for name in Q_DEFAULT)
 # The steps that need matplotlib: where it does not import, each raises
 # naming it and the example goes on (co2_analysis: one contour plot per
 # frame; readme_example: the check for a window).
 Q_MISSING = {"co2_analysis": 3, "readme_example": 1}
-
-
-def q_k1_held(w2p, fn) -> tuple:
-    """(``fn()``, its K1 calls, the faults): each K1 call's inputs and
-    output are copied at the wrapper as it returns, and after ``fn``, the
-    plain K1 runs on the copies and is held bitwise to the kernel's output."""
-    calls, wrapper = [], w2p.warp_rows_t
-
-    def record(data, cols, max_disp, impl="auto"):
-        out = wrapper(data, cols, max_disp, impl)
-        calls.append((data.clone(), cols.clone(), max_disp, out.clone()))
-        return out
-
-    w2p.warp_rows_t = record
-    try:
-        result = fn()
-    finally:
-        w2p.warp_rows_t = wrapper
-    torch.cuda.synchronize()
-    faults = []
-    for k, (data, cols, max_disp, out) in enumerate(calls):
-        plain = w2p.warp_rows_t_reference(data, cols, max_disp)
-        if not torch.equal(out, plain):
-            faults.append(
-                f"K1 call {k} {tuple(data.shape)} -> {tuple(out.shape)} D={max_disp} != plain "
-                f"(max |diff| {float((out - plain).abs().max())})"
-            )
-    return result, calls, faults
 
 
 def q_run(examples, w2p, name: str, device, fast: bool) -> tuple:
@@ -7545,6 +7636,9 @@ def q_run(examples, w2p, name: str, device, fast: bool) -> tuple:
     import importlib
     import io
 
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_device_cases import k1_held
+
     module = importlib.import_module(f"{examples.__name__}.{name}")
     # cv2.EMD on 4096-point signatures takes minutes on the host; phase M
     # runs cv2.emd on the card's machine, the slow CPU test runs this one.
@@ -7552,7 +7646,7 @@ def q_run(examples, w2p, name: str, device, fast: bool) -> tuple:
     torch.cuda.synchronize()
     tic = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
-        out, calls, faults = q_k1_held(w2p, lambda: module.main(device=device, fast=fast, **options))
+        out, calls, faults = k1_held(w2p, lambda: module.main(device=device, fast=fast, **options))
     ms = (time.perf_counter() - tic) * 1e3
     return out, calls, faults, ms
 
@@ -7574,8 +7668,10 @@ def phase_examples(dt, w2p, device, card: str) -> dict:
     except ImportError:
         has_matplotlib = False
     pinned = sorted(name for name, entry in examples.expected().items() if "default" in entry)
-    if pinned != sorted(Q_DEFAULT):
-        raise AssertionError(f"Q: expected.json pins default-mode lines of {pinned}, Q_DEFAULT {Q_DEFAULT}")
+    if pinned != sorted(Q_DEFAULT + Q_DEFAULT_APART):
+        raise AssertionError(
+            f"Q: expected.json pins default-mode lines of {pinned}, Q_DEFAULT {Q_DEFAULT} + {Q_DEFAULT_APART}"
+        )
     tic = time.perf_counter()
     result, faults, launches, held = {"ms": {}, "k1": {}}, [], 0, 0
     runs = [(name, True) for name in examples.EXAMPLES] + [(name, False) for name in Q_DEFAULT]
@@ -7626,6 +7722,64 @@ def phase_examples(dt, w2p, device, card: str) -> dict:
     print(
         f"Q. phase {result['phase_s']:.2f} s, {launches} K1 launches ({held} held bitwise to the plain K1), "
         f"on {card}"
+    )
+    return result
+
+
+# Phase R: the device-parity sweep of tests/torch_device_cases.py, each
+# case's K1 launches counted from 0 (the table's ``k1``), their sum checked.
+K1_IN_R = 84
+
+
+def phase_device_cases(dt, w2p, card: str) -> dict:
+    """Phase R: every case of ``tests/torch_device_cases.py`` (the port's
+    public classes and functions, small sizes) on ``cpu`` and on ``cuda:0``:
+    outputs within each case's tolerance, a card case's tensors and images
+    on ``cuda:0``, each K1 call held bitwise to the plain K1, each case's K1
+    launches equal to its count and K2/K3 never launched; per layer the
+    cases, card and host cases, the worst ratio of difference to tolerance
+    and the seconds."""
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_device_cases as sweep
+
+    if sum(c.k1 for c in sweep.CASES.values()) != K1_IN_R:
+        raise AssertionError(f"R: the cases' K1 counts sum to {sum(c.k1 for c in sweep.CASES.values())}, "
+                             f"K1_IN_R is {K1_IN_R}")
+    tic = time.perf_counter()
+    layers = {
+        layer: {"cases": 0, "card": 0, "host": 0, "library": 0, "worst": 0.0, "s": 0.0}
+        for layer in sweep.LAYERS
+    }
+    faults, launches, held = [], 0, 0
+    for c in sweep.CASES.values():
+        reset_counts(w2p)
+        r = sweep.card_parity(c, w2p)
+        counts = read_counts(w2p)
+        if counts["warp_rows"] or counts["warp_rows_ring"]:
+            r["faults"].append(f"K2/K3 launched: {counts}")
+        launches += r["launches"]
+        held += r["held"]
+        row = layers[c.layer]
+        row["cases"] += 1
+        row["card" if c.where == "card" else "host"] += 1
+        row["library"] += r["import_error"]
+        row["worst"] = max(row["worst"], r["worst"])
+        row["s"] += r["s"]
+        faults += [f"R {c.name}: {fault}" for fault in r["faults"]]
+    for layer, row in layers.items():
+        print(
+            f"R {layer}: {row['cases']} cases ({row['card']} card, {row['host']} host; "
+            f"{row['library']} raised naming an absent library), worst |diff| / tolerance "
+            f"{row['worst']:.3g}, {row['s']:.2f} s"
+        )
+    if faults:
+        raise AssertionError("phase R:\n" + "\n".join(faults))
+    if launches != K1_IN_R:
+        raise AssertionError(f"R: {launches} K1 launches, want {K1_IN_R}")
+    result = {"launches": launches, "phase_s": time.perf_counter() - tic}
+    print(
+        f"R. phase {result['phase_s']:.2f} s, {len(sweep.CASES)} cases, {launches} K1 launches "
+        f"({held} held bitwise to the plain K1), on {card}"
     )
     return result
 
@@ -7920,6 +8074,7 @@ def main() -> int:
     )
     gaps = phase_gaps(dt, w2p, lanes, device, display["O3"]["raised"], card)
     examples_run = phase_examples(dt, w2p, device, card)
+    device_cases = phase_device_cases(dt, w2p, card)
     phase_volume(dt, device, card)
     phase_kernel_fields(w2p, lanes, device)
 
@@ -7936,11 +8091,12 @@ def main() -> int:
         p["launches"]
         for p in (
             colour_to_mass, fluidflower, rig_config, analysis_run, calibration_run, fingers_run,
-            photographs, sharded, gaps, examples_run,
+            photographs, sharded, gaps, examples_run, device_cases,
         )
     )
     want = (
         K1_BEFORE_E, K1_IN_E, K1_IN_H, K1_IN_I, K1_IN_J, K1_IN_K, K1_IN_L, K1_IN_M, K1_IN_N, K1_IN_P, K1_IN_Q,
+        K1_IN_R,
     )
     if (earlier, *later) != want:
         raise AssertionError(
@@ -7949,9 +8105,14 @@ def main() -> int:
             f"{later[2]} in phase I (want {K1_IN_I}), {later[3]} in phase J (want {K1_IN_J}), "
             f"{later[4]} in phase K (want {K1_IN_K}), {later[5]} in phase L (want {K1_IN_L}), "
             f"{later[6]} in phase M (want {K1_IN_M}), {later[7]} in phase N (want {K1_IN_N}), "
-            f"{later[8]} in phase P (want {K1_IN_P}), {later[9]} in phase Q (want {K1_IN_Q})"
+            f"{later[8]} in phase P (want {K1_IN_P}), {later[9]} in phase Q (want {K1_IN_Q}), "
+            f"{later[10]} in phase R (want {K1_IN_R})"
         )
     k1_launches = earlier + sum(later)
+    # The docstring's launch table states the same total.
+    stated = int(re.search(r"\((\d+);\s+checked exactly\)", __doc__).group(1))
+    if stated != k1_launches:
+        raise AssertionError(f"K1 launches {k1_launches}, the docstring's table {stated}")
     results = {
         "warp_rows_t": {
             "launches": k1_launches,

@@ -64,8 +64,11 @@ def water_density(temperature_celsius):
 
 
 def full_like(img: Image, data) -> Image:
-    """Image with the metadata of ``img`` and the given data (not copied)."""
-    return type(img)(img=data, **img.metadata())
+    """Image with the metadata of ``img`` and the given data, on the image's
+    device (a tensor is not copied)."""
+    out = img.copy()
+    out.img = data
+    return out
 
 
 @dataclass

@@ -3,10 +3,14 @@ the CPU.
 
 ``fused_pipeline`` and ``image_registration`` are the examples on K1's path
 whose default mode differs from fast mode (270x512 frames and 4x8 patches,
-256x384 frames and 8x12 patches; ``color_correction`` and
-``optical_images`` take no fast mode); ``co2_and_tracer_analysis`` runs
-its TVD to its default cap at 180x340.  Of the examples whose default mode
-differs, only the two Newton transport ones are not pinned.  Each case runs the JAX example
+256x384 frames and 8x12 patches); ``color_correction`` and
+``optical_images``, the other two on K1's path, read no fast switch, so
+their default mode is the fast mode's run, pinned as such;
+``co2_and_tracer_analysis`` runs its TVD to its default cap at 180x340;
+``sharded_wasserstein`` solves at 64x64 over 8 shards and
+``wasserstein_split_square`` at 160x160 (about 25 and 45 s of JAX, 17 and
+90 s of the port on this CPU).  Every example whose default mode differs
+from its fast mode is pinned.  Each case runs the JAX example
 without ``DARSIA_TPU_FAST`` (a shimmed copy, ``tests/
 torch_examples_common.py``) and the port's ``main(device="cpu",
 fast=False)``, and compares their lines within the tolerances of
@@ -21,7 +25,15 @@ from darsia_tpu_torch import examples
 
 torch.set_num_threads(1)
 
-DEFAULT = ["fused_pipeline", "image_registration", "co2_and_tracer_analysis"]
+DEFAULT = [
+    "fused_pipeline",
+    "image_registration",
+    "co2_and_tracer_analysis",
+    "color_correction",
+    "optical_images",
+    "sharded_wasserstein",
+    "wasserstein_split_square",
+]
 
 
 @pytest.mark.parametrize("name", DEFAULT)

@@ -426,6 +426,25 @@ def test_colour_corrections_and_files_on_the_card(tmp_path):
     assert patchwise.correct_array(image.img).device.type == "cuda"
 
 
+def test_dynamic_illumination_on_the_card_equals_the_cpu():
+    """Set up on a card image and on its CPU copy: the same baseline colours
+    (only the sample patches are read to the host), and a darker photograph
+    rescaled on the card as on the CPU; the result stays on the card."""
+    import darsia_tpu_torch as dt
+
+    frame = _bench_like()
+    samples = [(slice(20, 60), slice(30, 70)), (slice(150, 200), slice(200, 260))]
+    on_card, on_cpu = dt.DynamicIlluminationCorrection(), dt.DynamicIlluminationCorrection()
+    on_card.setup(dt.OpticalImage(frame).img, samples)
+    on_cpu.setup(torch.from_numpy(frame), samples)
+    assert np.abs(np.asarray(on_card.base_colors) - np.asarray(on_cpu.base_colors)).max() <= 1e-6
+    probe = (frame * 0.7).astype(np.uint8)
+    out = dt.OpticalImage(probe, transformations=[on_card])
+    want = on_cpu.correct_array(torch.from_numpy(probe))
+    assert out.img.device.type == "cuda"
+    assert (out.img.cpu().to(torch.float32) - want.to(torch.float32)).abs().max().item() <= 1e-4
+
+
 def test_deformation_correction_is_the_registration():
     import darsia_tpu_torch as dt
 
