@@ -587,7 +587,9 @@ R. The device-parity sweep (after phase Q): every case of
    card and host cases, the worst ratio of difference to tolerance and the
    seconds, then the phase's seconds; any miss fails the script.
 
-Every launch count is set to 0 just before each path of phases 3, 5-7,
+Every launch count (the counters ``k1.launches``, ``k2.launches`` and
+``k3.launches`` of ``darsia_tpu_torch/utils/tracing.py``, read from a mark
+that ``reset_counts`` sets) is set to 0 just before each path of phases 3, 5-7,
 8-11, 14-20, B, E, F, G, H, I, J, K, L, M, N, O, P, Q and of each case
 of R and read just after it (in M5 the worker's process counts from its
 start); the ``kernels`` line's K1 launches are their sum, 586 before phase
@@ -642,10 +644,14 @@ WINDOWS = 3  # timed windows per lane
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 KERNELS = {
-    "warp_rows_t": ("launch_count", "csrc/warp_rows_t.cu", 323),
-    "warp_rows": ("rows_launch_count", "csrc/warp_rows.cu", 218),
-    "warp_rows_ring": ("ring_launch_count", "csrc/warp_rows.cu", 188),
+    "warp_rows_t": ("k1.launches", "csrc/warp_rows_t.cu", 323),
+    "warp_rows": ("k2.launches", "csrc/warp_rows.cu", 218),
+    "warp_rows_ring": ("k3.launches", "csrc/warp_rows.cu", 188),
 }
+# The launch counters (``darsia_tpu_torch/utils/tracing.py``) count from the
+# process's start; a path's launches are read from the mark ``reset_counts``
+# sets.
+_COUNT_MARK: dict = {}
 CURVATURE = {
     "crop": {
         "pts_src": [[8, 11], [H - 33, 16], [H - 40, W - 15], [5, W - 15]],
@@ -702,12 +708,19 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
 
 
 def reset_counts(w2p) -> None:
-    for attr, _, _ in KERNELS.values():
-        setattr(w2p, attr, 0)
+    from darsia_tpu_torch.utils import tracing
+
+    for counter, _, _ in KERNELS.values():
+        _COUNT_MARK[counter] = tracing.counter(counter)
 
 
 def read_counts(w2p) -> dict:
-    return {name: getattr(w2p, attr) for name, (attr, _, _) in KERNELS.items()}
+    from darsia_tpu_torch.utils import tracing
+
+    return {
+        name: tracing.counter(counter) - _COUNT_MARK.get(counter, 0)
+        for name, (counter, _, _) in KERNELS.items()
+    }
 
 
 def check_counts(counts: dict, want: dict, path: str) -> None:

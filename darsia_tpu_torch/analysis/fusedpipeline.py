@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from ..corrections.fuse import _collect_group, fused_chain
 from ..image.image import Image, ScalarImage, as_tensor
 from ..ops.warp import identity_grid, warp, warp_backend
+from ..utils import tracing
 from ..utils.dtype import convert_dtype
 from .translationanalysis import _to_gray
 
@@ -173,12 +174,16 @@ class FusedAnalysisPipeline:
         if estimate is None:
 
             def frame(data, ops, warp_impl="auto"):
-                # Integer frames map to [0, 1] after the correction warp.
-                x = convert_dtype(correct(data, ops, warp_impl, None), torch.float32)
+                dev = data.device
+                with tracing.span("pipeline.correct", dev):
+                    # Integer frames map to [0, 1] after the correction warp.
+                    x = convert_dtype(correct(data, ops, warp_impl, None), torch.float32)
                 shifts = quality = None
                 if aligner is not None:
-                    x, shifts, quality = aligner(x, ops["reg"], warp_impl)
-                return concentrate(x, ops), shifts, quality
+                    with tracing.span("pipeline.register", dev):
+                        x, shifts, quality = aligner(x, ops["reg"], warp_impl)
+                with tracing.span("pipeline.concentrate", dev):
+                    return concentrate(x, ops), shifts, quality
 
             return frame, operands
 
@@ -195,28 +200,32 @@ class FusedAnalysisPipeline:
         reg_clip = est_geom["clip"]
 
         def frame(data, ops, warp_impl="auto"):
-            # float32 BEFORE the one warp: unlike the two-warp lane, no
-            # integer re-quantisation after the correction.
-            x = convert_dtype(correct(data, ops, warp_impl, k_last), torch.float32)
-            field = ops[f"field_{k_last}"]
-            gray = warp_backend(
-                _to_gray(x), field, order=1, max_disp=chain_disp, warp_impl=warp_impl
-            )
-            field_c, shifts, quality = estimate(gray, ops["reg"])
-            field_c = field_c.clamp(-reg_clip, reg_clip)
-            p_c = ops["coarse_pos"]
-            comp = warp(field.permute(1, 2, 0), p_c - field_c, order=1, mode="nearest")
-            total = comp.permute(2, 0, 1) - p_c
-            if (CH, CW) != (Hs, Ws):
-                # jax.image.resize(method="linear"), edges included.
-                total = F.interpolate(
-                    total[None], size=(Hs, Ws), mode="bilinear", align_corners=False
-                )[0]
-            coords = identity_grid((Hs, Ws), x.device) + total
-            x = warp_backend(
-                x, coords, order=1, max_disp=total_disp, warp_impl=warp_impl
-            )
-            return concentrate(x, ops), shifts, quality
+            dev = data.device
+            with tracing.span("pipeline.correct", dev):
+                # float32 BEFORE the one warp: unlike the two-warp lane, no
+                # integer re-quantisation after the correction.
+                x = convert_dtype(correct(data, ops, warp_impl, k_last), torch.float32)
+            with tracing.span("pipeline.register", dev):
+                field = ops[f"field_{k_last}"]
+                gray = warp_backend(
+                    _to_gray(x), field, order=1, max_disp=chain_disp, warp_impl=warp_impl
+                )
+                field_c, shifts, quality = estimate(gray, ops["reg"])
+                field_c = field_c.clamp(-reg_clip, reg_clip)
+                p_c = ops["coarse_pos"]
+                comp = warp(field.permute(1, 2, 0), p_c - field_c, order=1, mode="nearest")
+                total = comp.permute(2, 0, 1) - p_c
+                if (CH, CW) != (Hs, Ws):
+                    # jax.image.resize(method="linear"), edges included.
+                    total = F.interpolate(
+                        total[None], size=(Hs, Ws), mode="bilinear", align_corners=False
+                    )[0]
+                coords = identity_grid((Hs, Ws), x.device) + total
+                x = warp_backend(
+                    x, coords, order=1, max_disp=total_disp, warp_impl=warp_impl
+                )
+            with tracing.span("pipeline.concentrate", dev):
+                return concentrate(x, ops), shifts, quality
 
         return frame, operands
 
@@ -261,31 +270,35 @@ class FusedAnalysisPipeline:
         is_image = isinstance(image, Image)
         arr = image.img if is_image else as_tensor(image, device)
         series = image.series if is_image else arr.dim() == 4
-        frame_shape = tuple(arr.shape[:2] + arr.shape[3:] if series else arr.shape)
-        key = self._signature(frame_shape, arr)
-        entry = self._cache.get(key)
-        if entry is None:
-            if len(self._cache) >= 4:
-                self._cache.pop(next(iter(self._cache)))
-            entry = self._build(frame_shape[:2], arr.dtype, arr.device)
-            self._cache[key] = entry
-        frame, own_operands = entry
-        ops = own_operands if operands is None else operands
-        if series:
-            # A plain frame loop (the JAX package maps the frame over the
-            # time axis with lax.map, which is sequential too).
-            outs = [
-                frame(arr[:, :, k].contiguous(), ops, warp_impl)
-                for k in range(arr.shape[2])
-            ]
-            conc = torch.stack([o[0] for o in outs], dim=-1)
-            shifts, quality = outs[-1][1:]
-        else:
-            conc, shifts, quality = frame(arr, ops, warp_impl)
-        ta = self._translation_analysis
-        if ta is not None:
-            ta._stage_shifts(shifts, quality, ta._window_geometry()[1])
-        return self._package(conc, image, series)
+        frames = arr.shape[2] if series else 1
+        with tracing.span("pipeline.call", arr.device, frames=frames):
+            frame_shape = tuple(arr.shape[:2] + arr.shape[3:] if series else arr.shape)
+            key = self._signature(frame_shape, arr)
+            entry = self._cache.get(key)
+            if entry is None:
+                # A new frame signature: operators see it as a build.
+                with tracing.span("pipeline.build", arr.device):
+                    tracing.count("pipeline.builds")
+                    if len(self._cache) >= 4:
+                        self._cache.pop(next(iter(self._cache)))
+                    entry = self._build(frame_shape[:2], arr.dtype, arr.device)
+                    self._cache[key] = entry
+            frame, own_operands = entry
+            ops = own_operands if operands is None else operands
+            # A series is a plain frame loop (the JAX package maps the frame
+            # over the time axis with lax.map, which is sequential too).
+            outs = []
+            for k in range(frames):
+                with tracing.span("pipeline.frame", arr.device):
+                    data = arr[:, :, k].contiguous() if series else arr
+                    outs.append(frame(data, ops, warp_impl))
+            with tracing.span("pipeline.assemble", arr.device):
+                conc = torch.stack([o[0] for o in outs], dim=-1) if series else outs[0][0]
+                shifts, quality = outs[-1][1:]
+                ta = self._translation_analysis
+                if ta is not None:
+                    ta._stage_shifts(shifts, quality, ta._window_geometry()[1])
+                return self._package(conc, image, series)
 
     def _package(self, concentration: torch.Tensor, image, series: bool) -> Image:
         meta = self._output_metadata(image)

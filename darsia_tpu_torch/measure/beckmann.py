@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..image.image import as_tensor
+from ..utils import tracing
 from ..utils.andersonacceleration import AndersonAcceleration, anderson_init, anderson_mix
 from ..utils.convergence_status import ConvergenceStatus
 from ..utils.fv import face_to_cell, tangential_face_components
@@ -1019,27 +1020,28 @@ class BeckmannProblem:
     def pressure_solve(self, face_weights: tuple, rhs_cells, p0, active=None) -> torch.Tensor:
         """The pressure Schur solve; a batch of right-hand sides (leading
         axis) solves each on its own, ``active`` masking it."""
-        trans = self.transmissibilities(face_weights)
-        if self._use_mg:
-            return bk.tpfa_mg_pcg(
+        with tracing.span("beckmann.pressure", rhs_cells.device):
+            trans = self.transmissibilities(face_weights)
+            if self._use_mg:
+                return bk.tpfa_mg_pcg(
+                    trans,
+                    rhs_cells,
+                    p0,
+                    dim=self.dim,
+                    tol=self.cg_tol,
+                    maxiter=self._mg_maxiter,
+                    levels=self._mg_levels,
+                    active=active,
+                )
+            return bk.tpfa_cg(
                 trans,
                 rhs_cells,
                 p0,
                 dim=self.dim,
                 tol=self.cg_tol,
-                maxiter=self._mg_maxiter,
-                levels=self._mg_levels,
+                maxiter=self.cg_maxiter,
                 active=active,
             )
-        return bk.tpfa_cg(
-            trans,
-            rhs_cells,
-            p0,
-            dim=self.dim,
-            tol=self.cg_tol,
-            maxiter=self.cg_maxiter,
-            active=active,
-        )
 
     def residual_norms(self, fluxes, p, face_weights, mass_rhs) -> float:
         """Residual of the optimality system (rescaled flux eq + div eq)."""
@@ -1063,7 +1065,8 @@ class BeckmannProblem:
         iteration cap leaves status 0; a problem that has stopped keeps its
         state.  ``res_norm`` > 0 normalizes the residual criterion, else each
         problem's first residual does.  ``history`` (one problem) records
-        every iteration.
+        every iteration, with its host seconds.  Each iteration runs in the
+        span ``beckmann.newton``.
 
         Returns ``(state, distances, statuses, steps)``, the last three
         ``(B,)`` numpy arrays (``B = 1`` for one problem).
@@ -1080,15 +1083,17 @@ class BeckmannProblem:
         res0 = np.full(dist.shape, res_norm, dtype=real)
         status = np.zeros(dist.shape, np.int32)
         steps = np.zeros(dist.shape, np.int64)
+        device = _device_of(state)
         for k in range(int(cc.num_iter)):
             running = status == 0
             if not running.any():
                 break
-            tic = time.perf_counter()
-            mask = None if single else torch.from_numpy(running).to(_device_of(state))
-            new_state, metrics = step(state, k, mask)
-            m = metrics.cpu().numpy().astype(real).reshape(-1, 5)
-            seconds = time.perf_counter() - tic
+            if history is not None:
+                tic = time.perf_counter()
+            with tracing.span("beckmann.newton", device, iteration=k):
+                mask = None if single else torch.from_numpy(running).to(device)
+                new_state, metrics = step(state, k, mask)
+                m = metrics.cpu().numpy().astype(real).reshape(-1, 5)
             steps[running] = k + 1
             d_k = m[:, 0]
             flux_inc = np.sqrt(m[:, 1])
@@ -1100,6 +1105,7 @@ class BeckmannProblem:
                 res0 = np.where(res0 <= 0, residual, res0)
             rel_res = residual / np.maximum(res0, tiny)
             if history is not None:
+                seconds = time.perf_counter() - tic
                 history.append(
                     distance=float(d_k[0]),
                     distance_increment=float(dist_inc[0]),
@@ -1117,7 +1123,7 @@ class BeckmannProblem:
             if accept.all():
                 state = new_state
             elif accept.any():
-                keep = torch.from_numpy(accept).to(_device_of(state))
+                keep = torch.from_numpy(accept).to(device)
                 state = _select(keep, new_state, state)
             dist = np.where(accept, d_k, dist)
         return state, dist, status, steps
@@ -1249,7 +1255,8 @@ class BeckmannProblem:
         assert img_1.scalar and img_2.scalar
         self._compatibility_check(img_1, img_2)
         mass_diff = img_2.img.to(self.dtype) - img_1.img.to(self.dtype)
-        distance, fluxes, pressure, info = self.solve_beckmann_problem(mass_diff)
+        with tracing.span("beckmann.solve", mass_diff.device, pairs=1):
+            distance, fluxes, pressure, info = self.solve_beckmann_problem(mass_diff)
 
         return_info = self.options.get("return_info", False)
         return_status = self.options.get("return_status", False)

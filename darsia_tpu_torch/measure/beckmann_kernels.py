@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.solvers import iterate_while, iterate_while_batched
+from ..utils import tracing
 
 __all__ = [
     "face_divergence",
@@ -230,7 +231,9 @@ def _pcg(A, M, rhs, x0, tol, maxiter, guard_rz_positive: bool, clamp_beta: bool,
     every problem stops on its own threshold ``tol * |b|`` and health test
     and keeps its state from then on; ``active`` (a ``(B,)`` bool tensor)
     leaves the problems it marks False at ``x0``'s projection from the
-    start.  Launches per iteration do not grow with the batch."""
+    start.  Launches per iteration do not grow with the batch.  The loop's
+    body executions count as ``beckmann.cg_trips`` (read from what the loop
+    already returns to the host)."""
     b = _project(rhs, dim)
     x = _project(x0, dim)
     r = b - A(x)
@@ -260,9 +263,11 @@ def _pcg(A, M, rhs, x0, tol, maxiter, guard_rz_positive: bool, clamp_beta: bool,
         return (x_new, r_new, pvec_new, rz_new)
 
     if rhs.dim() == dim:
-        (x, *_), _ = iterate_while(cond, body, (x, r, z, rz), maxiter)
+        (x, *_), trips = iterate_while(cond, body, (x, r, z, rz), maxiter)
     else:
-        (x, *_), _ = iterate_while_batched(cond, body, (x, r, z, rz), maxiter, active)
+        (x, *_), counts = iterate_while_batched(cond, body, (x, r, z, rz), maxiter, active)
+        trips = int(counts.max()) if counts.size else 0
+    tracing.count("beckmann.cg_trips", trips)
     return x
 
 

@@ -29,10 +29,11 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 
 import torch
+
+from ..utils import tracing
 
 __all__ = [
     "build_kernel",
@@ -73,20 +74,11 @@ _ENTRIES = {
 _RING_STRIP = 8
 _MAX_SMEM = 232448
 
-#: Kernel launches made by :func:`warp_rows_t` (K1), and by :func:`warp_rows`
-#: on the plain (K2) and the ring (K3) schedule.  Plain-version calls do not
-#: count.  Reset them to 0 before a run to see which path the run took.
-#: Worker threads launch too (``utils/prefetch.py``): each increment is made
-#: under ``_count_lock``.
-launch_count = 0
-rows_launch_count = 0
-ring_launch_count = 0
-_count_lock = threading.Lock()
 #: One build at a time: threads that first launch together wait for it.
 _build_lock = threading.Lock()
 
-#: ``{"seconds": ..., "log": ...}`` of the build in this process (None if the
-#: libraries were already built on disk).
+#: ``{"log": ...}`` of the build in this process (None if the libraries were
+#: already built on disk); the build runs in the span ``k1.build``.
 build_info = None
 
 _entries = None
@@ -131,9 +123,8 @@ def _build_and_bind() -> dict:
     libs = {src.stem: (src, _BUILD_DIR / f"{src.stem}_{tag}.so") for src in sources}
     todo = {stem: pair for stem, pair in libs.items() if not pair[1].is_file()}
     if todo:
-        tic = time.perf_counter()
-        log = compile_sources(todo)
-        build_info = {"seconds": time.perf_counter() - tic, "log": log}
+        with tracing.span("k1.build", sources=sorted(todo)):
+            build_info = {"log": compile_sources(todo)}
     loaded = {stem: ctypes.CDLL(str(lib)) for stem, (_, lib) in libs.items()}
     return {name: bind_entry(loaded[stem], name) for name, (stem, _) in _ENTRIES.items()}
 
@@ -292,9 +283,7 @@ def warp_rows_t(
     pad, rel_max = _geometry(max_disp)
     out = torch.empty((C, W_out, R), dtype=torch.float32, device=data.device)
     _launch("darsia_warp_rows_t", data, cols, out, C, R, W_in, W_out, pad, rel_max)
-    global launch_count
-    with _count_lock:
-        launch_count += 1
+    tracing.count("k1.launches")
     return out
 
 
@@ -345,12 +334,7 @@ def warp_rows(
     out = torch.empty((R, W_out), dtype=torch.float32, device=data.device)
     name = "darsia_warp_rows_ring" if ring else "darsia_warp_rows"
     _launch(name, data, cols, out, R, W_in, W_out, pad, rel_max)
-    global rows_launch_count, ring_launch_count
-    with _count_lock:
-        if ring:
-            ring_launch_count += 1
-        else:
-            rows_launch_count += 1
+    tracing.count("k3.launches" if ring else "k2.launches")
     return out
 
 

@@ -25,6 +25,7 @@ import torch
 
 from ..image.image import as_tensor
 from ..measure.beckmann import BeckmannNewtonSolver
+from ..utils import tracing
 from ..utils.grid import Grid
 from .mesh import Mesh, Placement
 
@@ -41,20 +42,21 @@ def _make_batch_solve(solver: BeckmannNewtonSolver):
     L_init = float(solver.options.get("L_init", 1.0))
 
     def solve(mass_diff: torch.Tensor):
-        mass_rhs = solver.cell_vol * mass_diff.to(solver.dtype)
-        c = solver._constants(mass_rhs.device)
-        face_weights = tuple(L_init * w for w in c.base_face_weights)
-        p = torch.zeros_like(mass_rhs)
-        p = solver.pressure_solve(face_weights, mass_rhs, p)
-        fluxes = solver.flux_from_pressure(face_weights, p)
-        distance0 = solver._l1(fluxes).cpu().numpy()
+        with tracing.span("beckmann.solve", mass_diff.device, pairs=int(mass_diff.shape[0])):
+            mass_rhs = solver.cell_vol * mass_diff.to(solver.dtype)
+            c = solver._constants(mass_rhs.device)
+            face_weights = tuple(L_init * w for w in c.base_face_weights)
+            p = torch.zeros_like(mass_rhs)
+            p = solver.pressure_solve(face_weights, mass_rhs, p)
+            fluxes = solver.flux_from_pressure(face_weights, p)
+            distance0 = solver._l1(fluxes).cpu().numpy()
 
-        def step(state, k, running):
-            return solver._newton_step(state, k, mass_rhs, True, running)
+            def step(state, k, running):
+                return solver._newton_step(state, k, mass_rhs, True, running)
 
-        _, distances, statuses, steps = solver._device_loop(
-            step, (fluxes, p, None), distance0, 0.0
-        )
+            _, distances, statuses, steps = solver._device_loop(
+                step, (fluxes, p, None), distance0, 0.0
+            )
         return distances, steps.astype(np.int32), statuses
 
     return solve

@@ -6,9 +6,9 @@ and correct each photograph inline with the analysis (the hot loop of
 them: a small thread pool runs the read function for upcoming items while the
 caller consumes the current one.  On the card every worker launches on the
 same (legacy default) stream as the consumer, so PyTorch's caching allocator
-keeps its stream order; the launch counters, the kernel build and the
-curvature grid are guarded by locks (``ops/warp2pass.py``,
-``corrections/shape/curvature.py``).
+keeps its stream order; the launch counters (``utils/tracing.py``), the
+kernel build and the curvature grid are guarded by locks
+(``ops/warp2pass.py``, ``corrections/shape/curvature.py``).
 
 Failures are reported per item (the result carries the exception), so a
 corrupt frame is skipped without tearing down the pool, as the workflow

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from darsia_tpu_torch.ops import warp2pass
+from darsia_tpu_torch.utils import tracing
 from darsia_tpu_torch.ops.warp import identity_grid, warp_backend
 
 torch.set_num_threads(1)
@@ -44,16 +45,16 @@ def test_kernel_matches_plain(C, R, W_in, D, W_out):
     data, cols = _rows_case(C, R, W_in, D, W_out)
     if W_out == 300:
         cols = cols * 1.5  # displacements far beyond D
-    before = warp2pass.launch_count
+    before = tracing.counter("k1.launches")
     out = warp2pass.warp_rows_t(data, cols, D)
     torch.cuda.synchronize()
-    assert warp2pass.launch_count == before + 1
+    assert tracing.counter("k1.launches") == before + 1
     ref = warp2pass.warp_rows_t_reference(data, cols, D)
     assert out.shape == ref.shape == (C, cols.shape[1], R)
     assert (out - ref).abs().max().item() <= 1e-6
     # Same index arithmetic and a lerp without FMA on both sides: bitwise.
     assert torch.equal(out, ref)
-    assert warp2pass.launch_count == before + 1
+    assert tracing.counter("k1.launches") == before + 1
 
 
 # K1 tiles are 32 columns j by 56 stored rows r, stored as runs that start on a
@@ -81,10 +82,10 @@ def test_kernel_geometry_matches_plain(C, R, W_in, D, W_out, field):
         cols = (jj + 2.5 * torch.sin(jj / 97.0 + rr / 61.0)).contiguous()
     elif field == "violated":
         cols = (cols * 1.5).contiguous()
-    before = warp2pass.launch_count
+    before = tracing.counter("k1.launches")
     out = warp2pass.warp_rows_t(data, cols, D)
     torch.cuda.synchronize()
-    assert warp2pass.launch_count == before + 1
+    assert tracing.counter("k1.launches") == before + 1
     ref = warp2pass.warp_rows_t_reference(data, cols, D)
     assert out.shape == ref.shape == (C, W_out, R)
     assert torch.equal(out, ref)
@@ -100,9 +101,9 @@ def test_kernel_walks_more_items_than_its_grid():
 
 def test_plain_impl_on_cuda_counts_no_launch():
     data, cols = _rows_case(3, 64, 300, 7)
-    before = warp2pass.launch_count
+    before = tracing.counter("k1.launches")
     out = warp2pass.warp_rows_t(data, cols, 7, impl="plain")
-    assert out.is_cuda and warp2pass.launch_count == before
+    assert out.is_cuda and tracing.counter("k1.launches") == before
 
 
 def test_kernel_refuses_noncontiguous_input():
@@ -127,11 +128,11 @@ def test_row_kernels_match_plain(R, W_in, D, W_out, ring):
     data = data[0]
     if W_out == 300:
         cols = cols * 1.5  # displacements far beyond D
-    counts = (warp2pass.rows_launch_count, warp2pass.ring_launch_count)
+    counts = (tracing.counter("k2.launches"), tracing.counter("k3.launches"))
     out = warp2pass.warp_rows(data, cols, D, ring=ring)
     torch.cuda.synchronize()
     want = (counts[0] + (not ring), counts[1] + ring)
-    assert (warp2pass.rows_launch_count, warp2pass.ring_launch_count) == want
+    assert (tracing.counter("k2.launches"), tracing.counter("k3.launches")) == want
     ref = warp2pass.warp_rows_reference(data, cols, D)
     assert out.shape == ref.shape == cols.shape
     assert (out - ref).abs().max().item() <= 1e-6
@@ -144,10 +145,10 @@ def test_row_kernels_match_plain(R, W_in, D, W_out, ring):
 @pytest.mark.parametrize("ring", [False, True])
 def test_row_kernels_plain_impl_counts_no_launch(ring):
     data, cols = _rows_case(1, 64, 300, 7)
-    counts = (warp2pass.rows_launch_count, warp2pass.ring_launch_count)
+    counts = (tracing.counter("k2.launches"), tracing.counter("k3.launches"))
     out = warp2pass.warp_rows(data[0], cols, 7, ring=ring, impl="plain")
     assert out.is_cuda
-    assert (warp2pass.rows_launch_count, warp2pass.ring_launch_count) == counts
+    assert (tracing.counter("k2.launches"), tracing.counter("k3.launches")) == counts
 
 
 @pytest.mark.parametrize("ring", [False, True])
@@ -167,10 +168,10 @@ def test_two_pass_warp_on_cuda_matches_cpu_plain():
         (2.0 * np.sin(np.arange(H * W).reshape(1, H, W) / 53.0)).astype(np.float32)
     )
     cpu = warp_backend(torch.from_numpy(img), coords, max_disp=4, force="kernel")
-    before = warp2pass.launch_count
+    before = tracing.counter("k1.launches")
     gpu = warp_backend(torch.from_numpy(img).cuda(), coords.cuda(), max_disp=4)
     torch.cuda.synchronize()
-    assert warp2pass.launch_count == before + 2
+    assert tracing.counter("k1.launches") == before + 2
     assert (gpu.cpu() - cpu).abs().max().item() <= 1e-6
 
 
@@ -194,10 +195,10 @@ def test_flexible_lane_warps_through_k1():
     ta = dt.TranslationAnalysis(base, N_patches=[3, 4], rel_overlap=0.3, quality_tol=0.01)
     ta.load_image(probe)
     ta.find_translation()
-    before = warp2pass.launch_count
+    before = tracing.counter("k1.launches")
     out = ta.translate_image()
     torch.cuda.synchronize()
-    assert warp2pass.launch_count == before + 2
+    assert tracing.counter("k1.launches") == before + 2
     disp = ta.displacement_field((192, 256))
     coords = identity_grid((192, 256), "cuda") - disp
     max_disp = int(np.ceil(disp.abs().max().item())) + 1
@@ -218,10 +219,10 @@ def test_series_correction_is_one_k1_pair():
         (H, W),
         "cuda",
     )
-    before = warp2pass.launch_count
+    before = tracing.counter("k1.launches")
     folded = chain.correct_series_array(series, 2)
     torch.cuda.synchronize()
-    assert warp2pass.launch_count == before + 2
+    assert tracing.counter("k1.launches") == before + 2
     plain = chain.apply_fn(torch.uint8)(series.reshape(H, W, -1), chain.field, "plain")
     assert torch.equal(folded, plain.reshape(folded.shape))
     for k in range(T):
@@ -233,10 +234,10 @@ def test_multiscale_warps_through_k1():
 
     base, probe = _textured_cuda(shift=(2, 3))
     reg = dt.ImageRegistration(base, N_patches=[2, 2], rel_overlap=0.3, quality_tol=0.01, num_levels=3)
-    before = warp2pass.launch_count
+    before = tracing.counter("k1.launches")
     out = reg(probe)
     torch.cuda.synchronize()
-    assert warp2pass.launch_count == before + 6  # one warp per level
+    assert tracing.counter("k1.launches") == before + 6  # one warp per level
     field = reg.displacement()
     coords = identity_grid((192, 256), "cuda") - field
     max_disp = int(np.ceil(field.abs().max().item())) + 1
@@ -289,9 +290,9 @@ def test_k1_at_the_drift_chain_bound_matches_plain():
     chain, series = _drift_chain_scene()
     frame = series[:, :, 0].contiguous()
     assert chain.max_disp == int(np.ceil(chain.static_disp)) + 1 + 64
-    before = warp2pass.launch_count
+    before = tracing.counter("k1.launches")
     out, calls = _recorded_k1_calls(lambda: chain.correct_array(frame))
-    assert warp2pass.launch_count == before + 2 and len(calls) == 2
+    assert tracing.counter("k1.launches") == before + 2 and len(calls) == 2
     for data, cols, D in calls:
         assert D == chain.max_disp and data.shape[0] == 3
         assert torch.equal(warp2pass.warp_rows_t(data, cols, D), warp2pass.warp_rows_t_reference(data, cols, D))
@@ -302,9 +303,9 @@ def test_k1_at_the_drift_chain_bound_matches_plain():
 def test_drifting_series_is_one_k1_pair_per_frame():
     chain, series = _drift_chain_scene()
     T = series.shape[2]
-    before = warp2pass.launch_count
+    before = tracing.counter("k1.launches")
     out, calls = _recorded_k1_calls(lambda: chain.correct_series_array(series, 2))
-    assert warp2pass.launch_count == before + 2 * T and len(calls) == 2 * T
+    assert tracing.counter("k1.launches") == before + 2 * T and len(calls) == 2 * T
     for data, cols, D in calls:
         assert torch.equal(warp2pass.warp_rows_t(data, cols, D), warp2pass.warp_rows_t_reference(data, cols, D))
     for k in range(T):
@@ -319,9 +320,9 @@ def test_checker_crop_warps_through_k1():
 
     ref = dt.ColorCheckerAfter2014().swatches_rgb
     crop = torch.from_numpy(np.kron(ref, np.ones((60, 60, 1))).astype(np.float32))
-    before = warp2pass.launch_count
+    before = tracing.counter("k1.launches")
     swatches, calls = _recorded_k1_calls(lambda: dt.CustomColorChecker(image=crop.cuda()).swatches_rgb)
-    assert warp2pass.launch_count == before + 2 and len(calls) == 2
+    assert tracing.counter("k1.launches") == before + 2 and len(calls) == 2
     for data, cols, D in calls:
         assert torch.equal(warp2pass.warp_rows_t(data, cols, D), warp2pass.warp_rows_t_reference(data, cols, D))
     # Flat swatches: the two warps agree inside them.
@@ -351,13 +352,13 @@ def test_shape_zoo_runs_on_the_card_by_default_and_matches_the_cpu():
         dt.AffineCorrection(cs, cs, dt.make_coordinate(src), dt.make_coordinate(src + 0.03)),
         dt.GeneralizedPerspectiveCorrection(cs, cs, dt.make_coordinate(src_p), dt.make_coordinate(dst_p)),
     ]
-    before = warp2pass.launch_count
+    before = tracing.counter("k1.launches")
     for correction in corrections:
         out = correction(image)
         assert out.img.device.type == "cuda" and out.img.dtype == torch.uint8
         on_cpu = correction.correct_array(torch.from_numpy(frame))
         assert on_cpu.device.type == "cpu" and torch.equal(out.img.cpu(), on_cpu)
-    assert warp2pass.launch_count == before  # gather warps only
+    assert tracing.counter("k1.launches") == before  # gather warps only
 
 
 def test_piecewise_perspective_warps_through_k1():
@@ -369,9 +370,9 @@ def test_piecewise_perspective_warps_through_k1():
     assert patches(1, 2).img.device.type == "cuda"
     assert (patches.blend_and_assemble().img - image.img).abs().max().item() <= 1e-6
     disp = np.random.default_rng(13).uniform(-4, 4, (3, 4, 2))
-    before = warp2pass.launch_count
+    before = tracing.counter("k1.launches")
     out, calls = _recorded_k1_calls(lambda: dt.PiecewisePerspectiveTransform().find_and_warp(patches, disp))
-    assert warp2pass.launch_count == before + 2 and len(calls) == 2
+    assert tracing.counter("k1.launches") == before + 2 and len(calls) == 2
     assert out.img.device.type == "cuda" and out.img.shape == image.img.shape
     for data, cols, D in calls:
         assert 2 <= D <= 16
@@ -405,9 +406,9 @@ def test_colour_corrections_and_files_on_the_card(tmp_path):
     ref = dt.ColorCheckerAfter2014().swatches_rgb
     checker = np.kron(ref, np.ones((40, 40, 1))).astype(np.float32) * np.array([0.9, 1.0, 0.8], np.float32)
     experimental = dt.ExperimentalColorCorrection()
-    before = warp2pass.launch_count
+    before = tracing.counter("k1.launches")
     corrected = experimental(dt.OpticalImage(checker, width=2.4, height=1.6))
-    assert warp2pass.launch_count == before + 2  # the checker crop's pair
+    assert tracing.counter("k1.launches") == before + 2  # the checker crop's pair
     assert corrected.img.device.type == "cuda"
     flat = corrected.img.cpu().numpy()[5:-5, 5:-5]
     assert np.abs(flat - np.kron(ref, np.ones((40, 40, 1)))[5:-5, 5:-5]).mean() <= 0.02
@@ -457,9 +458,9 @@ def test_deformation_correction_is_the_registration():
     base_img = dt.OpticalImage(base, **meta)
     config = {"N_patches": [2, 2], "rel_overlap": 0.2, "quality_tol": 0.01}
     deformation = dt.DeformationCorrection(base_img, config)
-    before = warp2pass.launch_count
+    before = tracing.counter("k1.launches")
     out = dt.OpticalImage(probe, transformations=[deformation], **meta)
-    assert warp2pass.launch_count == before + 2
+    assert tracing.counter("k1.launches") == before + 2
     direct = dt.ImageRegistration(base_img, **config)(dt.OpticalImage(probe, **meta))
     assert out.img.device.type == "cuda" and torch.equal(out.img, direct.img)
 
@@ -785,14 +786,14 @@ def test_kernel_launches_from_threads_count_exactly():
         for _ in range(per_thread):
             results[k] = warp2pass.warp_rows_t(data, cols, 7)
 
-    before = warp2pass.launch_count
+    before = tracing.counter("k1.launches")
     threads = [threading.Thread(target=launch, args=(k,)) for k in range(len(cases))]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     torch.cuda.synchronize()
-    assert warp2pass.launch_count == before + len(cases) * per_thread
+    assert tracing.counter("k1.launches") == before + len(cases) * per_thread
     for k, (data, cols) in enumerate(cases):
         assert torch.equal(results[k], warp2pass.warp_rows_t_reference(data, cols, 7))
 
@@ -946,10 +947,10 @@ def test_sharded_warp_on_a_card_mesh_matches_the_gather_warp():
     disp = np.stack([D * 0.9 * np.sin(2 * xx), -D * 0.9 * np.cos(yy)]).astype(np.float32)
     coords = identity_grid((H, W), "cuda") + torch.from_numpy(disp).cuda()
     mesh = create_mesh((2, 2), ("rows", "cols"), devices=["cuda:0"] * 4)
-    before = warp2pass.launch_count
+    before = tracing.counter("k1.launches")
     out = sharded_warp(mesh, (H, W), max_disp=D)(img, coords)
     torch.cuda.synchronize()
-    assert warp2pass.launch_count == before
+    assert tracing.counter("k1.launches") == before
     assert out.device == torch.device("cuda", 0)
     assert (out - warp(img, coords, order=1)).abs().max().item() <= 1e-5
 
@@ -985,10 +986,10 @@ def test_build_fused_aligner_launches_k1_twice_per_call():
     probe = torch.roll(base, shifts=(2, -3), dims=(0, 1))
     ta = dt.TranslationAnalysis(dt.OpticalImage(base, width=1.0, height=0.75), N_patches=[3, 4], rel_overlap=0.2)
     aligner = ta.build_fused_aligner(max_disp=40)
-    before = warp2pass.launch_count
+    before = tracing.counter("k1.launches")
     out, shifts, quality = aligner(probe)
     torch.cuda.synchronize()
-    assert warp2pass.launch_count == before + 2
+    assert tracing.counter("k1.launches") == before + 2
     aligned = ta.fused_align(dt.OpticalImage(probe, width=1.0, height=0.75), max_disp=40)
-    assert torch.equal(aligned.img, out) and warp2pass.launch_count == before + 4
+    assert torch.equal(aligned.img, out) and tracing.counter("k1.launches") == before + 4
     assert out.is_cuda and bool(torch.isfinite(out).all()) and shifts.shape == (12, 2)

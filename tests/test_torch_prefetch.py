@@ -21,6 +21,7 @@ from darsia_tpu_torch.corrections.shape.curvature import CurvatureCorrection
 from darsia_tpu_torch.ops import warp2pass
 from darsia_tpu_torch.presets.workflows import setup as rig_setup
 from darsia_tpu_torch.presets.workflows.analysis.analysis_context import iter_prefetched_images
+from darsia_tpu_torch.utils import tracing
 from darsia_tpu_torch.utils.prefetch import PrefetchResult, default_workers, prefetch_map
 
 torch.set_num_threads(1)
@@ -229,8 +230,6 @@ def test_launch_counters_lose_no_increment(monkeypatch):
     by a stub, so the count alone is exercised)."""
     monkeypatch.setattr(warp2pass, "_takes_plain", lambda *a, **k: False)
     monkeypatch.setattr(warp2pass, "_launch", lambda *a, **k: None)
-    monkeypatch.setattr(warp2pass, "launch_count", 0)
-    monkeypatch.setattr(warp2pass, "rows_launch_count", 0)
     data = torch.zeros((1, 4, 8))
     cols = torch.zeros((4, 8))
     per_thread = 300
@@ -240,13 +239,15 @@ def test_launch_counters_lose_no_increment(monkeypatch):
             warp2pass.warp_rows_t(data, cols, 1)
             warp2pass.warp_rows(data[0], cols, 1)
 
+    before = (tracing.counter("k1.launches"), tracing.counter("k2.launches"))
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
         _run([threading.Thread(target=launch) for _ in range(16)])
     finally:
         sys.setswitchinterval(interval)
-    assert warp2pass.launch_count == warp2pass.rows_launch_count == 16 * per_thread
+    after = (tracing.counter("k1.launches"), tracing.counter("k2.launches"))
+    assert after[0] - before[0] == after[1] - before[1] == 16 * per_thread
 
 
 def _run(threads, timeout: float = 60.0) -> None:

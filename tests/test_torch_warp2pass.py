@@ -16,6 +16,7 @@ from darsia_tpu.ops.pallas.warp2pass import warp_two_pass as jax_warp_two_pass
 from darsia_tpu.ops.warp import identity_grid as jax_identity_grid
 from darsia_tpu.ops.warp import warp_backend as jax_warp_backend
 from darsia_tpu_torch.ops import warp2pass
+from darsia_tpu_torch.utils import tracing
 from darsia_tpu_torch.ops.warp import identity_grid, warp_backend
 
 torch.set_num_threads(1)
@@ -107,11 +108,11 @@ def test_warp_backend_kernel_matches_jax_pallas():
 
 def test_cpu_tensor_takes_plain_version_and_counts_nothing():
     data, cols = _rows_case(32, 200, 7)
-    before = warp2pass.launch_count
+    before = tracing.counter("k1.launches")
     out = warp2pass.warp_rows_t(torch.from_numpy(data), torch.from_numpy(cols), 7)
     ref = warp2pass.warp_rows_t_reference(torch.from_numpy(data), torch.from_numpy(cols), 7)
     assert torch.equal(out, ref)
-    assert warp2pass.launch_count == before
+    assert tracing.counter("k1.launches") == before
 
 
 def test_wrapper_rejects_bad_input():

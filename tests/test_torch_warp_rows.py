@@ -15,6 +15,7 @@ import torch
 
 from darsia_tpu.ops.pallas.warp2pass import warp_rows_pallas
 from darsia_tpu_torch.ops import warp2pass
+from darsia_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 
@@ -79,10 +80,10 @@ def test_plain_k2_is_plain_k1_transposed(R, W_in, D, W_out):
 @pytest.mark.parametrize("ring", [False, True])
 def test_cpu_tensor_takes_plain_version_and_counts_nothing(ring):
     data, cols = (torch.from_numpy(a) for a in _rows_case(32, 200, 7))
-    before = (warp2pass.rows_launch_count, warp2pass.ring_launch_count)
+    before = (tracing.counter("k2.launches"), tracing.counter("k3.launches"))
     out = warp2pass.warp_rows(data, cols, 7, ring=ring)
     assert torch.equal(out, warp2pass.warp_rows_reference(data, cols, 7))
-    assert (warp2pass.rows_launch_count, warp2pass.ring_launch_count) == before
+    assert (tracing.counter("k2.launches"), tracing.counter("k3.launches")) == before
 
 
 def test_wrapper_rejects_bad_input():

@@ -48,6 +48,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import darsia_tpu_torch as dt  # noqa: E402
+from darsia_tpu_torch.utils import tracing  # noqa: E402
 
 LAYERS = ("image", "corrections", "restoration", "signals", "analysis", "presets", "utils")
 # bench.py:1133: the two-pass warp against the exact gather warp, on 0-1 data.
@@ -352,10 +353,10 @@ def card_parity(c: Case, w2p, seed: int = 0, device="cuda:0") -> dict:
         return {"worst": 0.0, "launches": 0, "held": 0, "faults": faults, "s": time.perf_counter() - tic,
                 "import_error": True}
     ref = run_case(c, "cpu", seed)
-    w2p.launch_count = 0
+    before = tracing.counter("k1.launches")
     out, calls, faults = k1_held(w2p, lambda: run_case(c, device, seed))
     torch.cuda.synchronize()
-    launches = w2p.launch_count
+    launches = tracing.counter("k1.launches") - before
     worst, diffs = compare(c, ref, out)
     faults = faults + diffs
     if c.where == "card":
