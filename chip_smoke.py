@@ -209,7 +209,8 @@ F. Optimal transport (after phase D), through ``wasserstein_distance`` and the
    512 x 512 (``bench.py:344-362``: blocks of unit mass, weight 2 + sin cos in
    [1, 3]), Newton with AA(5) and the bench's options:
    ``solve_beckmann_problem`` timed, its first call (CG iterations of every
-   pressure solve counted); converged, distance within 1e-3 relative of the
+   pressure solve counted, all of them trips of the kernels, and each
+   kernel's launches); converged, distance within 1e-3 relative of the
    JAX package's 0.697882, 0 <= certified gap (polish 2000 per chunk,
    target 1e-3, at most 2000, one chunk; the bench's 30000 took 85 s) <=
    raw gap; peak GiB.  F2: the smooth
@@ -226,8 +227,9 @@ F. Optimal transport (after phase D), through ``wasserstein_distance`` and the
    JAX tests' 12^3 case scaled): seconds, iterations, distance, peak GiB.  No
    K1 launch (counted).  With ``--profile``: tensor ops per solve, per Newton
    and per CG iteration, a profile of a short solve (busy, idle share, the
-   coarsest multigrid level's share), and one V-cycle timed with its
-   coarsest level as a matrix and as sweeps, in turns.
+   coarsest multigrid level's share), and at the converged mobility one
+   CG trip of the kernels, its coarsest level's product and the hierarchy's
+   build on the card timed.
 
 G. Batched W1 and the cross-run comparison (after phase F).  The bench's
    batch row (``bench.py:485-521``) uncut: 8 pairs at 256 x 256 (the blocks
@@ -587,6 +589,21 @@ R. The device-parity sweep (after phase Q): every case of
    card and host cases, the worst ratio of difference to tolerance and the
    seconds, then the phase's seconds; any miss fails the script.
 
+S. The pressure solve's CG-trip kernels (``csrc/tpfa_mg.cu``; after phase
+   G) against their plain versions on the same state, at the shapes the
+   main path runs: the W1 benchmark cell's 1024 pairs at 120 x 280
+   (per-pair faces), F1's one problem at 512 x 512 (shared faces) and G1's
+   8 pairs at 256 x 256, seeded faces over three decades.  The coarsest
+   level's matrix against ``tpfa_mg_hierarchy``'s; after three trips of the
+   mirror (``FusedMGPCG(kernels=False)``), each step of a trip from the
+   mirror's state (A p, the update, the V-cycle, the direction, the trip's
+   end), and per V-cycle level the pre pass (x and the restriction) and the
+   post pass against the tensor V-cycle's own steps on the kernels' inputs:
+   within 1e-5 of the largest value, the flags equal.  At the cell's shape
+   each kernel is timed (CUDA events, device-paced) beside its plain version
+   and its byte bound.  In F1 and G1 each kernel's launches are counted from
+   0 and their sum held to the program's ``beckmann.mg_launches``.
+
 Every launch count (the counters ``k1.launches``, ``k2.launches`` and
 ``k3.launches`` of ``darsia_tpu_torch/utils/tracing.py``, read from a mark
 that ``reset_counts`` sets) is set to 0 just before each path of phases 3, 5-7,
@@ -595,8 +612,10 @@ of R and read just after it (in M5 the worker's process counts from its
 start); the ``kernels`` line's K1 launches are their sum, 586 before phase
 E, 28 in it, none in F or G, 162 in H, 120 in I, 216 in J, 84 in K, 168 in
 L, 80 in M, 38 in N, none in O, 22 in P, 80 in Q and 84 in R (1668;
-checked exactly).  Each of phases 8-12, 14-20, A-R prints its seconds.  The
-second-to-last line is a JSON object of per-kernel results; the last line is
+checked exactly).  Each of phases 8-12, 14-20, A-S prints its seconds.  The
+second-to-last line is a JSON object of per-kernel results (K1-K3, then the
+seven kernels of phase S with their launches in F1 and G1, their worst
+difference there and their times at the cell's shape); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
 
@@ -3015,18 +3034,29 @@ def ot_gaussians(n: int) -> tuple:
 
 def pcg_counter(bk):
     """Count the iterations of every pressure solve's CG loop: wraps the
-    ``iterate_while`` that ``beckmann_kernels`` calls; returns (counts, undo)."""
+    ``iterate_while`` that ``beckmann_kernels`` calls and, where it has one,
+    its kernels' loop ``mg_pcg_fused``; returns (counts, undo)."""
     counts, original = [], bk.iterate_while
+    fused = getattr(bk, "mg_pcg_fused", None)
 
     def counting(cond, body, state, maxiter, start=0):
         out, it = original(cond, body, state, maxiter, start)
         counts.append(it)
         return out, it
 
+    def counting_fused(*args, **kwargs):
+        x, trips = fused(*args, **kwargs)
+        counts.append(int(trips.max()) if trips.size else 0)
+        return x, trips
+
     bk.iterate_while = counting
+    if fused is not None:
+        bk.mg_pcg_fused = counting_fused
 
     def undo():
         bk.iterate_while = original
+        if fused is not None:
+            bk.mg_pcg_fused = fused
 
     return counts, undo
 
@@ -3085,6 +3115,8 @@ def phase_transport(dt, device, card: str, profile) -> dict:
     solver = dt.BeckmannNewtonSolver(dt.generate_grid(dst_img), weight_img, F_NEWTON)
     mass_diff = dst_img.img - src_img.img
     counts, undo = pcg_counter(bk)
+    launches, undo_launches = mg_launch_counter(bk)
+    kernel_trips = mg_kernel_trips()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
@@ -3093,7 +3125,12 @@ def phase_transport(dt, device, card: str, profile) -> dict:
         torch.cuda.synchronize()
     finally:
         undo()
+        undo_launches()
     f1_s = time.perf_counter() - t0
+    kernel_trips = mg_kernel_trips() - kernel_trips
+    if not kernel_trips > 0 or kernel_trips != sum(counts):
+        raise AssertionError(f"F1: {kernel_trips} CG trips in the kernels, {sum(counts)} counted")
+    check_mg_launches(launches, kernel_trips, "F1")
     peak = torch.cuda.max_memory_allocated(device) / 2**30
     if fluxes[0].device.type != "cuda" or pressure.device.type != "cuda":
         raise AssertionError("F1: the solve's fields are not on the card")
@@ -3108,7 +3145,10 @@ def phase_transport(dt, device, card: str, profile) -> dict:
     if not 0.0 <= gap <= gap_raw:
         raise AssertionError(f"F1: gap {gap} outside [0, gap_raw {gap_raw}]")
     pcg = np.array(counts[1:])  # the Darcy initialization's solve first
-    out["F1"] = {"s": f1_s, "iterations": iterations, "distance": distance, "pcg_mean": float(pcg.mean())}
+    out["F1"] = {
+        "s": f1_s, "iterations": iterations, "distance": distance, "pcg_mean": float(pcg.mean()),
+        "mg_launches": launches,
+    }
     print(
         f"F1. W1 Newton AA(5), weighted blocks {n}x{n} on {card}: {f1_s:.3f} s per solve "
         f"(the first: no warm-up call), "
@@ -3119,11 +3159,15 @@ def phase_transport(dt, device, card: str, profile) -> dict:
         f"{gap_raw:.6f}, gap {gap:.6f} (polish {polish_s:.2f} s, {F1_POLISH}); peak {peak:.3f} GiB"
     )
     if profile is not None:
+        from darsia_tpu_torch.utils import tracing
+
+        mark = tracing.counter("beckmann.mg_launches")
         with OpCounter() as ops:
             solver.solve_beckmann_problem(mass_diff)
-        per_solve = ops.n
+        per_solve = ops.n + tracing.counter("beckmann.mg_launches") - mark
         print(
-            f"F1 ops: {per_solve} tensor ops per solve (one more solve, views excluded), "
+            f"F1 ops: {per_solve} tensor ops and CG-trip kernel launches per solve (one more "
+            f"solve, views excluded; {ops.n} tensor ops), "
             f"{per_solve / iterations:.0f} per Newton iteration, "
             f"{per_solve / max(int(np.sum(counts)), 1):.0f} per CG iteration"
         )
@@ -3304,10 +3348,12 @@ def ot_batch(n: int, B: int, seed: int = 0) -> tuple:
 
 
 def cg_launches(dt, src, dst) -> float:
-    """Launches (tensor ops, views excluded) of one CG iteration of the
-    batch's pressure solve (the solver's own: MG-PCG at 256^2) at its first
-    Newton mobility: two fixed-count solves (tol 0) of 2 and 4 iterations,
-    differenced."""
+    """Launches (tensor ops, views excluded, and the pressure solve's own
+    kernels) of one CG iteration of the batch's pressure solve (the solver's
+    own: MG-PCG at 256^2) at its first Newton mobility: two fixed-count
+    solves (tol 0) of 2 and 4 iterations, differenced."""
+    from darsia_tpu_torch.utils import tracing
+
     n = src.shape[-1]
     counts = []
     for maxiter in (2, 4):
@@ -3318,29 +3364,90 @@ def cg_launches(dt, src, dst) -> float:
         p = solver.pressure_solve(c.base_face_weights, rhs, torch.zeros_like(rhs))
         weights = solver._cell_based_face_weights(solver.flux_from_pressure(c.base_face_weights, p))
         torch.cuda.synchronize()
+        kernels = tracing.counter("beckmann.mg_launches")
         with OpCounter() as counter:
             solver.pressure_solve(weights, rhs, torch.zeros_like(rhs))
             torch.cuda.synchronize()
-        counts.append(counter.n)
+        counts.append(counter.n + tracing.counter("beckmann.mg_launches") - kernels)
     return (counts[1] - counts[0]) / 2
 
 
 def batch_cg_counter(bk):
     """Record each batched CG solve's per-pair iteration counts: wraps the
-    ``iterate_while_batched`` that ``beckmann_kernels`` calls."""
+    ``iterate_while_batched`` that ``beckmann_kernels`` calls and, where it
+    has one, its kernels' loop ``mg_pcg_fused``."""
     counts, original = [], bk.iterate_while_batched
+    fused = getattr(bk, "mg_pcg_fused", None)
 
     def counting(*args, **kwargs):
         out = original(*args, **kwargs)
         counts.append(out[1])
         return out
 
+    def counting_fused(*args, **kwargs):
+        out = fused(*args, **kwargs)
+        counts.append(out[1])
+        return out
+
     bk.iterate_while_batched = counting
+    if fused is not None:
+        bk.mg_pcg_fused = counting_fused
 
     def undo():
         bk.iterate_while_batched = original
+        if fused is not None:
+            bk.mg_pcg_fused = fused
 
     return counts, undo
+
+
+def mg_launch_counter(bk):
+    """Count the launches of each CG-trip kernel (``csrc/tpfa_mg.cu``) by
+    its C entry, and those of ``beckmann.mg_launches`` from a mark set now:
+    wraps the ``_launch_kernel`` that ``beckmann_kernels`` calls; returns
+    (counts, undo)."""
+    from darsia_tpu_torch.utils import tracing
+
+    counts = {name: 0 for name in CG_KERNELS}
+    original = bk._launch_kernel
+    mark = tracing.counter("beckmann.mg_launches")
+
+    def counting(name, args, stream):
+        original(name, args, stream)
+        counts[name.removeprefix("darsia_")] += 1
+
+    bk._launch_kernel = counting
+
+    def undo():
+        bk._launch_kernel = original
+        counts["beckmann.mg_launches"] = tracing.counter("beckmann.mg_launches") - mark
+
+    return counts, undo
+
+
+def check_mg_launches(launches: dict, trips: int, where: str) -> None:
+    """The CG-trip kernels' launches in a main-path run: the program's
+    ``beckmann.mg_launches`` equal to their sum, and each trip's kernels
+    (A p, the update, the direction, the finalize) launched at least once a
+    trip."""
+    counter = launches.pop("beckmann.mg_launches")
+    if counter != sum(launches.values()):
+        raise AssertionError(f"{where}: beckmann.mg_launches {counter}, launches {launches}")
+    for name in ("tpfa_apply", "cg_update", "cg_direction", "cg_finalize"):
+        if launches[name] < trips:
+            raise AssertionError(f"{where}: {launches[name]} launches of {name}, {trips} CG trips")
+    if not launches["mg_pre"] >= trips or launches["mg_pre"] != launches["mg_post"]:
+        raise AssertionError(f"{where}: V-cycle launches {launches}, {trips} CG trips")
+    if launches["mg_coarse_matrix"] < 1:
+        raise AssertionError(f"{where}: the coarsest level's matrix was never built: {launches}")
+
+
+def mg_kernel_trips() -> int:
+    """CG trips run by the pressure solve's kernels so far (the counter
+    ``beckmann.mg_kernel_trips``)."""
+    from darsia_tpu_torch.utils import tracing
+
+    return tracing.counter("beckmann.mg_kernel_trips")
 
 
 def comparison_maps(dt, root: Path, n: int) -> SimpleNamespace:
@@ -3398,6 +3505,8 @@ def phase_batched(dt, device, card: str, profile) -> dict:
     solve(src, dst)
     warm_s = time.perf_counter() - t0
     counts, undo = batch_cg_counter(bk)
+    launches, undo_launches = mg_launch_counter(bk)
+    kernel_trips = mg_kernel_trips()
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
@@ -3407,11 +3516,19 @@ def phase_batched(dt, device, card: str, profile) -> dict:
         batch_s = time.perf_counter() - t0
     finally:
         undo()
+        undo_launches()
     if distances.shape != (G_B,) or not np.all(np.isfinite(distances)) or not np.all(statuses == 1):
         raise AssertionError(f"G: distances {distances}, statuses {statuses}: not all converged")
     trips = np.array([int(c.max()) for c in counts])
+    kernel_trips = mg_kernel_trips() - kernel_trips
+    if not kernel_trips > 0 or kernel_trips != int(trips.sum()):
+        raise AssertionError(f"G1: {kernel_trips} CG trips in the kernels, {int(trips.sum())} counted")
+    check_mg_launches(launches, kernel_trips, "G1")
     per_pair = np.sum(counts, axis=0)
-    out["batch8"] = {"s": batch_s, "pairs_per_s": G_B / batch_s, "iterations": int(iterations.max())}
+    out["batch8"] = {
+        "s": batch_s, "pairs_per_s": G_B / batch_s, "iterations": int(iterations.max()),
+        "mg_launches": launches,
+    }
     print(
         f"G1. batched W1, B = {G_B} at {n}x{n} on {card}: {batch_s:.3f} s per batch "
         f"(warm-up {warm_s:.3f} s), "
@@ -3517,6 +3634,211 @@ def phase_batched(dt, device, card: str, profile) -> dict:
             profile_batch(dt, src_all[:B], dst_all[:B], profile, f"w1_batch{B}")
     out["phase_s"] = time.perf_counter() - tic
     print(f"batched W1 and comparison on {card}: phase {out['phase_s']:.2f} s")
+    return out
+
+
+# Phase S: the pressure solve's CG-trip kernels (``csrc/tpfa_mg.cu``), each
+# step against its plain version (``FusedMGPCG(kernels=False)``, and per
+# V-cycle level the tensor V-cycle's own steps) at the shapes the main path
+# runs: the W1 benchmark cell's 1024 pairs at 120 x 280 (per-pair faces),
+# F1's one problem at 512^2 (shared faces, B = 1) and G1's 8 pairs at 256^2.
+# A pass of a kernel differs from its plain version by a few float32
+# roundings of its largest term: 1e-5 of the output's largest value.
+S_CASES = (("cell", 1024, (120, 280)), ("F1", 1, (512, 512)), ("G1", G_B, (G_N, G_N)))
+S_TOL = 1e-5
+#: The CG-trip kernels by their C entry (``darsia_<name>``), as the
+#: ``kernels`` line names them.
+CG_KERNELS = (
+    "tpfa_apply", "cg_update", "mg_pre", "mg_post", "cg_direction", "cg_finalize",
+    "mg_coarse_matrix",
+)
+#: The per-pair state of ``FusedMGPCG`` that a step reads or writes.
+S_STATE = ("X", "R", "P", "AP", "Z", "sel", "mx", "rn", "rz", "rz_next", "thr", "act")
+
+
+def mg_problem(B: int, shape: tuple, device, seed: int = 0) -> tuple:
+    """Seeded transmissibilities spanning three decades (per pair for B > 1,
+    shared for B = 1, as a single solve has them) and standard normal
+    right-hand sides ``(B, h, w)``."""
+    rng = np.random.default_rng(seed)
+    lead = (B,) if B > 1 else ()
+    faces = [(shape[0] - 1, shape[1]), (shape[0], shape[1] - 1)]
+    trans = tuple(
+        torch.from_numpy((10.0 ** rng.uniform(-1.5, 1.5, lead + f)).astype(np.float32)).to(device)
+        for f in faces
+    )
+    rhs = torch.from_numpy(rng.standard_normal((B,) + shape).astype(np.float32)).to(device)
+    return trans, rhs
+
+
+def mg_state_copy(dst, src) -> None:
+    """``dst``'s state := ``src``'s, per-pair partial sums folded into their
+    first block (what a step reads of them is their sum)."""
+    for name in S_STATE:
+        getattr(dst, name).copy_(getattr(src, name))
+    for name in ("part_a", "part_u", "part_v"):
+        d, s = getattr(dst, name), getattr(src, name)
+        d.zero_()
+        d[:, 0] = s.sum(dim=1)
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over the largest |want|."""
+    scale = float(want.abs().max()) or 1.0
+    return float((got.double() - want.double()).abs().max()) / scale
+
+
+def mg_level_steps(bk, ker) -> list:
+    """Per V-cycle level above the coarsest, on the kernels' own inputs of
+    their last V-cycle (``vcycle(1)``): ``(b, x_pre, rc, post)``: the
+    level's right-hand side, and the plain pre pass (``nu`` sweeps from zero,
+    the residual restricted) and post pass (the kernels' pre-smoothed x plus
+    the prolonged coarse correction, ``nu`` sweeps) as functions."""
+    h, nu = ker.hierarchy, ker.nu
+    out = []
+    for l in range(len(ker.trans) - 1):
+        b = ker.R[ker.sel.long() ^ 1, ker._ar] if l == 0 else ker.rc[l]
+        t, step = h.trans[l], h.steps[l]
+        shape = tuple(b.shape)
+
+        def pre(b=b, t=t, step=step):
+            x = bk._tpfa_sweeps(None, b, t, step, 2, nu)
+            return x, bk._restrict_cells(bk._tpfa_residual(x, b, t, 2), 2)
+
+        def post(b=b, t=t, step=step, l=l, shape=shape):
+            ec = bk._prolong_cells(ker.zl[l + 1].float(), shape, 2)
+            return bk._tpfa_sweeps(ker.xs[l] + ec, b, t, step, 2, nu)
+
+        out.append((b, pre, post))
+    return out
+
+
+def cg_kernel_rows(bk, ker, ref, trans, levels: int) -> list:
+    """``(kernel, label, launch, plain, bytes)`` for each launch of a CG trip
+    (both passes of every V-cycle level) and the coarsest level's matrix:
+    each input read once, each output written once."""
+
+    def size(t) -> int:
+        return t.numel() * t.element_size()
+
+    field = size(ker.Z)
+    rows = [
+        ("tpfa_apply", "A p", ker.apply, ref.apply, 2 * field + sum(size(t) for t in ker.trans[0])),
+        ("cg_update", "x, r update", ker.update, ref.update, 6 * field),
+    ]
+    for l, (b, pre, post) in enumerate(mg_level_steps(bk, ker)):
+        t = sum(size(x) for x in ker.trans[l])
+        flip = int(l == 0)
+        # pre reads b and the faces, writes its x and the restriction; post
+        # reads b, that x, the faces and the coarse correction, writes z.
+        rows.append(("mg_pre", f"pre {ker.shapes[l]}", lambda a=ker._pre[l][flip]: ker._launch(*a),
+                     pre, 2 * size(b) + t + size(ker.rc[l + 1])))
+        rows.append(("mg_post", f"post {ker.shapes[l]}",
+                     lambda a=ker._post[l][flip]: ker._launch(*a), post,
+                     3 * size(b) + t + size(ker.zl[l + 1])))
+    rows.append(("cg_direction", "direction", ker.direction, ref.direction, 3 * field))
+    rows.append(("cg_finalize", "finalize", ker.finalize, ref.finalize,
+                 5 * 4 * ker.B + size(ker.part_u)))
+    coarse = ker.hierarchy.coarse
+    if coarse is not None:
+        faces = sum(size(t) for t in ker.trans[-1])
+        sweeps = ker.nu + ker.nu_coarse
+        # Its plain version: the tensor hierarchy's build less its levels'.
+        rows.append(("mg_coarse_matrix", f"coarse matrix {ker.shapes[-1]}",
+                     lambda: bk.mg_coarse_matrix(ker.trans[-1], sweeps),
+                     lambda: bk.tpfa_mg_hierarchy(trans, 2, levels), size(coarse) + faces))
+    return rows
+
+
+def phase_cg_kernels(dt, device, card: str) -> dict:
+    """Phase S: each step of the pressure solve's CG trip in the kernels
+    against its plain version, at the main path's shapes; the kernels timed
+    at the W1 cell's shape."""
+    from darsia_tpu_torch.measure import beckmann_kernels as bk
+
+    tic = time.perf_counter()
+    worst = {name: 0.0 for name in CG_KERNELS}
+
+    def check(name, got, want, what) -> None:
+        err = rel_err(got, want)
+        worst[name] = max(worst[name], err)
+        if not err <= S_TOL:
+            raise AssertionError(f"S: {what}: max |diff| {err:.3e} of the largest value > {S_TOL}")
+
+    timed = {}
+    for case, B, shape in S_CASES:
+        trans, rhs = mg_problem(B, shape, device)
+        levels = bk.tpfa_mg_levels(shape)
+        hierarchy = bk.mg_hierarchy_on_card(trans, levels)
+        plain_h = bk.tpfa_mg_hierarchy(trans, 2, levels)
+        if hierarchy.coarse is None or plain_h.coarse is None:
+            raise AssertionError(f"S {case}: no coarsest-level matrix at {levels} levels")
+        check("mg_coarse_matrix", hierarchy.coarse, plain_h.coarse, f"{case} coarse matrix")
+        ker, ref = (bk.FusedMGPCG(hierarchy, B, shape, 2, 40, kernels=k) for k in (True, False))
+        x0 = torch.zeros_like(rhs)
+        for solver in (ker, ref):
+            solver.start(rhs, x0, 1e-6)
+        # A few trips of the mirror, so that the steps see a CG state.
+        for _ in range(3):
+            ref.trip()
+        for step in ("apply", "update", "vcycle", "direction", "finalize"):
+            mg_state_copy(ker, ref)
+            ker.act.fill_(1)
+            ref.act.fill_(1)
+            for solver in (ker, ref):
+                getattr(solver, step)(*((1,) if step == "vcycle" else ()))
+            torch.cuda.synchronize()
+            what = f"{case} {step}"
+            if step == "apply":
+                check("tpfa_apply", ker.AP, ref.AP, what)
+                check("tpfa_apply", ker.part_a.sum(1), ref.part_a.sum(1), what + " <p, A p>")
+            elif step == "update":
+                check("cg_update", ker.X, ref.X, what + " x")
+                check("cg_update", ker.R, ref.R, what + " r")
+                check("cg_update", ker.part_u.sum(1), ref.part_u.sum(1), what + " sums")
+            elif step == "vcycle":
+                check("mg_post", ker.Z, ref.Z, what)
+                check("mg_post", ker.part_v.sum(1), ref.part_v.sum(1), what + " sums")
+                for l, (b, pre, post) in enumerate(mg_level_steps(bk, ker)):
+                    x, rc = pre()
+                    check("mg_pre", ker.xs[l], x, f"{case} pre level {l} x")
+                    check("mg_pre", ker.rc[l + 1], rc, f"{case} pre level {l} restriction")
+                    check("mg_post", ker.zl[l], post(), f"{case} post level {l}")
+            elif step == "direction":
+                check("cg_direction", ker.P, ref.P, what)
+                check("cg_direction", ker.rz_next, ref.rz_next, what + " rz")
+            else:
+                for name in ("sel", "act"):
+                    if not torch.equal(getattr(ker, name), getattr(ref, name)):
+                        raise AssertionError(f"S: {what}: {name} differs")
+                for name in ("mx", "rn", "rz"):
+                    check("cg_finalize", getattr(ker, name), getattr(ref, name), f"{what} {name}")
+        print(
+            f"S ({case}, B = {B} at {shape[0]}x{shape[1]}, {levels} levels, "
+            f"{'shared' if B == 1 else 'per-pair'} faces): every step and level within "
+            f"{S_TOL:.0e} of the largest value (at {time.perf_counter() - tic:.1f} s)"
+        )
+        if case == "cell":
+            ker.vcycle(1)
+            rows = cg_kernel_rows(bk, ker, ref, trans, levels)
+            for name, label, fn, plain, nbytes in rows:
+                ker.act.fill_(1)
+                ref.act.fill_(1)
+                ms = cuda_ms(fn, 20, device_paced=True)
+                plain_ms = cuda_ms(plain, 5)
+                if name == "mg_coarse_matrix":
+                    plain_ms -= cuda_ms(lambda: bk._mg_levels(trans, 2, levels, bk._OMEGA), 5)
+                bound_ms = nbytes / PEAK_BYTES_S * 1e3
+                print(f"S time {label:>26}: {ms:.4f} ms, bound {bound_ms:.4f} ms "
+                      f"({bound_ms / ms:.0%}), plain {plain_ms:.4f} ms")
+                row = timed.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0})
+                row["ms"] += ms
+                row["plain_ms"] += plain_ms
+                row["bound_ms"] += bound_ms
+        del ker, ref, hierarchy, plain_h
+    out = {name: {"max_rel_err": worst[name], **timed[name]} for name in CG_KERNELS}
+    out["phase_s"] = time.perf_counter() - tic
+    print(f"CG-trip kernels against their plain versions on {card}: phase {out['phase_s']:.2f} s")
     return out
 
 
@@ -7840,17 +8162,21 @@ def profile_batch(dt, src, dst, out_dir: Path, name: str) -> None:
 
 def profile_transport(dt, bk, solver, mass_diff, fluxes, out_dir: Path) -> None:
     """Phase F's profile: torch.profiler over a short Newton solve on F1's
-    problem (the Darcy solve and one iteration), the coarsest multigrid
-    level in a named range; then one V-cycle timed alone, with the coarsest
-    level as its matrix and as its 42 sweeps, in turns."""
+    problem (the Darcy solve and one iteration), the CG trips' coarsest
+    multigrid level (``FusedMGPCG._coarsest``) in a named range; then, at
+    the converged mobility, one CG trip of the kernels, the coarsest level's
+    product alone, and the hierarchy built on the card against its tensor
+    form."""
     from torch.profiler import ProfilerActivity, record_function
     from torch.profiler import profile as torch_profile
 
-    coarsest = bk._tpfa_coarsest
+    from darsia_tpu_torch.utils import tracing
 
-    def marked(*args):
+    coarsest = bk.FusedMGPCG._coarsest
+
+    def marked(self):
         with record_function("mg_coarsest_level"):
-            return coarsest(*args)
+            return coarsest(self)
 
     short = dt.BeckmannNewtonSolver(solver.grid, solver.weight, {**F_NEWTON, "num_iter": 1})
     short.solve_beckmann_problem(mass_diff)  # its constants on the card
@@ -7859,13 +8185,13 @@ def profile_transport(dt, bk, solver, mass_diff, fluxes, out_dir: Path) -> None:
     short.solve_beckmann_problem(mass_diff)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    bk._tpfa_coarsest = marked
+    bk.FusedMGPCG._coarsest = marked
     try:
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             short.solve_beckmann_problem(mass_diff)
             torch.cuda.synchronize()
     finally:
-        bk._tpfa_coarsest = coarsest
+        bk.FusedMGPCG._coarsest = coarsest
     averages = prof.key_averages()
     table = averages.table(sort_by="cuda_time_total", row_limit=20)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -7889,6 +8215,8 @@ def profile_transport(dt, bk, solver, mass_diff, fluxes, out_dir: Path) -> None:
         for e in events
         if e.get("name") == "mg_coarsest_level" and e.get("cat") == "user_annotation"
     )
+    if not ranges:
+        raise AssertionError("profile F1: no CG trip's coarsest level ran in the profiled solve")
     starts = np.array([r[0] for r in ranges])
     ends = np.array([r[1] for r in ranges])
     inside = set()
@@ -7902,38 +8230,48 @@ def profile_transport(dt, bk, solver, mass_diff, fluxes, out_dir: Path) -> None:
         f"profile F1 (Darcy solve + 1 Newton iteration; unprofiled {plain_ms:.1f} ms): "
         f"{len(device)} device ops, device busy {busy_ms:.2f} ms, idle share "
         f"{1 - busy_ms / plain_ms:.3f}; coarsest MG level: {coarse_us / 1e3:.2f} ms of "
-        f"device time ({coarse_us / 1e3 / busy_ms:.3f} of busy), "
-        f"{float((ends - starts).sum()) / 1e3:.1f} ms in its host ranges (profiled)"
+        f"device time ({coarse_us / 1e3 / busy_ms:.3f} of busy) over {len(ranges)} "
+        f"products, {float((ends - starts).sum()) / 1e3:.1f} ms in its host ranges (profiled)"
     )
-    # One V-cycle alone at the converged mobility: the coarsest level as its
-    # matrix (the port) and as 42 sweeps (the JAX package's form), in turns.
+    # At the converged mobility: a CG trip of the kernels (two fixed-count
+    # solves, tol 0, differenced), the coarsest level's product alone, and
+    # the hierarchy's build on the card and in its tensor form.
     trans = solver.transmissibilities(solver._cell_based_face_weights(fluxes))
     levels = solver._mg_levels
-    hierarchy = bk.tpfa_mg_hierarchy(trans, 2, levels)
-    swept = hierarchy._replace(coarse=None)
-    r = mass_diff - mass_diff.mean()
-    times = {"matrix": [], "sweeps": []}
-    for name in ("matrix", "sweeps", "sweeps", "matrix"):
-        h = hierarchy if name == "matrix" else swept
-        times[name].append(cuda_ms(lambda: bk._tpfa_vcycle(r, h, 2, 2, 40), 20))
-    ops = {}
-    for name, h in (("matrix", hierarchy), ("sweeps", swept)):
-        with OpCounter() as counter:
-            bk._tpfa_vcycle(r, h, 2, 2, 40)
-        ops[name] = counter.n
-    rc = torch.ones(tuple(hierarchy.steps[-1].shape), device=mass_diff.device)
-    coarse_ms = {
-        name: cuda_ms(lambda: coarsest(rc, h, 2, 2, 40), 20)
-        for name, h in (("matrix", hierarchy), ("sweeps", swept))
-    }
-    build_ms = cuda_ms(lambda: bk.tpfa_mg_hierarchy(trans, 2, levels), 5)
+    hierarchy = bk.mg_hierarchy_on_card(trans, levels)
+    r = (mass_diff - mass_diff.mean())[None].contiguous()
+    x0 = torch.zeros_like(r)
+    trip = trip_ms(lambda n: bk.mg_pcg_fused(hierarchy, r, x0, 0.0, n), 10, 30)
+    mark = tracing.counter("beckmann.mg_launches")
+    bk.mg_pcg_fused(hierarchy, r, x0, 0.0, 10)
+    short_launches = tracing.counter("beckmann.mg_launches") - mark
+    bk.mg_pcg_fused(hierarchy, r, x0, 0.0, 30)
+    per_trip = (tracing.counter("beckmann.mg_launches") - mark - 2 * short_launches) / 20
+    fused = bk.FusedMGPCG(hierarchy, 1, tuple(r.shape[1:]), 2, 40)
+    fused.start(r, x0, 1e-6)
+    coarse_ms = cuda_ms(fused._coarsest, 20)
+    build_ms = cuda_ms(lambda: bk.mg_hierarchy_on_card(trans, levels), 5)
+    tensor_ms = cuda_ms(lambda: bk.tpfa_mg_hierarchy(trans, 2, levels), 5)
     print(
-        f"V-cycle ({levels} levels, coarsest {tuple(rc.shape)}), ms per cycle back to back, in "
-        f"turns: coarsest as its matrix {times['matrix']} ({ops['matrix']} tensor ops), as 42 "
-        f"sweeps {times['sweeps']} ({ops['sweeps']} tensor ops); the coarsest level alone "
-        f"{coarse_ms['matrix']:.3f} / {coarse_ms['sweeps']:.3f} ms; hierarchy with the matrix "
-        f"built {build_ms:.3f} ms per pressure solve"
+        f"CG trip of the kernels ({levels} levels, coarsest {fused.shapes[-1]}): {trip:.3f} ms "
+        f"(host clock, the flag read included), {per_trip:.1f} kernel launches; the coarsest "
+        f"level's product alone {coarse_ms:.3f} ms; hierarchy built on the card "
+        f"{build_ms:.3f} ms per pressure solve (tensor form {tensor_ms:.3f} ms)"
     )
+
+
+def trip_ms(solve, lo: int, hi: int) -> float:
+    """Host ms a CG trip: two fixed-count solves ``solve(n)``, differenced
+    (the better of two runs each)."""
+    times = []
+    for n in (lo, hi, lo, hi):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        solve(n)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - tic)
+    return 1e3 * (min(times[1::2]) - min(times[0::2])) / (hi - lo)
+
 
 def profile_frame(fn, ms_per_call: float, out_dir: Path, name: str, frames: int = 3):
     """torch.profiler over a few calls of ``fn`` (a frame, or a call of a
@@ -8032,14 +8370,20 @@ def main() -> int:
     card = card_line()
     print(card)
 
+    from darsia_tpu_torch.measure import beckmann_kernels as bk
+    from darsia_tpu_torch.ops import cuda_build
+
     tic = time.perf_counter()
     w2p.build_kernel()
     build_s = time.perf_counter() - tic
     print(f"kernel build + load (K1, K2, K3): {build_s:.2f} s")
-    if w2p.build_info is not None:
-        for line in w2p.build_info["log"].splitlines():
+    tic = time.perf_counter()
+    bk.build_kernels()
+    print(f"kernel build + load (the pressure solve's CG trip): {time.perf_counter() - tic:.2f} s")
+    for stem, log in cuda_build.build_log.items():
+        for line in log.splitlines():
             if any(key in line for key in ("entry function", "registers", "spill")):
-                print("ptxas:", line.strip())
+                print(f"ptxas [{stem}]:", line.strip())
 
     k1 = phase_kernel(w2p)
     rows = phase_rows(w2p)
@@ -8069,8 +8413,9 @@ def main() -> int:
     transport = phase_transport(dt, device, card, args.profile)
     check_counts(read_counts(w2p), {}, "F: transport")
     reset_counts(w2p)
-    phase_batched(dt, device, card, args.profile)
+    batched = phase_batched(dt, device, card, args.profile)
     check_counts(read_counts(w2p), {}, "G: batched W1 and comparison")
+    cg_kernels = phase_cg_kernels(dt, device, card)
     fluidflower = phase_fluidflower(dt, w2p, device, card, args.profile)
     rig_config = phase_rig_config(dt, w2p, lanes, device, card, args.profile, keep=True)
     analysis_run = phase_analysis_run(
@@ -8158,6 +8503,20 @@ def main() -> int:
                 "source": f"darsia_tpu_torch/{source}",
                 "replaces": f"darsia_tpu/ops/pallas/warp2pass.py:{line}",
                 **results[name],
+            }
+        )
+    # The pressure solve's kernels: launches in the main path's runs (F1 and
+    # G1), each read from 0 just before; times at the W1 cell's shape.
+    main_runs = (transport["F1"]["mg_launches"], batched["batch8"]["mg_launches"])
+    for name in CG_KERNELS:
+        kernels.append(
+            {
+                "name": name,
+                "route": "cuda",
+                "source": "darsia_tpu_torch/csrc/tpfa_mg.cu",
+                "replaces": None,
+                "launches": sum(run[name] for run in main_runs),
+                **cg_kernels[name],
             }
         )
     print(json.dumps({"kernels": kernels}))

@@ -22,16 +22,27 @@ iteration at 512^2 is launch-bound: 862 launches, the card idle 90% of the
 time, 535 of them the coarsest level's 42 sweeps on 16 x 16 cells): its
 smoother forms ``b - A x`` with fused multiply-adds, and a small coarsest
 level's sweeps, a fixed linear map, are one float64 matrix product.
+
+On the card, a 2D float32 :func:`tpfa_mg_pcg` runs its CG trips through the
+hand-written kernels of ``csrc/tpfa_mg.cu`` (:class:`FusedMGPCG`): each
+V-cycle level is two fused passes, the CG update three, about 25 fine-field
+passes a trip where the tensor form streams about 224.  The same class holds
+their plain PyTorch mirror, step for step, for the tests.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import cuda_build
 from ..ops.solvers import iterate_while, iterate_while_batched
 from ..utils import tracing
 
@@ -233,7 +244,8 @@ def _pcg(A, M, rhs, x0, tol, maxiter, guard_rz_positive: bool, clamp_beta: bool,
     leaves the problems it marks False at ``x0``'s projection from the
     start.  Launches per iteration do not grow with the batch.  The loop's
     body executions count as ``beckmann.cg_trips`` (read from what the loop
-    already returns to the host)."""
+    already returns to the host), and none of them as a trip of the
+    kernels: ``beckmann.mg_kernel_trips`` gets 0, so that a trace shows it."""
     b = _project(rhs, dim)
     x = _project(x0, dim)
     r = b - A(x)
@@ -268,6 +280,7 @@ def _pcg(A, M, rhs, x0, tol, maxiter, guard_rz_positive: bool, clamp_beta: bool,
         (x, *_), counts = iterate_while_batched(cond, body, (x, r, z, rz), maxiter, active)
         trips = int(counts.max()) if counts.size else 0
     tracing.count("beckmann.cg_trips", trips)
+    tracing.count("beckmann.mg_kernel_trips", 0)
     return x
 
 
@@ -436,6 +449,15 @@ def tpfa_mg_levels(shape: tuple, max_levels: int = 6, coarsest: int = 4) -> int:
     return levels
 
 
+def _mg_levels(trans: tuple, dim: int, levels: int, omega: float) -> tuple:
+    """The Galerkin-coarsened transmissibilities of every level and their
+    Jacobi steps omega / diag."""
+    trans_levels = [tuple(trans)]
+    for _ in range(levels - 1):
+        trans_levels.append(tpfa_coarsen_trans(trans_levels[-1], dim))
+    return trans_levels, [omega / _tpfa_diag(t, dim) for t in trans_levels]
+
+
 def tpfa_mg_hierarchy(
     trans: tuple, dim: int, levels: int, nu: int = 2, nu_coarse: int = 40, omega: float = 0.8
 ) -> MGHierarchy:
@@ -443,10 +465,7 @@ def tpfa_mg_hierarchy(
     steps and (for a small coarsest level) the matrix of its sweeps, built in
     float64 on the unit vectors as one batch (for a batch of problems, B * n
     unit vectors: one matrix per problem)."""
-    trans_levels = [tuple(trans)]
-    for _ in range(levels - 1):
-        trans_levels.append(tpfa_coarsen_trans(trans_levels[-1], dim))
-    steps = [omega / _tpfa_diag(t, dim) for t in trans_levels]
+    trans_levels, steps = _mg_levels(trans, dim, levels, omega)
     coarse = None
     lead = tuple(steps[-1].shape[: steps[-1].dim() - dim])
     shape = tuple(steps[-1].shape[steps[-1].dim() - dim :])
@@ -485,7 +504,19 @@ def tpfa_mg_pcg(
     contrast; the Galerkin V-cycle keeps it roughly grid-independent.
     ``rhs`` may carry a leading batch axis (see :func:`_pcg`; ``active``
     masks it), the transmissibilities too (one hierarchy per problem).
+
+    A 2D float32 problem on a CUDA device with at least two levels runs
+    :func:`mg_pcg_fused` on :func:`mg_hierarchy_on_card` (the kernels of
+    ``csrc/tpfa_mg.cu``; its trips count as ``beckmann.cg_trips`` and
+    ``beckmann.mg_kernel_trips``); any other runs the tensor code.
     """
+    if dim == 2 and rhs.is_cuda and rhs.dtype == torch.float32 and levels > 1:
+        hierarchy = mg_hierarchy_on_card(trans, levels, nu, nu_coarse)
+        x, counts = mg_pcg_fused(hierarchy, rhs, x0, tol, maxiter, nu, nu_coarse, active)
+        trips = int(counts.max()) if counts.size else 0
+        tracing.count("beckmann.cg_trips", trips)
+        tracing.count("beckmann.mg_kernel_trips", trips)
+        return x
     hierarchy = tpfa_mg_hierarchy(trans, dim, levels, nu, nu_coarse)
     return _pcg(
         lambda p: tpfa_apply(p, hierarchy.trans[0], dim),
@@ -499,3 +530,378 @@ def tpfa_mg_pcg(
         dim=dim,
         active=active,
     )
+
+
+# --------------------------------------------------------------------------
+# The CG trip in hand-written kernels (2D, float32): ``csrc/tpfa_mg.cu``.
+#
+# One trip: A p with <p, A p> (1 launch), the x and r update (1), the V-cycle
+# (per level above the coarsest a pre-smoothing + residual + restriction pass
+# and a correction + post-smoothing pass on the pre-smoothed x; the coarsest
+# level's float64 matrix product), the new direction (1) and the per-pair
+# scalars with the stopping rule (1); the host reads the (B,) flags once a
+# trip, as :func:`~darsia_tpu_torch.ops.solvers.iterate_while_batched` does.
+# The arithmetic is :func:`_pcg`'s with the MG preconditioner, in another
+# order where fusion asks for it: x is stored unprojected, its mean
+# subtracted when it is next read; <r, z - mean z> is <r, z> - mean z * sum r
+# from the V-cycle's last pass; per-pair sums are float64 over per-block
+# float32 partials.  x and r live in two buffers per pair, so that an update
+# whose x is not finite is rejected as _pcg rejects it.
+# --------------------------------------------------------------------------
+
+#: The damped Jacobi weight of the kernels' smoother (tpfa_mg_hierarchy's
+#: default, which tpfa_mg_pcg uses).
+_OMEGA = 0.8
+
+
+_PTR, _INT, _FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: The C entry points of ``csrc/tpfa_mg.cu`` and their argument types, in
+#: the order of its C signatures (the last argument is the stream).
+_ENTRIES = {
+    "darsia_tpfa_apply": [_PTR] * 3 + [_INT] + [_PTR] * 3 + [_INT] * 4 + [_PTR],
+    "darsia_cg_update": [_PTR] * 6 + [_INT] + [_PTR] * 4 + [_INT] * 3 + [_PTR],
+    "darsia_mg_pre": [_PTR] * 2 + [_INT] + [_PTR] * 2 + [_INT] + [_PTR] * 3 + [_INT] * 9
+    + [_FLT, _PTR],
+    "darsia_mg_post": [_PTR] * 2 + [_INT] + [_PTR] * 2 + [_INT] + [_PTR] * 3 + [_INT]
+    + [_PTR] * 2 + [_INT] * 8 + [_FLT, _PTR],
+    "darsia_cg_direction": [_PTR] * 3 + [_INT] + [_PTR] * 3 + [_INT] * 3 + [_PTR],
+    "darsia_cg_finalize": [_PTR] * 8 + [_INT] * 3 + [_PTR],
+    "darsia_mg_coarse_matrix": [_PTR] * 2 + [_INT, _PTR] + [_INT] * 4 + [ctypes.c_double, _PTR],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def build_kernels() -> dict:
+    """Compile (once per version of the source) and load
+    ``csrc/tpfa_mg.cu``, in the span ``beckmann.build``; its C entry points
+    by name."""
+    return cuda_build.load({"tpfa_mg": _ENTRIES}, "beckmann.build")
+
+
+def _launch_kernel(name: str, args: tuple, stream: int) -> None:
+    """Launch C entry ``name`` of ``csrc/tpfa_mg.cu`` on ``stream``; raise on
+    its error.  Counted as ``beckmann.mg_launches``."""
+    err = build_kernels()[name](*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    tracing.count("beckmann.mg_launches")
+
+
+def mg_hierarchy_on_card(trans: tuple, levels: int, nu: int = 2, nu_coarse: int = 40
+                         ) -> MGHierarchy:
+    """:func:`tpfa_mg_hierarchy` of 2D float32 transmissibilities on a CUDA
+    device, the coarsest level's matrix (its ``nu + nu_coarse`` sweeps on
+    each unit vector, float64) built by one kernel where the tensor form
+    takes about 400 launches on tiny arrays; the same matrix up to float64
+    rounding."""
+    trans_levels, steps = _mg_levels(trans, 2, levels, _OMEGA)
+    h, w = steps[-1].shape[-2:]
+    if h * w > COARSE_MATRIX_CELLS:
+        return MGHierarchy(trans_levels, steps, None)
+    return MGHierarchy(trans_levels, steps, mg_coarse_matrix(trans_levels[-1], nu + nu_coarse))
+
+
+def mg_coarse_matrix(trans: tuple, sweeps: int) -> torch.Tensor:
+    """The float64 matrix of ``sweeps`` damped Jacobi sweeps from zero on
+    the 2D float32 transmissibilities ``trans`` of a CUDA device (row i: the
+    sweeps applied to unit vector i), ``(n, n)``, or ``(B, n, n)`` for faces
+    with a batch axis; one launch."""
+    t0, t1 = (t.contiguous() for t in trans)
+    lead = tuple(t0.shape[:-2])
+    h, w = t0.shape[-2] + 1, t0.shape[-1]
+    coarse = torch.empty(lead + (h * w, h * w), dtype=torch.float64, device=t0.device)
+    with torch.cuda.device(t0.device):
+        _launch_kernel("darsia_mg_coarse_matrix", (
+            t0.data_ptr(), t1.data_ptr(), int(not lead), coarse.data_ptr(),
+            lead[0] if lead else 1, h, w, sweeps, _OMEGA,
+        ), torch.cuda.current_stream(t0.device).cuda_stream)
+    return coarse
+
+
+#: Most cells of a V-cycle tile with its halo: six float32 arrays of them in
+#: shared memory, 37 KB, so that six blocks share an SM (on the card, six
+#: blocks of 1440-cell tiles beat four of 2048-cell ones at the finest level
+#: of the W1 benchmark's grid).
+_TILE_CELLS = 1536
+
+
+@functools.lru_cache(maxsize=None)
+def _mg_tile(h: int, w: int, halo: int) -> tuple:
+    """``(TH, TW, tiles_h, tiles_w)``: the even tile whose tiles of an
+    ``(h, w)`` level, each with its halo, keep the kernels' 32 x 8 threads
+    busiest: the fewest thread slots (region rows rounded up to 8, columns
+    to 32) over all tiles, a block's fixed cost (its loads' latency, its
+    barriers) counted as 256."""
+    best = None
+    for th in range(2, min(64, h + h % 2) + 1, 2):
+        for tw in range(2, min(256, w + w % 2) + 1, 2):
+            rh, rw = th + 2 * halo, tw + 2 * halo
+            if rh * rw > _TILE_CELLS:
+                break
+            nh, nw = -(-h // th), -(-w // tw)
+            cost = nh * nw * (-(-rh // 8) * 8 * -(-rw // 32) * 32 + 256)
+            if best is None or cost < best[0]:
+                best = (cost, th, tw, nh, nw)
+    if best is None:
+        raise ValueError(f"no V-cycle tile fits a halo of {halo} cells")
+    return best[1:]
+
+
+def _blocks(n: int) -> int:
+    """Blocks per pair of a pointwise kernel (256 threads, ~4 cells each)."""
+    return min(512, max(1, -(-n // 1024)))
+
+
+class FusedMGPCG:
+    """State and steps of the kernels' CG for a batch of ``B`` 2D problems
+    on one hierarchy (:func:`tpfa_mg_hierarchy`, per-pair or shared
+    transmissibilities), with their plain PyTorch mirror.
+
+    ``kernels=True`` launches ``csrc/tpfa_mg.cu`` (CUDA tensors);
+    ``kernels=False`` computes each step with tensor operations on the same
+    buffers, in the kernels' order of operations (the V-cycle as
+    :func:`_tpfa_vcycle`, whose values the fused passes reproduce), on any
+    device.  Buffers: ``X``, ``R`` ``(2, B, h, w)`` (pair b's iterate in
+    buffer ``sel[b]``, stored unprojected with mean ``mx[b]``), ``P``,
+    ``AP``, ``Z`` ``(B, h, w)``; per pair ``rz``, ``rn`` (|r|), ``thr`` (the
+    stopping threshold), ``act`` (uint8: the pair still iterates); float64
+    partial sums ``part_a`` (<p, A p>), ``part_u`` (sum x, |x|^2, |r|^2 of
+    the update), ``part_v`` (sum z, <r, z>, sum r of the V-cycle).
+    """
+
+    def __init__(self, hierarchy: MGHierarchy, B: int, shape: tuple, nu: int, nu_coarse: int,
+                 kernels: bool = True) -> None:
+        self.hierarchy, self.nu, self.nu_coarse, self.kernels = hierarchy, nu, nu_coarse, kernels
+        self.B, (self.h, self.w) = B, shape
+        self.n = self.h * self.w
+        self.trans = [tuple(t.contiguous() for t in level) for level in hierarchy.trans]
+        for t0, t1 in self.trans:
+            if t0.dim() == 3 and t0.shape[0] != B:
+                raise ValueError(f"transmissibilities for {t0.shape[0]} problems, {B} given")
+        self.shared = int(self.trans[0][0].dim() == 2)
+        dev = self.trans[0][0].device
+        if kernels and (dev.type != "cuda" or self.trans[0][0].dtype != torch.float32
+                        or B > 65535):
+            raise ValueError("the CG-trip kernels take float32 CUDA tensors and at most 65535 "
+                             f"problems; got {self.trans[0][0].dtype} on {dev}, {B} problems")
+        f32 = dict(dtype=torch.float32, device=dev)
+        f64 = dict(dtype=torch.float64, device=dev)
+        field = (B, self.h, self.w)
+        self.X, self.R = torch.zeros((2,) + field, **f32), torch.zeros((2,) + field, **f32)
+        self.P, self.AP, self.Z = (torch.zeros(field, **f32) for _ in range(3))
+        self.sel = torch.zeros(B, dtype=torch.int32, device=dev)
+        self.mx, self.rn, self.rz, self.rz_next, self.thr = (torch.zeros(B, **f32) for _ in range(5))
+        self.act = torch.ones(B, dtype=torch.uint8, device=dev)
+        self.nblk = _blocks(self.n)
+        self.shapes = [tuple(s.shape[-2:]) for s in hierarchy.steps]
+        post0 = _mg_tile(self.h, self.w, nu)
+        self.part_a = torch.zeros((B, self.nblk), **f64)
+        self.part_u = torch.zeros((B, self.nblk, 3), **f64)
+        self.part_v = torch.zeros((B, post0[2] * post0[3], 3), **f64)
+        self._ar = torch.arange(B, device=dev)
+        if kernels:
+            self._plan_launches(f32, f64)
+
+    # ------------------------------------------------------------ set-up
+
+    def start(self, rhs: torch.Tensor, x0: torch.Tensor, tol: float,
+              active: Optional[torch.Tensor] = None) -> None:
+        """The projected start, its residual and preconditioned residual,
+        the first direction, and the stopping rule on them (``active``
+        holds some pairs still from the start)."""
+        b, x = _project(rhs, 2), _project(x0, 2)
+        r = b - tpfa_apply(x, self.trans[0], 2)
+        self.X[0].copy_(x)
+        self.R[0].copy_(r)
+        self.sel.zero_()
+        self.mx.zero_()
+        self.thr.copy_(tol * torch.clamp(_norm(b, 2), min=1e-30))
+        self.act.fill_(1)
+        self.vcycle(flip=0)
+        s = self.part_v.sum(dim=1)
+        zbar = (s[:, 0] / self.n).float()
+        self.rz.copy_((s[:, 1] - zbar.double() * s[:, 2]).float())
+        self.P.copy_(self.Z - zbar[:, None, None])
+        self.rn.copy_(_norm(r, 2))
+        go = (self.rn > self.thr) & torch.isfinite(self.rz) & (torch.abs(self.rz) > 1e-28)
+        if active is not None:
+            go = go & active.to(go.device)
+        self.act.copy_(go)
+
+    def run(self, maxiter: int) -> tuple:
+        """Trips until no pair is active or ``maxiter``; returns the
+        projected solution ``(B, h, w)`` and each pair's trips (numpy)."""
+        counts = np.zeros(self.B, np.int64)
+        for _ in range(maxiter):
+            flags = self.act.cpu().numpy().astype(bool)
+            if not flags.any():
+                break
+            counts += flags
+            self.trip()
+        return self.X[self.sel.long(), self._ar] - self.mx[:, None, None], counts
+
+    def trip(self) -> None:
+        self.apply()
+        self.update()
+        self.vcycle(flip=1)
+        self.direction()
+        self.finalize()
+
+    # ------------------------------------------------------------ the steps
+
+    def _active(self) -> torch.Tensor:
+        return self.act.bool()
+
+    def apply(self) -> None:
+        """``AP = A P`` and ``part_a``: <p, A p> per pair."""
+        if self.kernels:
+            return self._launch(*self._apply)
+        a = self._active()
+        ap = tpfa_apply(self.P, self.trans[0], 2)
+        self.AP[a] = ap[a]
+        self.part_a[a, 0] = (self.P * ap).double().sum(dim=(1, 2))[a]
+
+    def update(self) -> None:
+        """``x <- (x - mx) + alpha p``, ``r <- r - alpha A p`` into the other
+        buffer, alpha = rz / <p, A p>; ``part_u``."""
+        if self.kernels:
+            return self._launch(*self._update)
+        a, ar = self._active(), self._ar
+        pap = self.part_a.sum(dim=1).float()
+        alpha = (self.rz / torch.clamp(pap, min=1e-30))[:, None, None]
+        src = self.sel.long()
+        xn = (self.X[src, ar] - self.mx[:, None, None]) + alpha * self.P
+        rn = self.R[src, ar] - alpha * self.AP
+        dst = 1 - src
+        self.X[dst[a], ar[a]] = xn[a]
+        self.R[dst[a], ar[a]] = rn[a]
+        sums = [xn.double(), (xn * xn).double(), (rn * rn).double()]
+        self.part_u[a, 0] = torch.stack([v.sum(dim=(1, 2)) for v in sums], dim=-1)[a]
+
+    def vcycle(self, flip: int) -> None:
+        """``Z`` = the V-cycle of ``R[sel ^ flip]`` (unprojected) and
+        ``part_v``: sum z, <r, z>, sum r per pair."""
+        if self.kernels:
+            for l in range(len(self.trans) - 1):
+                self._launch(*self._pre[l][flip if l == 0 else 0])
+            self._coarsest()
+            for l in reversed(range(len(self.trans) - 1)):
+                self._launch(*self._post[l][flip if l == 0 else 0])
+            return
+        a = self._active()
+        b = self.R[self.sel.long() ^ flip, self._ar]
+        z = _tpfa_vcycle(b, self.hierarchy, 2, self.nu, self.nu_coarse)
+        self.Z[a] = z[a]
+        sums = [z.double(), (b * z).double(), b.double()]
+        self.part_v[a, 0] = torch.stack([v.sum(dim=(1, 2)) for v in sums], dim=-1)[a]
+
+    def direction(self) -> None:
+        """``P <- (Z - mean Z) + beta P``, beta = rz_next / rz, rz_next =
+        <r, Z - mean Z>."""
+        if self.kernels:
+            return self._launch(*self._direction)
+        a = self._active()
+        s = self.part_v.sum(dim=1)
+        zbar = (s[:, 0] / self.n).float()
+        rzn = (s[:, 1] - zbar.double() * s[:, 2]).float()
+        beta = rzn / self.rz
+        p = (self.Z - zbar[:, None, None]) + beta[:, None, None] * self.P
+        self.P[a] = p[a]
+        self.rz_next[a] = rzn[a]
+
+    def finalize(self) -> None:
+        """Per active pair: keep the update if its x is finite (flip
+        ``sel``, new ``mx`` and ``rn``), take ``rz_next``, and apply the
+        stopping rule to ``act``."""
+        if self.kernels:
+            return self._launch(*self._finalize)
+        a = self._active()
+        s = self.part_u.sum(dim=1)
+        ok = a & torch.isfinite(s[:, 1].float())
+        self.sel.copy_(torch.where(ok, 1 - self.sel, self.sel))
+        self.mx.copy_(torch.where(ok, (s[:, 0] / self.n).float(), self.mx))
+        self.rn.copy_(torch.where(ok, torch.sqrt(s[:, 2]).float(), self.rn))
+        self.rz.copy_(torch.where(a, self.rz_next, self.rz))
+        go = (self.rn > self.thr) & torch.isfinite(self.rz) & (torch.abs(self.rz) > 1e-28)
+        self.act.copy_(a & go)
+
+    # ------------------------------------------------------------ launches
+
+    def _plan_launches(self, f32: dict, f64: dict) -> None:
+        """Every launch's arguments, once per solve (the buffers stay)."""
+        B, L, nu = self.B, len(self.trans), self.nu
+        self._stream = torch.cuda.current_stream(self.X.device).cuda_stream
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        act = ptr(self.act)
+        coarse = self.hierarchy.coarse
+        # Level l's input (the right-hand side) and output; the coarsest
+        # level's are float64 for its matrix.
+        wide = f64 if coarse is not None else f32
+        self.rc = [None] + [torch.zeros((B,) + s, **(wide if l == L - 1 else f32))
+                            for l, s in enumerate(self.shapes) if l > 0]
+        self.zl = [self.Z] + [torch.zeros((B,) + s, **(wide if l == L - 1 else f32))
+                              for l, s in enumerate(self.shapes) if l > 0]
+        # Each level's pre-smoothed x, kept for its post pass.
+        self.xs = [torch.zeros((B,) + s, **f32) for s in self.shapes[:-1]]
+        self._pre, self._post = [], []
+        for l in range(L - 1):
+            (h, w), (t0, t1) = self.shapes[l], self.trans[l]
+            common = (int(t0.dim() == 2), act)
+            pre_tile, post_tile = _mg_tile(h, w, max(nu, 1)), _mg_tile(h, w, nu)
+            last = l + 1 == L - 1
+            pres, posts = [], []
+            for flip in (0, 1):
+                src = (ptr(self.R), ptr(self.sel), flip) if l == 0 else (ptr(self.rc[l]), None, 0)
+                pres.append(("darsia_mg_pre", src + (ptr(t0), ptr(t1)) + common + (
+                    ptr(self.xs[l]), ptr(self.rc[l + 1]), int(last and coarse is not None), B, h,
+                    w, *pre_tile, nu, _OMEGA)))
+                ec = self.zl[l + 1]
+                posts.append(("darsia_mg_post", src + (ptr(t0), ptr(t1)) + common + (
+                    ptr(self.xs[l]), ptr(ec), int(ec.dtype == torch.float64), ptr(self.zl[l]),
+                    ptr(self.part_v) if l == 0 else None, B, h, w, *post_tile, nu, _OMEGA)))
+            self._pre.append(pres)
+            self._post.append(posts)
+        t0, t1 = self.trans[0]
+        n, nb = self.n, self.nblk
+        self._apply = ("darsia_tpfa_apply", (ptr(self.P), ptr(t0), ptr(t1), self.shared, act,
+                                             ptr(self.AP), ptr(self.part_a), B, self.h, self.w, nb))
+        self._update = ("darsia_cg_update", (
+            ptr(self.X), ptr(self.R), ptr(self.sel), ptr(self.P), ptr(self.AP), ptr(self.part_a),
+            nb, ptr(self.rz), ptr(self.mx), act, ptr(self.part_u), B, n, nb))
+        self._direction = ("darsia_cg_direction", (
+            ptr(self.Z), ptr(self.P), ptr(self.part_v), self.part_v.shape[1], ptr(self.rz),
+            ptr(self.rz_next), act, B, n, nb))
+        self._finalize = ("darsia_cg_finalize", (
+            ptr(self.sel), ptr(self.mx), ptr(self.rn), ptr(self.rz), ptr(self.rz_next),
+            ptr(self.thr), act, ptr(self.part_u), nb, B, n))
+
+    def _coarsest(self) -> None:
+        """The coarsest level: its float64 matrix applied to ``rc[-1]`` (one
+        matrix product into ``zl[-1]``), or its sweeps."""
+        rc, out, coarse = self.rc[-1], self.zl[-1], self.hierarchy.coarse
+        if coarse is None:
+            out.copy_(_tpfa_coarsest(rc, self.hierarchy, 2, self.nu, self.nu_coarse))
+        elif coarse.dim() == 2:
+            torch.mm(rc.view(self.B, -1), coarse, out=out.view(self.B, -1))
+        else:
+            torch.bmm(rc.view(self.B, 1, -1), coarse, out=out.view(self.B, 1, -1))
+
+    def _launch(self, name: str, args: tuple) -> None:
+        _launch_kernel(name, args, self._stream)
+
+
+def mg_pcg_fused(hierarchy: MGHierarchy, rhs: torch.Tensor, x0: torch.Tensor, tol: float,
+                 maxiter: int, nu: int = 2, nu_coarse: int = 40,
+                 active: Optional[torch.Tensor] = None, kernels: bool = True) -> tuple:
+    """:func:`_pcg` with the V-cycle preconditioner as :class:`FusedMGPCG`
+    runs it: the kernels (``kernels=True``, CUDA tensors) or their plain
+    mirror.  ``rhs`` is ``(h, w)`` or ``(B, h, w)``; returns the solution in
+    ``rhs``'s shape and each pair's trips (a ``(B,)`` numpy array)."""
+    single = rhs.dim() == 2
+    if single:
+        rhs, x0 = rhs[None], x0[None]
+    with torch.cuda.device(rhs.device) if kernels else contextlib.nullcontext():
+        solver = FusedMGPCG(hierarchy, rhs.shape[0], tuple(rhs.shape[1:]), nu, nu_coarse, kernels)
+        solver.start(rhs, x0, tol, active)
+        x, counts = solver.run(maxiter)
+    return (x[0] if single else x), counts

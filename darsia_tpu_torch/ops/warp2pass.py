@@ -12,9 +12,9 @@ CUDA kernels replace its three ``pallas_call`` sites:
   an untransposed output (``warp_rows_pallas``), on the plain schedule (K2)
   or the ring-buffer schedule (K3, ``ring=True``).  Same function, same bits.
 
-The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, one
-shared library per source in ``csrc/``, all sources at once, into
-``darsia_tpu_torch/_build/`` (plain C entry points, bound with ``ctypes``).
+The two sources are compiled with ``nvcc`` for ``sm_90a`` at first use, one
+shared library each, both at once, into ``darsia_tpu_torch/_build/`` (plain
+C entry points, bound with ``ctypes``; :mod:`.cuda_build`).
 The wrappers launch them for CUDA tensors and take their plain PyTorch
 versions, :func:`warp_rows_t_reference` and :func:`warp_rows_reference`, for
 CPU tensors only.
@@ -23,17 +23,13 @@ CPU tensors only.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
 
 import torch
 
 from ..utils import tracing
+from . import cuda_build
 
 __all__ = [
     "build_kernel",
@@ -47,27 +43,17 @@ __all__ = [
 
 _LANE = 128  # the Pallas lane tile whose window chain fixes the index clamp
 
-_PKG = Path(__file__).resolve().parent.parent
-_CSRC = _PKG / "csrc"
-_BUILD_DIR = _PKG / "_build"
-_NVCC_FLAGS = [
-    "-gencode",
-    "arch=compute_90a,code=sm_90a",
-    "-std=c++17",
-    "-O3",
-    "-shared",
-    "-Xcompiler",
-    "-fPIC",
-    "-Xptxas",
-    "-v",
-]
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-#: C entry point -> (source stem in ``csrc/``, argument types).
-_ENTRIES = {
-    "darsia_warp_rows_t": ("warp_rows_t", [_PTR] * 3 + [_INT] * 6 + [_PTR]),
-    "darsia_warp_rows_t_geometry": ("warp_rows_t", [_INT] * 3 + [_PTR]),
-    "darsia_warp_rows": ("warp_rows", [_PTR] * 3 + [_INT] * 5 + [_PTR]),
-    "darsia_warp_rows_ring": ("warp_rows", [_PTR] * 3 + [_INT] * 5 + [_PTR]),
+#: Source stem in ``csrc/`` -> its C entry points and their argument types.
+_SOURCES = {
+    "warp_rows_t": {
+        "darsia_warp_rows_t": [_PTR] * 3 + [_INT] * 6 + [_PTR],
+        "darsia_warp_rows_t_geometry": [_INT] * 3 + [_PTR],
+    },
+    "warp_rows": {
+        "darsia_warp_rows": [_PTR] * 3 + [_INT] * 5 + [_PTR],
+        "darsia_warp_rows_ring": [_PTR] * 3 + [_INT] * 5 + [_PTR],
+    },
 }
 #: K3 keeps nw chunks of 8 rows x 128 f32 in shared memory; a block can have
 #: at most 227 KB of it on Hopper.
@@ -77,32 +63,15 @@ _MAX_SMEM = 232448
 #: One build at a time: threads that first launch together wait for it.
 _build_lock = threading.Lock()
 
-#: ``{"log": ...}`` of the build in this process (None if the libraries were
-#: already built on disk); the build runs in the span ``k1.build``.
-build_info = None
-
 _entries = None
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = [Path(home) / "bin" / "nvcc"] if home else []
-    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
-    for cand in candidates:
-        if cand.is_file():
-            return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit.")
-    return found
-
-
 def build_kernel() -> dict:
-    """Compile (once per version of the sources and flags) and load every
-    kernel in ``csrc/``; returns the C entry points by name.
+    """Compile (once per version of the sources and flags) and load K1, K2
+    and K3; returns their C entry points by name.
 
-    One ``nvcc`` per source, all started together; threads that call it
-    together wait for one build.
+    One ``nvcc`` per source, both started together, in the span
+    ``k1.build``; threads that call it together wait for one build.
     """
     global _entries
     if _entries is not None:
@@ -114,54 +83,7 @@ def build_kernel() -> dict:
 
 
 def _build_and_bind() -> dict:
-    global build_info
-    sources = sorted(_CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(src.name.encode() + src.read_bytes())
-    tag = digest.hexdigest()[:16]
-    libs = {src.stem: (src, _BUILD_DIR / f"{src.stem}_{tag}.so") for src in sources}
-    todo = {stem: pair for stem, pair in libs.items() if not pair[1].is_file()}
-    if todo:
-        with tracing.span("k1.build", sources=sorted(todo)):
-            build_info = {"log": compile_sources(todo)}
-    loaded = {stem: ctypes.CDLL(str(lib)) for stem, (_, lib) in libs.items()}
-    return {name: bind_entry(loaded[stem], name) for name, (stem, _) in _ENTRIES.items()}
-
-
-def compile_sources(jobs: dict) -> str:
-    """Build ``{name: (source, library)}`` with the kernels' nvcc flags, one
-    ``nvcc`` per source, all started together; returns their ptxas logs.
-    Raises if any fails."""
-    procs = []
-    for name, (src, lib) in jobs.items():
-        lib.parent.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        procs.append((name, tmp, lib, proc))
-    logs, failed = [], []
-    for name, tmp, lib, proc in procs:
-        log = proc.communicate()[0]
-        logs.append(f"[{name}]\n{log}")
-        if proc.returncode == 0:
-            os.replace(tmp, lib)
-        else:
-            failed.append(f"nvcc failed on {name} ({proc.returncode}):\n{log}")
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return "".join(logs)
-
-
-def bind_entry(library: ctypes.CDLL, name: str):
-    """C entry point ``name`` of a loaded kernel library, typed as
-    ``_ENTRIES`` says."""
-    entry = getattr(library, name)
-    entry.argtypes = _ENTRIES[name][1]
-    entry.restype = ctypes.c_int
-    return entry
+    return cuda_build.load(_SOURCES, "k1.build")
 
 
 def _geometry(max_disp) -> tuple[int, int]:

@@ -33,11 +33,12 @@ ROUNDS = 3
 
 def build(designs: dict) -> dict:
     """``{name: C entry}`` of each design's K1."""
+    from darsia_tpu_torch.ops import cuda_build
     from darsia_tpu_torch.ops import warp2pass as w2p
 
-    out_dir = w2p._BUILD_DIR / "designs"
+    out_dir = cuda_build.BUILD_DIR / "designs"
     jobs = {name: (src, out_dir / f"{name}.so") for name, src in designs.items()}
-    log = w2p.compile_sources(jobs)
+    log = cuda_build.compile_sources(jobs)
     name = "?"
     for line in log.splitlines():
         if line.startswith("["):
@@ -45,7 +46,10 @@ def build(designs: dict) -> dict:
         elif any(key in line for key in ("entry function", "registers", "spill")):
             print(f"ptxas [{name}]: {line.strip()}")
     return {
-        name: w2p.bind_entry(ctypes.CDLL(str(lib)), "darsia_warp_rows_t")
+        name: cuda_build.bind_entry(
+            ctypes.CDLL(str(lib)), "darsia_warp_rows_t",
+            w2p._SOURCES["warp_rows_t"]["darsia_warp_rows_t"],
+        )
         for name, (_, lib) in jobs.items()
     }
 
